@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -8,26 +8,58 @@ toolkit's ``nvcc`` and PyTorch built for CUDA.  It imports only ``torch`` and
 printing one JSON line:
 
 1. device  — fails without CUDA; prints ``nvidia-smi`` name and power limit.
-2. build   — compiles every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc.
-3. shapes  — a traced forward (plain engine) of each model records the
+2. build   — compiles every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
+             (one process each, in parallel) and lists each kernel's
+             registers and spills.
+3. shapes  — a traced forward (plain engine) of each CNN records the
              shapes and epilogues the main path gives each kernel.
-4. checks  — every kernel against its plain PyTorch version on the card, at
-             those shapes and a few ragged ones, fp32 and bf16, every
+4. checks  — every CNN kernel against its plain PyTorch version on the card,
+             at those shapes and a few ragged ones, fp32 and bf16, every
              epilogue combination.  Tolerance: fp32 2e-4 x sqrt(reduction
              length); bf16 the larger of 2e-2 x sqrt(reduction length) and
              one bf16 step at the largest output, 2^-7 x max|plain| (both
              sides round one fp32 sum to bf16 once, summed in different
              orders, so a value next to a rounding boundary may land on the
              neighbouring bf16 value).
-5. times   — each kernel, its plain version and the one PyTorch library call
-             (cuDNN conv / cuBLAS GEMM with TF32 off, epilogue not included)
-             at the fp32 main-path shapes, with CUDA events and a cold L2
-             cache, beside the bound max(FLOPs / peak, bytes / bandwidth).
+   lm_checks — flash attention, decode attention and conv1d against their
+             plain versions at zamba2's shapes and ragged ones (GQA, head
+             dims 16-128, T and S off the tiles, windows, soft-caps, a
+             different pos per sequence with 0 and S - 1, FL 2-4, odd C,
+             strided input), fp32 and bf16.  Tolerance: attention fp32 1e-4
+             (unit-normal inputs, as tests/test_kernels.py); bf16 the larger
+             of 2e-2 and one bf16 step at max|plain|; conv1d as phase 4 with
+             R = FL.
+5. times   — each CNN kernel, its plain version and the one PyTorch library
+             call (cuDNN conv / cuBLAS GEMM with TF32 off, epilogue not
+             included) at the fp32 main-path shapes, and each LM kernel at
+             zamba2's bf16 shapes (library: scaled_dot_product_attention,
+             causal or with a position mask, and depthwise F.conv1d), with
+             CUDA events and a cold L2 cache, beside the bound
+             max(FLOPs / peak, bytes / bandwidth).
 6. resnet50, resnet50_sparse, vgg16 — the full-width batch-1 224x224 fp32
              forwards through ``models.cnn``; launch counts per forward,
              logits against the same forward with ``impl="ref"`` (tolerance
              1e-3 x max|ref|), median forward time on the host clock, and
              under ``torch.profiler`` the device's busy time per forward.
+   zamba2  — serving zamba2-2.7b at full width through
+             ``repro_torch.launch.serve``: random weights from seed 0, batch
+             4 x 2048-token prompts, 31 greedy decode steps (32 tokens,
+             max_seq 2080).  Exact launch counts (per prefill 54 conv1d,
+             9 flash, 0 decode; per decode step 9 decode, 0 else), the
+             prefill and the first 8 decode steps' logits against the plain
+             engine (``impl="ref"``) fed the same tokens, host-clock medians
+             of prefill and per-token decode, and the device's busy time and
+             idle share of a decode step and a prefill.  Logit tolerance,
+             per position: the larger of 5e-2 x max(1, max|ref|)
+             (``repro``'s prefill/decode tolerance for recurrent archs) and
+             twice the plain bf16 engine's own distance from the plain
+             engine run in fp32 on the same tokens.  The random-weight
+             network carries bf16 rounding differences through 54 layers
+             to a few percent of max|logit|; a kernel path that is right
+             sits within the bf16 engine's own rounding error of the fp32
+             answer, so (triangle inequality) within twice that of the bf16
+             plain engine, while a wiring fault moves the logits by their
+             own size.
 7. the ``kernels`` line, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -36,9 +68,11 @@ check raises, so the script exits non-zero and prints no last line.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -49,6 +83,7 @@ import torch
 import torch.nn.functional as F
 
 HERE = Path(__file__).resolve().parent
+DEVICE = "cuda"
 SEED = 0
 # Published peaks (NVIDIA data sheets; dense, no sparsity): fp32 on the CUDA
 # cores, bf16 on the tensor cores, device-memory bandwidth.
@@ -58,6 +93,8 @@ FWD_REPS = 20
 KERNEL_REPS = 10
 PROFILE_REPS = 5
 SLEEP_CYCLES = 1_000_000     # ~0.5 ms of device time at H100 clocks
+# zamba2-2.7b serving: batch 4 x 2048-token prompts, 32 generated tokens
+Z_BATCH, Z_PROMPT, Z_GEN, Z_COMPARE, Z_TIMED = 4, 2048, 32, 8, 3
 
 
 def emit(obj: dict) -> None:
@@ -80,15 +117,27 @@ def nvidia_smi() -> str:
 
 
 # ------------------------------------------------------------ helpers ------
+def ptxas_summary(lines: list[str]) -> dict:
+    """Kernels, most registers and spilled bytes in one source's
+    ``-Xptxas -v`` lines (every line goes to the details file)."""
+    regs = [int(m) for line in lines
+            for m in re.findall(r"Used (\d+) registers", line)]
+    spills = [int(m) for line in lines
+              for m in re.findall(r"(\d+) bytes spill stores", line)]
+    return {"kernels": len(regs), "max_registers": max(regs, default=0),
+            "spill_store_bytes": sum(spills)}
+
+
 class Checker:
     """Per-case results of kernel vs plain version, against ``_tol``."""
 
     def __init__(self):
         self.cases: list[dict] = []
 
-    def add(self, kernel: str, case: dict, got, want, reduction: int):
+    def add(self, kernel: str, case: dict, got, want, reduction: int,
+            tol: float | None = None):
         err = (got.float() - want.float()).abs().max().item()
-        tol = _tol(want, reduction)
+        tol = _tol(want, reduction) if tol is None else tol
         ok = bool(err <= tol) and bool(torch.isfinite(got.float()).all())
         self.cases.append({"kernel": kernel, **case, "max_abs_err": err,
                            "tol": tol, "ok": ok})
@@ -104,6 +153,13 @@ def _tol(want: torch.Tensor, reduction: int) -> float:
         return 2e-4 * reduction ** 0.5
     return max(2e-2 * reduction ** 0.5,
                2.0 ** -7 * want.float().abs().max().item())
+
+
+def _attn_tol(want: torch.Tensor) -> float:
+    """The stated attention tolerance (module docstring, lm_checks)."""
+    if want.dtype != torch.bfloat16:
+        return 1e-4
+    return max(2e-2, 2.0 ** -7 * want.float().abs().max().item())
 
 
 def _epilogue_combos():
@@ -294,8 +350,9 @@ def randomize_bn(params: dict, gen: torch.Generator) -> None:
             randomize_bn(v, gen)
 
 
-def device_busy(apply, params, x, kw: dict) -> dict:
-    """Device busy time per forward under torch.profiler, and the top kernels.
+def profile_busy(fn, reps: int = PROFILE_REPS) -> dict:
+    """Device busy time per call of fn under torch.profiler, and the top
+    kernels.
 
     Busy time is the union of the device activity intervals; the idle share
     is the rest of the profiled window (the profiler slows the host, so the
@@ -303,13 +360,13 @@ def device_busy(apply, params, x, kw: dict) -> dict:
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    apply(params, x, **kw)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_REPS):
-            apply(params, x, **kw)
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -320,28 +377,28 @@ def device_busy(apply, params, x, kw: dict) -> dict:
     for s, e, n in spans:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-        by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e3 / PROFILE_REPS
+        by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e3 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"device_busy_ms": busy / 1e3 / PROFILE_REPS,
-            "profiled_wall_ms": wall_ms / PROFILE_REPS,
+    return {"device_busy_ms": busy / 1e3 / reps,
+            "profiled_wall_ms": wall_ms / reps,
             "idle_share": 1.0 - busy / 1e3 / wall_ms,
             "top_device_ms": {n[:80]: t for n, t in top}}
 
 
-def host_profile(apply, params, x, reps: int = PROFILE_REPS) -> dict:
-    """Where the host's time per forward goes: cProfile, top functions.
+def host_profile(fn, reps: int = PROFILE_REPS) -> dict:
+    """Where the host's time per call of fn goes: cProfile, top functions.
 
-    Host microseconds per forward by own time (``tottime``); cProfile adds
-    its own cost to every Python call, so read the ranking, not the sum.
+    Host microseconds per call by own time (``tottime``); cProfile adds its
+    own cost to every Python call, so read the ranking, not the sum.
     """
     import cProfile
     import pstats
-    apply(params, x)
+    fn()
     torch.cuda.synchronize()
     prof = cProfile.Profile()
     prof.enable()
     for _ in range(reps):
-        apply(params, x)
+        fn()
     torch.cuda.synchronize()
     prof.disable()
     stats = pstats.Stats(prof).stats
@@ -349,10 +406,10 @@ def host_profile(apply, params, x, reps: int = PROFILE_REPS) -> dict:
                    for (fn, line, name), (_, nc, tt, _, _) in stats.items()),
                   reverse=True)[:15]
     total = sum(v[2] for v in stats.values())
-    return {"profiled_us_per_forward": total / reps * 1e6,
-            "top_tottime_us_per_forward": {
+    return {"profiled_us_per_call": total / reps * 1e6,
+            "top_tottime_us_per_call": {
                 where: round(tt / reps * 1e6, 1) for tt, _, where in rows},
-            "calls_per_forward": {where: nc // reps for _, nc, where in rows}}
+            "calls_per_call": {where: nc // reps for _, nc, where in rows}}
 
 
 def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
@@ -379,13 +436,266 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
            "max_abs_err_vs_ref": err, "tol": tol, "max_abs_ref": scale,
            "launches": launches, "expected_launches": expected,
            "median_ms": statistics.median(times), "min_ms": min(times),
-           **device_busy(apply, params, x, kw)}
+           **profile_busy(lambda: apply(params, x, **kw))}
     emit(rec)
     if launches != expected:
         raise SystemExit(f"{name}: launches {launches} != {expected}")
     if not (rec["finite"] and err <= tol):
         raise SystemExit(f"{name}: logits off the plain engine by {err} "
                          f"(tol {tol})")
+    return rec
+
+
+# --------------------------------------------------------- LM kernels ------
+def lm_kernel_cases() -> list[dict]:
+    """zamba2's main-path shapes first (one per kernel), then ragged ones."""
+    fa = lambda b, t, h, kh, dh, window=0, softcap=0.0: dict(
+        kernel="flash_attention", b=b, t=t, h=h, kh=kh, dh=dh, window=window,
+        softcap=softcap)
+    da = lambda b, s, h, kh, dh, pos: dict(
+        kernel="decode_attention", b=b, s=s, h=h, kh=kh, dh=dh, pos=pos)
+    c1 = lambda b, t, c, fl, row=None, col0=0: dict(
+        kernel="conv1d_causal", b=b, t=t, c=c, fl=fl, row=row or c, col0=col0)
+    return [
+        # zamba2: 32 heads of 80, T = 2048; the cache holds 2080 rows; the
+        # conv reads the xBC column slice [5120, 10368) of in_proj's output
+        fa(Z_BATCH, Z_PROMPT, 32, 32, 80),
+        da(Z_BATCH, Z_PROMPT + Z_GEN, 32, 32, 80, (0, 2079, 1000, 2047)),
+        c1(Z_BATCH, Z_PROMPT, 5248, 4, row=10368, col0=5120),
+        # ragged: GQA, head dims, T off the 64-row tiles, window, soft-cap
+        fa(2, 300, 8, 2, 64), fa(1, 257, 4, 4, 128), fa(2, 200, 4, 2, 64, 64),
+        fa(1, 130, 6, 3, 80, softcap=50.0), fa(1, 333, 8, 4, 80, 100, 30.0),
+        fa(1, 65, 2, 1, 16),
+        # a different pos per sequence, 0 and S - 1, S off the 128-row chunks
+        da(3, 300, 8, 2, 64, (299, 0, 130)), da(2, 129, 4, 4, 128, (128, 64)),
+        da(2, 1000, 6, 3, 80, (999, 511)), da(2, 77, 8, 2, 16, (76, 3)),
+        # FL 2-4, odd C (one channel a thread), contiguous and strided x
+        c1(Z_BATCH, Z_PROMPT, 5248, 4), c1(2, 33, 131, 3), c1(1, 17, 96, 2),
+        c1(3, 100, 1000, 4), c1(2, 40, 64, 2, row=80, col0=8),
+    ]
+
+
+def lm_operands(case: dict, dtype, gen, pos=None):
+    """(args, kwargs) of the wrapper for one case, drawn on the card."""
+    rn = lambda *s: torch.randn(s, device=DEVICE, generator=gen)
+    if case["kernel"] == "flash_attention":
+        b, t, h, kh, dh = (case[k] for k in ("b", "t", "h", "kh", "dh"))
+        args = (rn(b, t, h, dh), rn(b, t, kh, dh), rn(b, t, kh, dh))
+        return (tuple(a.to(dtype) for a in args),
+                {"window": case["window"], "softcap": case["softcap"]})
+    if case["kernel"] == "decode_attention":
+        b, s, h, kh, dh = (case[k] for k in ("b", "s", "h", "kh", "dh"))
+        args = (rn(b, h, dh), rn(b, s, kh, dh), rn(b, s, kh, dh))
+        p = torch.tensor(pos or case["pos"], dtype=torch.int32, device=DEVICE)
+        return tuple(a.to(dtype) for a in args) + (p,), {}
+    b, t, c, fl = (case[k] for k in ("b", "t", "c", "fl"))
+    full = rn(b, t, case["row"]).to(dtype)
+    return (full[..., case["col0"]:case["col0"] + c], rn(fl, c)), {}
+
+
+def lm_cost(case: dict, dtype, pos) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: each input read once, each output written
+    once; attention counts only the (query, key) pairs its mask lets in."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    if case["kernel"] == "flash_attention":
+        t, w = case["t"], case["window"]
+        pairs = sum(min(i + 1, w) if w > 0 else i + 1 for i in range(t))
+        flops = 4 * case["b"] * case["h"] * case["dh"] * pairs
+        nbytes = 2 * case["b"] * t * (case["h"] + case["kh"]) * case["dh"] * es
+        return flops, nbytes
+    if case["kernel"] == "decode_attention":
+        rows = sum(p + 1 for p in pos)
+        flops = 4 * case["h"] * case["dh"] * rows
+        nbytes = (2 * case["b"] * case["h"] * case["dh"]
+                  + 2 * rows * case["kh"] * case["dh"]) * es + 4 * case["b"]
+        return flops, nbytes
+    n = case["b"] * case["t"] * case["c"]
+    return 2 * n * case["fl"], 2 * n * es + 4 * case["fl"] * case["c"]
+
+
+def lm_library(case: dict, args):
+    """The one PyTorch call for the same function (a yardstick only)."""
+    if case["kernel"] == "flash_attention":
+        q, k, v = (a.transpose(1, 2) for a in args)          # (B, H, T, dh)
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+    if case["kernel"] == "decode_attention":
+        q, ck, cv, pos = args
+        q4 = q[:, :, None, :]
+        kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+        mask = (torch.arange(ck.shape[1], device=DEVICE)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(q4, kt, vt,
+                                                      attn_mask=mask,
+                                                      enable_gqa=True)
+    x, w = args
+    xt = x.transpose(1, 2)                                    # (B, C, T) view
+    wt = w.t().contiguous()[:, None, :].to(x.dtype)           # (C, 1, FL)
+    return lambda: F.conv1d(xt, wt, padding=case["fl"] - 1,
+                            groups=case["c"])
+
+
+def lm_reduction(case: dict) -> int:
+    return case["fl"] if case["kernel"] == "conv1d_causal" else case["dh"]
+
+
+def check_lm_kernels(chk: Checker, lm_kernels: dict, gen) -> dict:
+    """Every LM case, fp32 and bf16, against the plain version."""
+    for case in lm_kernel_cases():
+        wrapper, plain = lm_kernels[case["kernel"]]
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = lm_operands(case, dtype, gen)
+            got, want = wrapper(*args, **kw), plain(*args, **kw)
+            tol = (None if case["kernel"] == "conv1d_causal"
+                   else _attn_tol(want))
+            chk.add(case["kernel"], {**case, "dtype": str(dtype)[6:]}, got,
+                    want, lm_reduction(case), tol)
+    torch.cuda.synchronize()
+    summary = {}
+    for kname in lm_kernels:
+        cs = [c for c in chk.cases if c["kernel"] == kname]
+        summary[kname] = {
+            "cases": len(cs), "failed": sum(not c["ok"] for c in cs),
+            "max_err_over_tol": max(c["max_abs_err"] / c["tol"] for c in cs),
+            **{f"max_abs_err_{d}": max(c["max_abs_err"] for c in cs
+                                       if c["dtype"] == d)
+               for d in ("float32", "bfloat16")}}
+    return summary
+
+
+def time_lm_kernels(lm_kernels: dict, peaks: dict, flush, gen) -> dict:
+    """Each LM kernel at its zamba2 main-path shape, bf16, cold L2.  The
+    decode call reads the whole cache (pos = S - 1 for every sequence)."""
+    rows = {}
+    dtype = torch.bfloat16
+    for case in lm_kernel_cases()[:3]:
+        kname = case["kernel"]
+        wrapper, plain = lm_kernels[kname]
+        pos = None
+        if kname == "decode_attention":
+            pos = (case["s"] - 1,) * case["b"]
+        args, kw = lm_operands(case, dtype, gen, pos)
+        err = (wrapper(*args, **kw).float()
+               - plain(*args, **kw).float()).abs().max().item()
+        flops, nbytes = lm_cost(case, dtype, pos or ())
+        t_ops, t_bytes = flops / peaks["bf16"], nbytes / peaks["bw"]
+        rows[kname] = {
+            "case": case, "dtype": "bfloat16", "max_abs_err": err,
+            "flops": flops, "bytes": nbytes,
+            "ms": cold_time_ms(lambda: wrapper(*args, **kw), flush),
+            "plain_ms": cold_time_ms(lambda: plain(*args, **kw), flush),
+            "library_ms": cold_time_ms(lm_library(case, args), flush),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return rows
+
+
+# ------------------------------------------------------------- zamba2 ------
+@contextlib.contextmanager
+def activations_in(lm, dtype):
+    """Run the LM with ``dtype`` activations and caches (``lm`` reads its
+    ``COMPUTE_DTYPE`` at every call): the fp32 reference of the zamba2
+    phase."""
+    old, lm.COMPUTE_DTYPE = lm.COMPUTE_DTYPE, dtype
+    try:
+        yield
+    finally:
+        lm.COMPUTE_DTYPE = old
+
+
+def run_zamba2(serve, lm, counters: dict) -> dict:
+    """Serve zamba2-2.7b at full width: counted launches, parity against
+    the plain engine, host-clock times, device busy share."""
+    t0 = time.perf_counter()
+    cfg, params = serve.load_model("zamba2-2.7b", device=DEVICE, seed=SEED)
+    prompts = serve.make_prompts(cfg, Z_BATCH, Z_PROMPT, device=DEVICE,
+                                 seed=SEED)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    max_seq = Z_PROMPT + Z_GEN
+
+    def counted(fn):
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: f.launches for k, f in counters.items()}
+
+    n_groups = cfg.n_groups
+    zero = {k: 0 for k in counters}
+    want_prefill = {**zero, "conv1d_causal": cfg.n_layers,
+                    "flash_attention": n_groups}
+    want_step = {**zero, "decode_attention": n_groups}
+    want_run = {k: want_prefill[k] + (Z_GEN - 1) * want_step[k]
+                for k in counters}
+
+    # the main path, as a user runs it: prompts in, Z_GEN tokens out
+    out, launches = counted(lambda: serve.generate(cfg, params, prompts,
+                                                   Z_GEN))
+    (logits, cache), per_prefill = counted(
+        lambda: lm.prefill(cfg, params, prompts, max_seq=max_seq))
+    step_batch = {"token": torch.argmax(logits[:, -1], dim=-1)[:, None],
+                  "pos": torch.full((Z_BATCH,), Z_PROMPT, dtype=torch.int32,
+                                    device=DEVICE)}
+    _, per_step = counted(lambda: lm.decode_step(cfg, params, step_batch,
+                                                 cache))
+    runs = [serve.generate(cfg, params, prompts, Z_GEN)
+            for _ in range(Z_TIMED)]
+
+    # parity: both engines fed the main run's own tokens (teacher forcing)
+    forced = out["tokens"][:, :Z_COMPARE]
+
+    def forced_logits(impl):
+        return serve.generate(cfg, params, prompts, Z_COMPARE + 1,
+                              forced=forced, impl=impl,
+                              keep_logits=Z_COMPARE + 1)["logits"]
+
+    got, ref = forced_logits("auto"), forced_logits("ref")
+    with activations_in(lm, torch.float32):
+        f32 = forced_logits("ref")
+    dist = lambda a, b: [(x - y).abs().max().item() for x, y in zip(a, b)]
+    errs, noise = dist(got, ref), dist(ref, f32)
+    tols = [max(5e-2 * max(1.0, r.abs().max().item()), 2 * n)
+            for r, n in zip(ref, noise)]
+    agree = [(g.argmax(-1) == r.argmax(-1)).float().mean().item()
+             for g, r in zip(got, ref)]
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+
+    rec = {"phase": "zamba2", "arch": cfg.name, "params": cfg.param_count(),
+           "batch": Z_BATCH, "prompt_len": Z_PROMPT, "gen": Z_GEN,
+           "setup_s": setup_s, "tokens_shape": list(out["tokens"].shape),
+           "launches": launches, "expected_launches": want_run,
+           "launches_per_prefill": per_prefill,
+           "launches_per_decode_step": per_step,
+           "prefill_ms_median": statistics.median(r["prefill_ms"]
+                                                  for r in runs),
+           "prefill_ms_all": [r["prefill_ms"] for r in runs],
+           "decode_ms_per_token_median": statistics.median(
+               t for r in runs for t in r["step_ms"]),
+           "decode_ms_per_token_min": min(t for r in runs
+                                          for t in r["step_ms"]),
+           "logits_max_abs_err": errs, "logits_tol": tols,
+           "logits_max_abs_ref": [r.abs().max().item() for r in ref],
+           "plain_bf16_vs_fp32": noise, "kernels_bf16_vs_fp32": dist(got, f32),
+           "argmax_agreement": agree, "finite": finite,
+           "sample": out["tokens"][0, :12].tolist(),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "decode_step_device": profile_busy(
+               lambda: lm.decode_step(cfg, params, step_batch, cache)),
+           "decode_step_host": host_profile(
+               lambda: lm.decode_step(cfg, params, step_batch, cache), 3),
+           "prefill_device": profile_busy(
+               lambda: lm.prefill(cfg, params, prompts, max_seq=max_seq),
+               reps=1)}
+    emit(rec)
+    for name, got_n, want_n in (("per prefill", per_prefill, want_prefill),
+                                ("per decode step", per_step, want_step),
+                                ("per run", launches, want_run)):
+        if got_n != want_n:
+            raise SystemExit(f"zamba2: launches {name} {got_n} != {want_n}")
+    if not finite or any(e > t for e, t in zip(errs, tols)):
+        raise SystemExit(f"zamba2: logits off the plain engine by {errs} "
+                         f"(tol {tols})")
     return rec
 
 
@@ -400,8 +710,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(HERE / "src"))
     from repro_torch.kernels import _build, conv2d as conv_mod
+    from repro_torch.kernels import conv1d as c1_mod
+    from repro_torch.kernels import decode_attention as da_mod
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import matmul as mm_mod
-    from repro_torch.models import cnn
+    from repro_torch.launch import serve
+    from repro_torch.models import cnn, lm
     from repro_torch.observability import trace
 
     smi = nvidia_smi()
@@ -416,11 +730,13 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     nvcc_s = _build.build_all()
-    ptxas = {n: [line.strip() for line in _build.build_log(n).splitlines()
-                 if "registers" in line or "spill" in line]
-             for n in ("conv2d", "matmul")}
+    ptxas = {src.stem: [line.strip()
+                        for line in _build.build_log(src.stem).splitlines()
+                        if "registers" in line or "spill" in line]
+             for src in _build.sources()}
     emit({"phase": "build", "nvcc_seconds": nvcc_s,
-          "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+          "seconds": time.perf_counter() - t0,
+          "ptxas": {n: ptxas_summary(lines) for n, lines in ptxas.items()}})
 
     # 3. main-path shapes (plain engine, traced: no kernel launch)
     gen = torch.Generator().manual_seed(SEED)
@@ -476,7 +792,19 @@ def main() -> int:
           "tolerance": "fp32 2e-4 x sqrt(R); bf16 max(2e-2 x sqrt(R), "
                        "2^-7 x max|plain|)",
           **summary})
-    details = {"nvidia_smi": smi, "checks": chk.cases}
+    lm_kernels = {
+        "flash_attention": (fa_mod.flash_attention,
+                            fa_mod.flash_attention_plain),
+        "decode_attention": (da_mod.decode_attention,
+                             da_mod.decode_attention_plain),
+        "conv1d_causal": (c1_mod.conv1d_causal, c1_mod.conv1d_causal_plain)}
+    t0 = time.perf_counter()
+    emit({"phase": "lm_checks",
+          **check_lm_kernels(chk, lm_kernels, dgen),
+          "seconds": time.perf_counter() - t0,
+          "tolerance": "attention fp32 1e-4, bf16 max(2e-2, 2^-7 x "
+                       "max|plain|); conv1d as checks with R = FL"})
+    details = {"nvidia_smi": smi, "ptxas": ptxas, "checks": chk.cases}
     if chk.failures():
         dump(details)
         raise SystemExit(f"{len(chk.failures())} kernel checks failed, "
@@ -516,13 +844,20 @@ def main() -> int:
                        for key in ("ms", "plain_ms", "library_ms",
                                    "bound_ms")}}
         emit({"phase": "times", "path": p, "per_forward": totals})
+    lm_times = time_lm_kernels(lm_kernels, peaks, flush, dgen)
+    emit({"phase": "times", "path": "zamba2 kernels, bf16, one call each",
+          **{k: {f: r[f] for f in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by", "max_abs_err")}
+             for k, r in lm_times.items()}})
 
     # 6. the main path, through the entry points a user calls
     counters = {"conv2d": conv_mod.conv2d,
                 "mm_act_stationary": mm_mod.matmul_act_stationary,
-                "mm_weight_stationary": mm_mod.matmul_weight_stationary}
+                "mm_weight_stationary": mm_mod.matmul_weight_stationary,
+                **{k: fns[0] for k, fns in lm_kernels.items()}}
+    no_lm = {k: 0 for k in lm_kernels}
     expect_r50 = {"conv2d": 17, "mm_act_stationary": 29,
-                  "mm_weight_stationary": 7}
+                  "mm_weight_stationary": 7, **no_lm}
     models = {
         "resnet50": run_model("resnet50", cnn.resnet50_apply, r50, x,
                               counters, expect_r50),
@@ -531,7 +866,7 @@ def main() -> int:
                                      sparse=True),
         "vgg16": run_model("vgg16", cnn.vgg16_apply, vgg, x, counters,
                            {"conv2d": 13, "mm_act_stationary": 0,
-                            "mm_weight_stationary": 0}),
+                            "mm_weight_stationary": 0, **no_lm}),
     }
     # serving a pruned model prunes once: time the pre-pruned forward too
     pruned, _ = cnn.resnet50_prune(r50, 0.5)
@@ -544,9 +879,11 @@ def main() -> int:
         times.append((time.perf_counter() - t0) * 1e3)
     emit({"phase": "resnet50_prepruned", "median_ms": statistics.median(times),
           "min_ms": min(times)})
-    emit({"phase": "host", **host_profile(cnn.resnet50_apply, r50, x)})
+    emit({"phase": "host", **host_profile(lambda: cnn.resnet50_apply(r50, x))})
+    zamba2 = run_zamba2(serve, lm, counters)
 
-    dump({**details, "times": per_path, "models": models})
+    dump({**details, "times": per_path, "lm_times": lm_times,
+          "models": models, "zamba2": zamba2})
 
     # 7. kernels line (dense ResNet-50 main path), the card, the last line
     sources = {"conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
@@ -556,6 +893,9 @@ def main() -> int:
                "mm_weight_stationary": (
                    "src/repro_torch/kernels/csrc/matmul.cu",
                    "src/repro/kernels/matmul.py:149")}
+    by_path = {p: m["launches"] for p, m in models.items()}
+    by_path["zamba2_prefill"] = zamba2["launches_per_prefill"]
+    by_path["zamba2_decode"] = zamba2["launches_per_decode_step"]
     line = []
     for kname, (src, replaces) in sources.items():
         rs = [r for r in per_path["resnet50"] if r["kernel"] == kname]
@@ -566,8 +906,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": models["resnet50"]["launches"][kname],
-            "launches_by_path": {p: m["launches"][kname]
-                                 for p, m in models.items()},
+            "launches_by_path": {p: n[kname] for p, n in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
@@ -575,6 +914,25 @@ def main() -> int:
             "bound_by": max(t_by, key=t_by.get),
             "library_ms": sum(r["library_ms"] for r in rs),
             "shapes": "the dense ResNet-50 forward's calls, fp32, summed"})
+    lm_sources = {
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:28"),
+        "decode_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:31"),
+        "conv1d_causal": ("src/repro_torch/kernels/csrc/conv1d.cu",
+                          "src/repro/kernels/conv1d.py:23")}
+    for kname, (src, replaces) in lm_sources.items():
+        r = lm_times[kname]
+        line.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": zamba2["launches"][kname],
+            "launches_by_path": {p: n[kname] for p, n in by_path.items()},
+            **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            "shapes": "one call at the zamba2 serving shape, bf16: "
+                      + json.dumps({k: v for k, v in r["case"].items()
+                                    if k != "kernel"})})
     emit({"kernels": line})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -171,6 +171,33 @@ def launch_operands(what: str, x, w, out_shape: tuple, scale, bias,
     return DTYPE_CODES[x.dtype], vecs[0], vecs[1]
 
 
+def attention_operands(what: str, **tensors) -> int:
+    """Check the attention kernels' tensors; return their dtype code.
+
+    Every tensor must be a contiguous, 16-byte aligned CUDA tensor (the
+    kernels read rows with 16-byte vector loads) of fewer than 2**31
+    elements, all of one supported dtype.  Raises on anything else.
+    """
+    first_name, first = next(iter(tensors.items()))
+    if first.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel takes CUDA tensors, "
+                         f"{first_name} is on {first.device}")
+    if first.dtype not in DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {first.dtype} not supported "
+                        f"(have {list(DTYPE_CODES)})")
+    for name, t in tensors.items():
+        if t.device != first.device or t.dtype != first.dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype} on {t.device}, "
+                            f"{first_name} is {first.dtype} on "
+                            f"{first.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and "
+                             "16-byte aligned")
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{what}: {name} has 2**31 or more elements")
+    return DTYPE_CODES[first.dtype]
+
+
 MIN_CHUNKS_PER_SPLIT = 4    # a split reduces at least 4 chunks of BK values
 
 

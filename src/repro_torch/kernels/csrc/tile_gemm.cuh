@@ -21,27 +21,11 @@
 // accumulator and converts to the output type once, at the store.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "numeric.cuh"
 
 namespace carla {
 
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // Per-output-channel fp32 scale/bias (either may be null) and the ReLU flag.
 struct Epi {
@@ -209,8 +193,6 @@ struct RowLoader {
     return valid[j] ? to_f32(x[off[j] + c]) : 0.f;
   }
 };
-
-inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // Host side: launch a tile kernel over (M tiles, N tiles, splits), then the
 // second pass when there is more than one split. `kernel` is a functor that

@@ -10,6 +10,11 @@ The engine that actually ran is recorded as the ``impl`` span attribute.
 Mode selection (which stationarity a GEMM uses) is orthogonal to ``impl``
 and follows ``core.modes`` — the software twin of CARLA's controller.
 
+``conv1d_causal`` is Mamba2's short depthwise conv (no epilogue, no tiling
+ledger: its span carries the same attributes as ``repro``'s).  The attention
+kernels have no dispatch here, as in ``repro``: the models call their
+wrappers directly.
+
 ``conv2d``/``conv1x1``/``gemm`` accept an ``epilogue=`` (``core.fuse.Epilogue``):
 folded-BN scale/bias, residual add, and ReLU are applied inside the kernel's
 flush, so the output feature map is written to device memory exactly once.
@@ -30,6 +35,7 @@ import torch
 from ..core.fuse import Epilogue
 from ..core.modes import Stationarity, select_stationarity
 from ..observability import trace
+from . import conv1d as _conv1d_mod
 from . import conv2d as _conv2d_mod
 from . import matmul as _mm
 
@@ -37,7 +43,7 @@ _NO_EPILOGUE = Epilogue()
 IMPLS = ("auto", "cuda", "ref")
 
 
-def _resolve(impl: str, x: torch.Tensor) -> str:
+def resolve(impl: str, x: torch.Tensor) -> str:
     """Resolve ``auto`` to the engine for x's device; check the others."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -87,7 +93,7 @@ def conv2d(x, w, *, stride: int = 1, padding: int = 0, impl: str = "auto",
            epilogue: Epilogue | None = None):
     """General NHWC conv; CARLA 3x3/7x7 serial-accumulation dataflow."""
     ep = epilogue or _NO_EPILOGUE
-    impl = _resolve(impl, x)
+    impl = resolve(impl, x)
     if not trace.enabled():
         return _conv2d(x, w, ep, stride, padding, impl)
     fh, fw, _, k = w.shape
@@ -120,7 +126,7 @@ def conv1x1(x, w, *, stride: int = 1, impl: str = "auto",
             epilogue: Epilogue | None = None):
     """Pointwise conv via the dual-stationarity GEMM (paper §III.B/C)."""
     ep = epilogue or _NO_EPILOGUE
-    impl = _resolve(impl, x)
+    impl = resolve(impl, x)
     c, k = x.shape[-1], w.shape[-1]
     rows = _mm.gemm_rows(x, stride)      # x[:, ::s, ::s] row count
     st = select_stationarity(rows)
@@ -149,7 +155,7 @@ def gemm(x, w, *, impl: str = "auto",
          epilogue: Epilogue | None = None):
     """(M, C) @ (C, K) with CARLA stationarity planning."""
     ep = epilogue or _NO_EPILOGUE
-    impl = _resolve(impl, x)
+    impl = resolve(impl, x)
     st = stationarity or select_stationarity(x.shape[0])
     if not trace.enabled():
         return _gemm(x, w, ep, 1, st, impl)
@@ -165,4 +171,25 @@ def gemm(x, w, *, impl: str = "auto",
                                               w.shape[-1], st.value)
         _tuning_attrs(sp)
         _epilogue_attrs(sp, ep, out)
+    return out
+
+
+def _conv1d(x, w, impl):
+    if impl == "cuda":
+        return _conv1d_mod.conv1d_causal(x, w)
+    return _conv1d_mod.conv1d_causal_plain(x, w)
+
+
+def conv1d_causal(x, w, *, impl: str = "auto"):
+    """Depthwise causal conv1d (Mamba2 short conv / RWKV token shift)."""
+    impl = resolve(impl, x)
+    if not trace.enabled():
+        return _conv1d(x, w, impl)
+    with trace.span("kernels.conv1d_causal", impl=impl,
+                    x_shape=list(x.shape), w_shape=list(w.shape),
+                    dtype=dtype_name(x)) as sp:
+        out = _conv1d(x, w, impl)
+        _sync(out)
+        sp.attrs["flops"] = 2 * x.numel() * w.shape[0]
+        sp.attrs["bytes_touched"] = _nbytes(x, w, out)
     return out

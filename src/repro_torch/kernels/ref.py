@@ -5,6 +5,12 @@ accumulate in fp32 and apply the epilogue in the kernels' order.  On CUDA
 they run with TF32 off: cuDNN's convolutions default to TF32, which keeps
 about three decimal digits and would miss the fp32 tolerance of
 2e-4 · scale that the kernels are held to.
+
+The attention functions keep ``repro``'s layouts (q (B, T, H, dh), k/v
+(B, S, Kh, dh)) and repeat the fused kernels' arithmetic over the whole key
+axis at once: fp32 scores, the ``NEG_INF`` mask, ``p = exp(s - max)`` summed
+in fp32 and rounded to v's dtype before the product, and ``acc / max(l,
+1e-30)``.  They materialise the (T, S) scores, which the kernels never do.
 """
 from __future__ import annotations
 
@@ -71,3 +77,71 @@ def matmul_ref(x: torch.Tensor, w: torch.Tensor, *, scale=None, bias=None,
     with _exact_fp32(x):
         y = torch.matmul(x.float(), w.float())
     return epilogue_ref(y, scale, bias, relu, residual)
+
+
+NEG_INF = -2.3819763e38   # bf16-safe large negative, as in the Pallas kernels
+
+
+def conv1d_causal_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal 1-D conv (Mamba2 / token-shift style), fp32 result.
+
+    x: (B, T, C), w: (FL, C)  ->  (B, T, C);  out[t] = sum_r x[t-FL+1+r] * w[r].
+    """
+    fl = w.shape[0]
+    xf = x.float()
+    pad = F.pad(xf, (0, 0, fl - 1, 0))
+    out = torch.zeros_like(xf)
+    for r in range(fl):
+        out = out + pad[:, r:r + x.shape[1], :] * w[r].float()
+    return out
+
+
+def _softmax_out(sc: torch.Tensor, v: torch.Tensor, spec: str):
+    """The fused kernels' normalisation on masked fp32 scores (.., S)."""
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1)
+    with _exact_fp32(v):
+        acc = torch.einsum(spec, p.to(v.dtype).float(), v.float())
+    return acc, l
+
+
+def flash_attention_ref(q, k, v, *, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Causal GQA attention.  q: (B, T, H, dh); k/v: (B, S, Kh, dh) -> fp32
+    (B, T, H, dh).  Key j is visible to query t when j <= t and, with a
+    window, j > t - window; scores are soft-capped before the mask."""
+    b, t, h, dh = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, t, kh, h // kh, dh)
+    with _exact_fp32(q):
+        sc = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
+    sc = sc * dh ** -0.5
+    if softcap and softcap > 0:
+        sc = softcap * torch.tanh(sc / softcap)
+    qpos = torch.arange(t, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    ok = kpos <= qpos
+    if window and window > 0:
+        ok = ok & (kpos > qpos - window)
+    sc = torch.where(ok, sc, NEG_INF)
+    acc, l = _softmax_out(sc, v, "bkgts,bskd->bkgtd")
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]       # (B, Kh, G, T, dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, dh)
+
+
+def decode_attention_ref(q, cache_k, cache_v, pos) -> torch.Tensor:
+    """One query per sequence against its cache.  q: (B, H, dh); cache:
+    (B, S, Kh, dh); pos: (B,) int -> fp32 (B, H, dh); key j is visible to
+    sequence b when j <= pos[b]."""
+    b, h, dh = q.shape
+    s, kh = cache_k.shape[1], cache_k.shape[2]
+    qg = q.reshape(b, kh, h // kh, dh)
+    with _exact_fp32(q):
+        sc = torch.einsum("bkgd,bskd->bkgs", qg.float(), cache_k.float())
+    sc = sc * dh ** -0.5
+    kpos = torch.arange(s, device=q.device)
+    ok = kpos[None, :] <= pos.to(q.device).long()[:, None]           # (B, S)
+    sc = torch.where(ok[:, None, None, :], sc, NEG_INF)
+    acc, l = _softmax_out(sc, cache_v, "bkgs,bskd->bkgd")
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).reshape(b, h, dh)

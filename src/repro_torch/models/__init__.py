@@ -1,1 +1,3 @@
-"""The paper's benchmark CNNs (``cnn``) and parameter conversion (``convert``)."""
+"""The paper's benchmark CNNs (``cnn``), the decoder LMs (``lm``, with
+``config``, ``layers``, ``attention`` and ``ssm``) and parameter conversion
+(``convert``)."""

@@ -39,7 +39,8 @@ def _env():
 def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.models.cnn, "
             "repro_torch.kernels.ops, repro_torch.core.carla, "
-            "repro_torch.models.convert; "
+            "repro_torch.models.convert, repro_torch.models.lm, "
+            "repro_torch.launch.serve, repro_torch.configs.zamba2_2_7b; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -50,10 +51,23 @@ def test_importing_the_port_leaves_jax_out():
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
-    from repro_torch.models import cnn
-    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import cnn, lm
+    from repro_torch.models.convert import (
+        lm_params_from_numpy,
+        params_from_numpy,
+    )
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    lm_tree = {"embed": {}, "final_norm": {}, "blocks": {}}
     for call in (cnn.resnet50_init, cnn.vgg16_init,
-                 lambda: params_from_numpy({})):
+                 lambda: params_from_numpy({}),
+                 lambda: lm.init_params(cfg),
+                 lambda: lm.init_cache(cfg, 1, 8),
+                 lambda: lm_params_from_numpy(lm_tree),
+                 lambda: serve.load_model("zamba2-2.7b", smoke=True),
+                 lambda: serve.make_prompts(cfg, 1, 8),
+                 lambda: serve.main(["--arch", "zamba2-2.7b", "--smoke"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -177,8 +177,10 @@ def test_ctypes_signatures_match_the_c_entry_points(module, source):
 
 def test_build_hash_covers_every_source():
     names = {p.name for p in CSRC.iterdir()}
-    assert {"conv2d.cu", "matmul.cu", "tile_gemm.cuh"} <= names
-    assert [p.name for p in _build.sources()] == ["conv2d.cu", "matmul.cu"]
+    assert {"conv2d.cu", "matmul.cu", "tile_gemm.cuh", "numeric.cuh"} <= names
+    assert [p.name for p in _build.sources()] == [
+        "conv1d.cu", "conv2d.cu", "decode_attention.cu", "flash_attention.cu",
+        "matmul.cu"]
     assert len(_build.source_hash()) == 16
     gitignore = (Path(__file__).parents[1] / ".gitignore").read_text()
     assert "src/repro_torch/kernels/_build/" in gitignore.split()
