@@ -23,11 +23,14 @@ printing one JSON line:
              neighbouring bf16 value).
    lm_checks — flash attention, decode attention and conv1d against their
              plain versions at zamba2's shapes and ragged ones (GQA, head
-             dims 16-128, T and S off the tiles, windows, soft-caps, a
-             different pos per sequence with 0 and S - 1, FL 2-4, odd C,
-             strided input), fp32 and bf16.  Tolerance: attention fp32 1e-4
-             (unit-normal inputs, as tests/test_kernels.py); bf16 the larger
-             of 2e-2 and one bf16 step at max|plain|; conv1d as phase 4 with
+             dims 16, 64, 80, 128, T and S off the tiles, windows,
+             soft-caps, a different pos per sequence with 0 and S - 1, FL
+             2-4, odd C, strided input), fp32 and bf16.  Tolerance:
+             attention fp32 1e-4 (unit-normal inputs, as
+             tests/test_kernels.py); bf16 per output element 2^-6 x
+             sum_j p_j |v_j| (the plain version on |v| in fp32): p is
+             rounded to bf16 on each side and so is the output, four unit
+             roundoffs of 2^-8 of that sum at most; conv1d as phase 4 with
              R = FL.
 5. times   — each CNN kernel, its plain version and the one PyTorch library
              call (cuDNN conv / cuBLAS GEMM with TF32 off, epilogue not
@@ -49,17 +52,21 @@ printing one JSON line:
              prefill and the first 8 decode steps' logits against the plain
              engine (``impl="ref"``) fed the same tokens, host-clock medians
              of prefill and per-token decode, and the device's busy time and
-             idle share of a decode step and a prefill.  Logit tolerance,
-             per position: the larger of 5e-2 x max(1, max|ref|)
-             (``repro``'s prefill/decode tolerance for recurrent archs) and
-             twice the plain bf16 engine's own distance from the plain
-             engine run in fp32 on the same tokens.  The random-weight
-             network carries bf16 rounding differences through 54 layers
-             to a few percent of max|logit|; a kernel path that is right
-             sits within the bf16 engine's own rounding error of the fp32
-             answer, so (triangle inequality) within twice that of the bf16
-             plain engine, while a wiring fault moves the logits by their
-             own size.
+             idle share of a decode step and a prefill.  Two logit checks,
+             per position.  bf16, the main path: within sqrt(2) x the plain
+             bf16 engine's distance from the plain engine run in fp32 on
+             the same tokens (the random-weight network carries bf16
+             rounding differences through 54 layers to a few percent of
+             max|logit|, and two bf16 engines with independent rounding
+             errors sit about sqrt(2) times their own error apart).  fp32,
+             the wiring: the kernel path run with fp32 activations (the
+             kernels' fp32 instances) within 1e-3 x max(1, max|ref|) of
+             the fp32 plain engine, where rounding no longer hides a wrong
+             argument.  Three planted faults (patched in for one run each:
+             the decode kernel skips the newest key; one decode
+             application per step takes pos + 1; one prefill flash call
+             sees half the keys) are measured in both; the fp32 check must
+             catch all three.
 7. the ``kernels`` line, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -68,7 +75,6 @@ check raises, so the script exits non-zero and prints no last line.
 """
 from __future__ import annotations
 
-import contextlib
 import itertools
 import json
 import math
@@ -77,7 +83,9 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
+from unittest import mock
 
 import torch
 import torch.nn.functional as F
@@ -129,19 +137,22 @@ def ptxas_summary(lines: list[str]) -> dict:
 
 
 class Checker:
-    """Per-case results of kernel vs plain version, against ``_tol``."""
+    """Per-case results of kernel vs plain version, against ``_tol`` or a
+    given tolerance (a number, or a tensor of one per element)."""
 
     def __init__(self):
         self.cases: list[dict] = []
 
     def add(self, kernel: str, case: dict, got, want, reduction: int,
-            tol: float | None = None):
-        err = (got.float() - want.float()).abs().max().item()
+            tol=None):
+        diff = (got.float() - want.float()).abs()
         tol = _tol(want, reduction) if tol is None else tol
-        ok = bool(err <= tol) and bool(torch.isfinite(got.float()).all())
-        self.cases.append({"kernel": kernel, **case, "max_abs_err": err,
-                           "tol": tol, "ok": ok})
-        return err
+        ratio = (diff / tol).max().item()
+        ok = ratio <= 1.0 and bool(torch.isfinite(got.float()).all())
+        self.cases.append({
+            "kernel": kernel, **case, "max_abs_err": diff.max().item(),
+            "tol": tol if isinstance(tol, float) else tol.min().item(),
+            "err_over_tol": ratio, "ok": ok})
 
     def failures(self) -> list[dict]:
         return [c for c in self.cases if not c["ok"]]
@@ -155,11 +166,15 @@ def _tol(want: torch.Tensor, reduction: int) -> float:
                2.0 ** -7 * want.float().abs().max().item())
 
 
-def _attn_tol(want: torch.Tensor) -> float:
-    """The stated attention tolerance (module docstring, lm_checks)."""
+def _attn_tol(want: torch.Tensor, plain, args, kw: dict):
+    """The stated attention tolerance (module docstring, lm_checks): fp32
+    1e-4; bf16 2^-6 x sum_j p_j |v_j| per output element, the plain version's
+    answer on |v| in fp32."""
     if want.dtype != torch.bfloat16:
         return 1e-4
-    return max(2e-2, 2.0 ** -7 * want.float().abs().max().item())
+    a = [t.float() if t.is_floating_point() else t for t in args]
+    a[2] = a[2].abs()                                  # v, or the V cache
+    return 2.0 ** -6 * plain(*a, **kw)
 
 
 def _epilogue_combos():
@@ -547,7 +562,7 @@ def check_lm_kernels(chk: Checker, lm_kernels: dict, gen) -> dict:
             args, kw = lm_operands(case, dtype, gen)
             got, want = wrapper(*args, **kw), plain(*args, **kw)
             tol = (None if case["kernel"] == "conv1d_causal"
-                   else _attn_tol(want))
+                   else _attn_tol(want, plain, args, kw))
             chk.add(case["kernel"], {**case, "dtype": str(dtype)[6:]}, got,
                     want, lm_reduction(case), tol)
     torch.cuda.synchronize()
@@ -556,7 +571,7 @@ def check_lm_kernels(chk: Checker, lm_kernels: dict, gen) -> dict:
         cs = [c for c in chk.cases if c["kernel"] == kname]
         summary[kname] = {
             "cases": len(cs), "failed": sum(not c["ok"] for c in cs),
-            "max_err_over_tol": max(c["max_abs_err"] / c["tol"] for c in cs),
+            "max_err_over_tol": max(c["err_over_tol"] for c in cs),
             **{f"max_abs_err_{d}": max(c["max_abs_err"] for c in cs
                                        if c["dtype"] == d)
                for d in ("float32", "bfloat16")}}
@@ -580,7 +595,8 @@ def time_lm_kernels(lm_kernels: dict, peaks: dict, flush, gen) -> dict:
         flops, nbytes = lm_cost(case, dtype, pos or ())
         t_ops, t_bytes = flops / peaks["bf16"], nbytes / peaks["bw"]
         rows[kname] = {
-            "case": case, "dtype": "bfloat16", "max_abs_err": err,
+            "case": {**case, "pos": list(pos)} if pos else case,
+            "dtype": "bfloat16", "max_abs_err": err,
             "flops": flops, "bytes": nbytes,
             "ms": cold_time_ms(lambda: wrapper(*args, **kw), flush),
             "plain_ms": cold_time_ms(lambda: plain(*args, **kw), flush),
@@ -591,21 +607,73 @@ def time_lm_kernels(lm_kernels: dict, peaks: dict, flush, gen) -> dict:
 
 
 # ------------------------------------------------------------- zamba2 ------
-@contextlib.contextmanager
-def activations_in(lm, dtype):
-    """Run the LM with ``dtype`` activations and caches (``lm`` reads its
-    ``COMPUTE_DTYPE`` at every call): the fp32 reference of the zamba2
-    phase."""
-    old, lm.COMPUTE_DTYPE = lm.COMPUTE_DTYPE, dtype
-    try:
-        yield
-    finally:
-        lm.COMPUTE_DTYPE = old
+def forced_logits(lm, cfg, params, prompts, tokens, *, impl="auto",
+                  dtype=None) -> list:
+    """fp32 logits (B, V) of the prefill's last position and of one decode
+    step per column of ``tokens`` (B, n), each step fed that column (teacher
+    forcing), so two engines meet the same inputs whatever their argmax."""
+    dtype = dtype or lm.COMPUTE_DTYPE
+    b, t = tokens.shape[0], prompts["tokens"].shape[1]
+    logits, cache = lm.prefill(cfg, params, prompts, t + Z_GEN, impl=impl,
+                               dtype=dtype)
+    out = [logits[:, -1].float()]
+    for i in range(tokens.shape[1]):
+        step = {"token": tokens[:, i:i + 1],
+                "pos": torch.full((b,), t + i, dtype=torch.int32,
+                                  device=DEVICE)}
+        logits, cache = lm.decode_step(cfg, params, step, cache, impl=impl,
+                                       dtype=dtype)
+        out.append(logits[:, -1].float())
+    return out
 
 
-def run_zamba2(serve, lm, counters: dict) -> dict:
+def planted_faults(attn_mod, fa_mod, da_mod, n_groups: int) -> dict:
+    """Wrong paths the logit check must tell from the right one, each a
+    patch of a name the model looks up at call time: name -> (module,
+    attribute, replacement).  A kernel is replaced by swapping the kernel
+    module ``models.attention`` sees for a stand-in, so the wrappers and
+    their launch counters stay as they are."""
+    real_fa, real_da = fa_mod.flash_attention, da_mod.decode_attention
+    real_ad = attn_mod.attention_decode
+    ns = types.SimpleNamespace
+
+    def nth(fn, faulty, period):
+        calls = [0]
+
+        def wrapped(*a, **kw):
+            calls[0] += 1
+            return faulty(*a, **kw) if calls[0] % period == 1 else fn(*a, **kw)
+        return wrapped
+
+    def flash_half_window(q, k, v, **kw):
+        return real_fa(q, k, v, **{**kw, "window": q.shape[1] // 2})
+
+    def decode_pos_plus_1(params, x, ck, cv, pos, **kw):
+        return real_ad(params, x, ck, cv, pos + 1, **kw)
+
+    return {
+        # the decode kernel leaves out the newest key (this token's own)
+        "decode_skips_newest_key": (
+            attn_mod, "_decode",
+            ns(decode_attention=lambda q, ck, cv, pos: real_da(q, ck, cv,
+                                                               pos - 1),
+               decode_attention_plain=da_mod.decode_attention_plain)),
+        # one shared-attention application per decode step (the first)
+        # takes pos + 1: RoPE one step on and the k/v one slot late
+        "one_decode_application_pos_plus_1": (
+            attn_mod, "attention_decode",
+            nth(real_ad, decode_pos_plus_1, n_groups)),
+        # the first flash call of the prefill sees only the newest T/2 keys
+        "one_prefill_flash_half_window": (
+            attn_mod, "_flash",
+            ns(flash_attention=nth(real_fa, flash_half_window, n_groups),
+               flash_attention_plain=fa_mod.flash_attention_plain)),
+    }
+
+
+def run_zamba2(serve, lm, attn_mod, fa_mod, da_mod, counters: dict) -> dict:
     """Serve zamba2-2.7b at full width: counted launches, parity against
-    the plain engine, host-clock times, device busy share."""
+    the plain engine, planted faults, host-clock times, device busy share."""
     t0 = time.perf_counter()
     cfg, params = serve.load_model("zamba2-2.7b", device=DEVICE, seed=SEED)
     prompts = serve.make_prompts(cfg, Z_BATCH, Z_PROMPT, device=DEVICE,
@@ -642,24 +710,29 @@ def run_zamba2(serve, lm, counters: dict) -> dict:
     runs = [serve.generate(cfg, params, prompts, Z_GEN)
             for _ in range(Z_TIMED)]
 
-    # parity: both engines fed the main run's own tokens (teacher forcing)
+    # parity: every engine fed the main run's own tokens (teacher forcing)
     forced = out["tokens"][:, :Z_COMPARE]
-
-    def forced_logits(impl):
-        return serve.generate(cfg, params, prompts, Z_COMPARE + 1,
-                              forced=forced, impl=impl,
-                              keep_logits=Z_COMPARE + 1)["logits"]
-
-    got, ref = forced_logits("auto"), forced_logits("ref")
-    with activations_in(lm, torch.float32):
-        f32 = forced_logits("ref")
+    run = lambda **kw: forced_logits(lm, cfg, params, prompts, forced, **kw)
+    bf16, fp32 = lm.COMPUTE_DTYPE, torch.float32
+    got, ref = run(), run(impl="ref")
+    got32, ref32 = run(dtype=fp32), run(impl="ref", dtype=fp32)
     dist = lambda a, b: [(x - y).abs().max().item() for x, y in zip(a, b)]
-    errs, noise = dist(got, ref), dist(ref, f32)
-    tols = [max(5e-2 * max(1.0, r.abs().max().item()), 2 * n)
-            for r, n in zip(ref, noise)]
+    errs, noise, errs32 = dist(got, ref), dist(ref, ref32), dist(got32, ref32)
+    tols = {bf16: [2 ** 0.5 * n for n in noise],
+            fp32: [1e-3 * max(1.0, r.abs().max().item()) for r in ref32]}
+    refs = {bf16: ref, fp32: ref32}
+    over = lambda es, ts: max(e / t for e, t in zip(es, ts))
     agree = [(g.argmax(-1) == r.argmax(-1)).float().mean().item()
              for g, r in zip(got, ref)]
-    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    finite = all(bool(torch.isfinite(g).all()) for g in got + got32)
+    faults = {}
+    for dtype in (bf16, fp32):
+        for fname, (mod, attr, fn) in planted_faults(
+                attn_mod, fa_mod, da_mod, n_groups).items():
+            with mock.patch.object(mod, attr, fn):
+                fe = dist(run(dtype=dtype), refs[dtype])
+            faults.setdefault(fname, {})[str(dtype)[6:]] = {
+                "max_abs_err": fe, "max_err_over_tol": over(fe, tols[dtype])}
 
     rec = {"phase": "zamba2", "arch": cfg.name, "params": cfg.param_count(),
            "batch": Z_BATCH, "prompt_len": Z_PROMPT, "gen": Z_GEN,
@@ -674,9 +747,14 @@ def run_zamba2(serve, lm, counters: dict) -> dict:
                t for r in runs for t in r["step_ms"]),
            "decode_ms_per_token_min": min(t for r in runs
                                           for t in r["step_ms"]),
-           "logits_max_abs_err": errs, "logits_tol": tols,
+           "logits_max_abs_err": errs, "logits_tol": tols[bf16],
+           "max_err_over_tol": over(errs, tols[bf16]),
            "logits_max_abs_ref": [r.abs().max().item() for r in ref],
-           "plain_bf16_vs_fp32": noise, "kernels_bf16_vs_fp32": dist(got, f32),
+           "plain_bf16_vs_fp32": noise,
+           "kernels_bf16_vs_fp32": dist(got, ref32),
+           "fp32_logits_max_abs_err": errs32, "fp32_logits_tol": tols[fp32],
+           "fp32_max_err_over_tol": over(errs32, tols[fp32]),
+           "planted_faults": faults,
            "argmax_agreement": agree, "finite": finite,
            "sample": out["tokens"][0, :12].tolist(),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -693,9 +771,15 @@ def run_zamba2(serve, lm, counters: dict) -> dict:
                                 ("per run", launches, want_run)):
         if got_n != want_n:
             raise SystemExit(f"zamba2: launches {name} {got_n} != {want_n}")
-    if not finite or any(e > t for e, t in zip(errs, tols)):
+    if not finite or rec["max_err_over_tol"] > 1.0 or \
+            rec["fp32_max_err_over_tol"] > 1.0:
         raise SystemExit(f"zamba2: logits off the plain engine by {errs} "
-                         f"(tol {tols})")
+                         f"in bf16, {errs32} in fp32 (tol {tols})")
+    missed = [f for f, r in faults.items()
+              if r["float32"]["max_err_over_tol"] <= 1.0]
+    if missed:
+        raise SystemExit(f"zamba2: the fp32 logit check misses planted "
+                         f"faults {missed}")
     return rec
 
 
@@ -715,6 +799,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import matmul as mm_mod
     from repro_torch.launch import serve
+    from repro_torch.models import attention as attn_mod
     from repro_torch.models import cnn, lm
     from repro_torch.observability import trace
 
@@ -783,7 +868,7 @@ def main() -> int:
         cs = [c for c in chk.cases if c["kernel"] == kname]
         summary[kname] = {
             "cases": len(cs), "failed": sum(not c["ok"] for c in cs),
-            "max_err_over_tol": max(c["max_abs_err"] / c["tol"] for c in cs),
+            "max_err_over_tol": max(c["err_over_tol"] for c in cs),
             "max_abs_err_fp32": max(c["max_abs_err"] for c in cs
                                     if c["dtype"] == "float32"),
             "max_abs_err_bf16": max(c["max_abs_err"] for c in cs
@@ -802,8 +887,8 @@ def main() -> int:
     emit({"phase": "lm_checks",
           **check_lm_kernels(chk, lm_kernels, dgen),
           "seconds": time.perf_counter() - t0,
-          "tolerance": "attention fp32 1e-4, bf16 max(2e-2, 2^-7 x "
-                       "max|plain|); conv1d as checks with R = FL"})
+          "tolerance": "attention fp32 1e-4, bf16 2^-6 x sum_j p_j |v_j| "
+                       "per element; conv1d as checks with R = FL"})
     details = {"nvidia_smi": smi, "ptxas": ptxas, "checks": chk.cases}
     if chk.failures():
         dump(details)
@@ -880,7 +965,7 @@ def main() -> int:
     emit({"phase": "resnet50_prepruned", "median_ms": statistics.median(times),
           "min_ms": min(times)})
     emit({"phase": "host", **host_profile(lambda: cnn.resnet50_apply(r50, x))})
-    zamba2 = run_zamba2(serve, lm, counters)
+    zamba2 = run_zamba2(serve, lm, attn_mod, fa_mod, da_mod, counters)
 
     dump({**details, "times": per_path, "lm_times": lm_times,
           "models": models, "zamba2": zamba2})

@@ -20,7 +20,7 @@ import torch
 from . import _build
 from .ref import conv1d_causal_ref
 
-MAX_FL = 8          # csrc/conv1d.cu instantiates FL = 1..8
+FLS = (2, 3, 4)     # filter lengths instantiated in csrc/conv1d.cu
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"carla_conv1d_causal": [_I, _P, _P, _P] + [_I] * 7 + [_P]}
@@ -52,9 +52,8 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"on {x.device}, w on {w.device}")
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"conv1d_causal: dtype {x.dtype} not supported")
-    if not 1 <= fl <= MAX_FL:
-        raise ValueError(f"conv1d_causal: FL = {fl}, the kernel takes "
-                         f"1..{MAX_FL}")
+    if fl not in FLS:
+        raise ValueError(f"conv1d_causal: FL = {fl}, the kernel takes {FLS}")
     if x.stride(2) != 1:
         raise ValueError("conv1d_causal: x's channels must be contiguous")
     if (b - 1) * x.stride(0) + (t - 1) * x.stride(1) + c >= 2 ** 31 or \

@@ -5,7 +5,8 @@
 // RWKV6's 2-tap token shift.
 //
 // What it computes: out[b, t, c] = sum_{r < FL} x[b, t - FL + 1 + r, c] *
-// w[r, c], with x[t < 0] = 0 (the causal left pad), summed in fp32 in the
+// w[r, c] for FL = 2, 3 or 4 (the configs' d_conv and the token shift's 2
+// taps), with x[t < 0] = 0 (the causal left pad), summed in fp32 in the
 // order r = 0, 1, ... and stored once in x's type. w is fp32 whatever x's
 // type is (Mamba2 keeps conv_w in fp32; the Pallas kernel casts both to fp32).
 //
@@ -118,14 +119,9 @@ template <typename T>
 int launch(const void* x, const float* w, void* out, const Conv1dShape& s,
            int fl, int vec, cudaStream_t stream) {
   switch (fl) {
-    case 1: return launch_fl<T, 1>(x, w, out, s, vec, stream);
     case 2: return launch_fl<T, 2>(x, w, out, s, vec, stream);
     case 3: return launch_fl<T, 3>(x, w, out, s, vec, stream);
     case 4: return launch_fl<T, 4>(x, w, out, s, vec, stream);
-    case 5: return launch_fl<T, 5>(x, w, out, s, vec, stream);
-    case 6: return launch_fl<T, 6>(x, w, out, s, vec, stream);
-    case 7: return launch_fl<T, 7>(x, w, out, s, vec, stream);
-    case 8: return launch_fl<T, 8>(x, w, out, s, vec, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -221,12 +221,8 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
            cudaStream_t stream) {
   switch (dh) {
     case 16: return launch_dh<T, 16>(q, k, v, pos, out, ws, s, stream);
-    case 32: return launch_dh<T, 32>(q, k, v, pos, out, ws, s, stream);
-    case 48: return launch_dh<T, 48>(q, k, v, pos, out, ws, s, stream);
     case 64: return launch_dh<T, 64>(q, k, v, pos, out, ws, s, stream);
     case 80: return launch_dh<T, 80>(q, k, v, pos, out, ws, s, stream);
-    case 96: return launch_dh<T, 96>(q, k, v, pos, out, ws, s, stream);
-    case 112: return launch_dh<T, 112>(q, k, v, pos, out, ws, s, stream);
     case 128: return launch_dh<T, 128>(q, k, v, pos, out, ws, s, stream);
     default: return (int)cudaErrorInvalidValue;
   }

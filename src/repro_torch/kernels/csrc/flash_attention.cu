@@ -21,12 +21,13 @@
 // tile of one head and loops over the 64-key tiles itself, with m, l and the
 // fp32 accumulator in registers. KV tiles past the diagonal (and, with a
 // window, before it) are never loaded. Ragged T and S are bounds checks
-// (the Pallas wrapper asserts T % bq == 0); DH is a template parameter, any
-// multiple of 16 up to 128 (zamba2's 80 is not a power of two).
+// (the Pallas wrapper asserts T % bq == 0); DH is a template parameter,
+// instantiated for the head dims the configs use: 16 (the smoke configs),
+// 64, 80 (zamba2's, not a power of two) and 128.
 //
 // Bound on this card: 4 * DH FLOP per (query, key) pair over the causal
 // half, 8.6e10 FLOP at zamba2's prefill shape (B 4, T 2048, H 32, DH 80),
-// against 84 MB of q, k, v and out: about 1000 FLOP per byte, so bound by
+// against 168 MB of bf16 q, k, v and out: about 500 FLOP per byte, so bound by
 // operations (0.087 ms at the bf16 tensor-core peak). This first version
 // runs on the fp32 CUDA cores (67 TFLOP/s), which also gives the fp32 inputs
 // an exact fp32 result: 256 threads, each with a 4 x 4 micro-tile of the
@@ -228,12 +229,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
            const FlashShape& s, int dh, cudaStream_t stream) {
   switch (dh) {
     case 16: return launch_dh<T, 16>(q, k, v, out, s, stream);
-    case 32: return launch_dh<T, 32>(q, k, v, out, s, stream);
-    case 48: return launch_dh<T, 48>(q, k, v, out, s, stream);
     case 64: return launch_dh<T, 64>(q, k, v, out, s, stream);
     case 80: return launch_dh<T, 80>(q, k, v, out, s, stream);
-    case 96: return launch_dh<T, 96>(q, k, v, out, s, stream);
-    case 112: return launch_dh<T, 112>(q, k, v, out, s, stream);
     case 128: return launch_dh<T, 128>(q, k, v, out, s, stream);
     default: return (int)cudaErrorInvalidValue;
   }

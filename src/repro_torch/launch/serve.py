@@ -55,16 +55,11 @@ def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, *,
 
 
 def generate(cfg: ModelConfig, params: dict, prompts: dict, gen: int, *,
-             impl: str = "auto", forced: torch.Tensor | None = None,
-             keep_logits: int = 0) -> dict:
+             impl: str = "auto") -> dict:
     """Prefill, then ``gen - 1`` greedy decode steps.
 
     Returns ``tokens`` (B, gen), ``prefill_ms`` and ``step_ms`` (host clock,
-    each ending in a device synchronise) and the fp32 logits (B, V) of the
-    first ``keep_logits`` positions (the prefill's last, then each step's).
-    ``forced`` (B, >= gen - 1) feeds fixed tokens to the decode steps instead
-    of the argmax (teacher forcing), so two engines can be compared step by
-    step without an argmax flip forking their inputs.
+    each ending in a device synchronise).
     """
     key = "embeds" if cfg.input_mode == "embeds" else "tokens"
     b, t = prompts[key].shape[:2]
@@ -77,7 +72,6 @@ def generate(cfg: ModelConfig, params: dict, prompts: dict, gen: int, *,
     next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    kept = [logits[:, -1].float()] if keep_logits > 0 else []
     out_tokens, step_ms = [next_tok], []
     emb_gen = torch.Generator(device=dev).manual_seed(1)
     for i in range(gen - 1):
@@ -87,16 +81,14 @@ def generate(cfg: ModelConfig, params: dict, prompts: dict, gen: int, *,
             db["embeds"] = torch.randn((b, 1, cfg.d_model), generator=emb_gen,
                                        device=dev).to(lm.COMPUTE_DTYPE)
         else:
-            db["token"] = next_tok if forced is None else forced[:, i:i + 1]
+            db["token"] = next_tok
         logits, cache = lm.decode_step(cfg, params, db, cache, impl=impl)
         next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         _sync(dev)
         step_ms.append((time.perf_counter() - ts) * 1e3)
-        if len(kept) < keep_logits:
-            kept.append(logits[:, -1].float())
         out_tokens.append(next_tok)
     return {"tokens": torch.cat(out_tokens, dim=1), "prefill_ms": prefill_ms,
-            "step_ms": step_ms, "logits": kept}
+            "step_ms": step_ms}
 
 
 def main(argv=None):

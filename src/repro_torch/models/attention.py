@@ -11,13 +11,15 @@ function, and the kernel's plain version runs on the CPU or with
 ``impl="ref"``.  ``attention_decode`` writes the new token's k/v into the
 cache in place (the reference returns a new cache) and calls the decode
 kernel, which, like the Pallas one, takes only the causal mask ``kpos <=
-pos``: windowed, soft-capped and rolling decode raise NotImplementedError.
+pos``: windowed and soft-capped decode raise NotImplementedError.  The
+attention operands go to the kernels in the activations' dtype (``repro``'s
+default ``bf16_attn_io``); caches are never rolling windows, since every
+layer that would need one raises in decode.
 """
 from __future__ import annotations
 
 import torch
 
-from .. import perf
 from ..kernels import decode_attention as _decode
 from ..kernels import flash_attention as _flash
 from ..kernels.ops import resolve
@@ -78,13 +80,6 @@ def _qkv(params, x, n_heads, n_kv_heads, d_head):
     return q, k, v
 
 
-def _io(*ts):
-    """perf.bf16_attn_io off: the attention operands go in as fp32 copies."""
-    if perf.get().bf16_attn_io:
-        return ts
-    return tuple(t.float() for t in ts)
-
-
 # ------------------------------ forward --------------------------------------
 def attention(params, x, *, n_heads: int, n_kv_heads: int, d_head: int,
               rope_theta: float = 1e4, window: int = 0,
@@ -107,7 +102,7 @@ def attention(params, x, *, n_heads: int, n_kv_heads: int, d_head: int,
         k = apply_rope(k, pos, rope_theta)
     fn = (_flash.flash_attention if resolve(impl, x) == "cuda"
           else _flash.flash_attention_plain)
-    out = fn(*_io(q, k, v), window=int(window),
+    out = fn(q, k, v, window=int(window),
              softcap=attn_softcap).to(x.dtype)
     return dense(params["wo"], out.reshape(b, t, -1), x.dtype), (k, v)
 
@@ -115,19 +110,17 @@ def attention(params, x, *, n_heads: int, n_kv_heads: int, d_head: int,
 def attention_decode(params, x, cache_k, cache_v, pos, *, n_heads: int,
                      n_kv_heads: int, d_head: int, rope_theta: float = 1e4,
                      window: int = 0, attn_softcap: float = 0.0,
-                     mrope_sections=None, rolling_window: int = 0,
-                     impl: str = "auto"):
+                     mrope_sections=None, impl: str = "auto"):
     """One-token decode.  x: (B, 1, d); cache_{k,v}: (B, S, Kh, dh); pos: (B,).
 
     Writes this token's k/v at slot ``pos`` of the cache in place and returns
     (out, cache_k, cache_v) — the same cache tensors, updated.
     """
-    if (window and window > 0) or (attn_softcap and attn_softcap > 0) or \
-            rolling_window:
+    if (window and window > 0) or (attn_softcap and attn_softcap > 0):
         raise NotImplementedError(
-            "attention_decode: windowed, soft-capped and rolling-window decode "
-            "(gemma2, mixtral) are not ported; the decode kernel, like the "
-            "Pallas one, takes only the causal mask (ROADMAP.md, Queue 1)")
+            "attention_decode: windowed and soft-capped decode (gemma2, "
+            "mixtral) are not ported; the decode kernel, like the Pallas one, "
+            "takes only the causal mask (ROADMAP.md, Queue 1)")
     b = x.shape[0]
     q, k, v = _qkv(params, x, n_heads, n_kv_heads, d_head)
     posb = pos[:, None]                                    # (B, 1)
@@ -145,6 +138,5 @@ def attention_decode(params, x, cache_k, cache_v, pos, *, n_heads: int,
 
     fn = (_decode.decode_attention if resolve(impl, x) == "cuda"
           else _decode.decode_attention_plain)
-    qo, ck, cv = _io(q[:, 0], cache_k, cache_v)
-    out = fn(qo, ck, cv, pos.to(torch.int32)).to(x.dtype)
+    out = fn(q[:, 0], cache_k, cache_v, pos.to(torch.int32)).to(x.dtype)
     return dense(params["wo"], out.reshape(b, 1, -1), x.dtype), cache_k, cache_v

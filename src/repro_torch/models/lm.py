@@ -16,8 +16,13 @@ Entry points: ``init_params`` (random weights drawn on the target device;
 ``layers.with_compute_copies`` adds a bf16 copy of every dense weight),
 ``init_cache``, ``prefill`` and ``decode_step``.  ``impl`` selects the
 kernels (``"cuda"``), their plain versions (``"ref"``) or by device
-(``"auto"``), as ``kernels.ops`` does.  Not ported yet (ROADMAP.md): MoE
-blocks, RWKV-6 blocks, ``forward_train`` and ``loss_fn``, sharding hints.
+(``"auto"``), as ``kernels.ops`` does.  ``dtype`` is the activations' and
+caches' dtype, ``COMPUTE_DTYPE`` (bf16) as in ``repro``; an fp32 run of the
+plain engine is the reference the bf16 engines are measured against.  Every
+attention cache holds ``max_seq`` rows (``repro``'s ``windowed_local_cache``
+shortens windowed layers' caches, whose decode is not ported).  Not ported
+yet (ROADMAP.md): MoE blocks, RWKV-6 blocks, ``forward_train`` and
+``loss_fn``, sharding hints.
 """
 from __future__ import annotations
 
@@ -25,7 +30,6 @@ from typing import Any
 
 import torch
 
-from .. import perf
 from . import attention as attn_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
@@ -44,29 +48,14 @@ from .layers import (
 )
 
 Params = Any
-COMPUTE_DTYPE = torch.bfloat16   # activations and KV caches; read per call
+COMPUTE_DTYPE = torch.bfloat16   # activations and KV caches
 _NOT_PORTED = ("{what} blocks are not ported to repro_torch yet "
                "(ROADMAP.md, Queue 1)")
 
 
-def _attn_cache_len(cfg: ModelConfig, spec: dict, max_seq: int) -> int:
-    """Sliding-window layers keep a rolling window-sized cache."""
-    if not perf.get().windowed_local_cache:
-        return max_seq
-    w = _attn_kwargs(cfg, spec)["window"]
-    return min(w, max_seq) if w and w > 0 else max_seq
-
-
 def _place_kv(buf, kv) -> None:
-    """Write prefill KV (B, T, Kh, dh) into one group's (B, W, Kh, dh) cache.
-
-    For rolling buffers (W < T) the last W tokens land at slots pos % W —
-    a roll by (T-W) % W of the tail."""
-    w, t = buf.shape[1], kv.shape[1]
-    if t <= w:
-        buf[:, :t] = kv
-    else:
-        buf.copy_(torch.roll(kv[:, t - w:], (t - w) % w, dims=1))
+    """Write prefill KV (B, T, Kh, dh) into one group's (B, S, Kh, dh) cache."""
+    buf[:, :kv.shape[1]] = kv
 
 
 # ----------------------------- block templates -------------------------------
@@ -206,10 +195,10 @@ def _apply_shared_attn_full(cfg, sp, x, impl):
 
 
 # ----------------------------- full forward ----------------------------------
-def _embed_in(cfg: ModelConfig, params, batch) -> torch.Tensor:
+def _embed_in(cfg: ModelConfig, params, batch, key: str, dtype):
     if cfg.input_mode == "embeds":
-        return batch["embeds"].to(COMPUTE_DTYPE)
-    return embed(params["embed"], batch["tokens"], COMPUTE_DTYPE)
+        return batch["embeds"].to(dtype)
+    return embed(params["embed"], batch[key], dtype)
 
 
 def _logits(cfg: ModelConfig, params, h):
@@ -226,7 +215,7 @@ def _group(tree, g: int):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
-               device="cuda") -> Params:
+               device="cuda", dtype=COMPUTE_DTYPE) -> Params:
     """Zeroed decode cache matching the group/block structure."""
     _check_ported(cfg)
     dev = resolve_device(device)
@@ -238,8 +227,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
     cache = {}
     for p, spec in enumerate(_group_templates(cfg)):
         if spec["kind"] == "attn":
-            s_p = _attn_cache_len(cfg, spec, max_seq)
-            c = {n: zeros(g, b, s_p, cfg.n_kv_heads, dh, dtype=COMPUTE_DTYPE)
+            c = {n: zeros(g, b, max_seq, cfg.n_kv_heads, dh, dtype=dtype)
                  for n in ("k", "v")}
         else:
             d_inner = 2 * cfg.d_model
@@ -250,16 +238,16 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
         cache[f"p{p}"] = c
     if cfg.hybrid_attn_period:
         cache["shared"] = {n: zeros(g, b, max_seq, cfg.n_kv_heads, dh,
-                                    dtype=COMPUTE_DTYPE) for n in ("k", "v")}
+                                    dtype=dtype) for n in ("k", "v")}
     return cache
 
 
 def prefill(cfg: ModelConfig, params: Params, batch, max_seq: int, *,
-            impl: str = "auto") -> tuple:
+            impl: str = "auto", dtype=COMPUTE_DTYPE) -> tuple:
     """Full-sequence forward returning (last-position logits, cache)."""
     templates = _group_templates(cfg)
-    x = _embed_in(cfg, params, batch)
-    cache = init_cache(cfg, x.shape[0], max_seq, device=x.device)
+    x = _embed_in(cfg, params, batch, "tokens", dtype)
+    cache = init_cache(cfg, x.shape[0], max_seq, device=x.device, dtype=dtype)
     for g in range(cfg.n_groups):
         for p, spec in enumerate(templates):
             key = f"p{p}"
@@ -285,13 +273,9 @@ def _apply_block_decode(cfg, spec, bp, x, c, pos, impl):
     """One-token block step; updates c (this block's cache slice) in place."""
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if spec["kind"] == "attn":
-        kw = _attn_kwargs(cfg, spec)
-        rolling = (c["k"].shape[1]
-                   if (perf.get().windowed_local_cache and kw["window"]
-                       and kw["window"] > 0) else 0)
         y, _, _ = attn_mod.attention_decode(
-            bp["attn"], h, c["k"], c["v"], pos, rolling_window=rolling,
-            impl=impl, **kw)
+            bp["attn"], h, c["k"], c["v"], pos, impl=impl,
+            **_attn_kwargs(cfg, spec))
         if cfg.post_norm:
             y = rmsnorm(bp["ln1p"], y, cfg.norm_eps)
         x = x + y
@@ -305,16 +289,13 @@ def _apply_block_decode(cfg, spec, bp, x, c, pos, impl):
 
 
 def decode_step(cfg: ModelConfig, params: Params, batch, cache, *,
-                impl: str = "auto") -> tuple:
+                impl: str = "auto", dtype=COMPUTE_DTYPE) -> tuple:
     """One decode step.  batch: {"token": (B,1) or "embeds": (B,1,d),
     "pos": (B,)}.  Returns (logits (B,1,V), cache), the cache updated in
     place."""
     templates = _group_templates(cfg)
     pos = batch["pos"]
-    if cfg.input_mode == "embeds":
-        x = batch["embeds"].to(COMPUTE_DTYPE)
-    else:
-        x = embed(params["embed"], batch["token"], COMPUTE_DTYPE)
+    x = _embed_in(cfg, params, batch, "token", dtype)
     for g in range(cfg.n_groups):
         for p, spec in enumerate(templates):
             key = f"p{p}"

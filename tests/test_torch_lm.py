@@ -273,13 +273,36 @@ def test_serve_runs_on_the_cpu(capsys):
     assert "sample:" in out
 
 
-def test_forced_decoding_feeds_the_given_tokens():
+def test_generate_feeds_back_the_argmax():
     cfg, params = serve.load_model("smollm-135m", smoke=True, device="cpu")
     prompts = serve.make_prompts(cfg, 2, 8, device="cpu")
-    forced = torch.randint(0, cfg.vocab, (2, 3),
-                           generator=torch.Generator().manual_seed(1))
-    a = serve.generate(cfg, params, prompts, 4, forced=forced, keep_logits=4)
-    b = serve.generate(cfg, params, prompts, 4, forced=forced, keep_logits=4)
-    assert len(a["logits"]) == 4 and tuple(a["tokens"].shape) == (2, 4)
-    for x, y in zip(a["logits"], b["logits"]):
-        assert torch.equal(x, y)
+    out = serve.generate(cfg, params, prompts, 4)
+    logits, cache = t_lm.prefill(cfg, params, prompts, max_seq=12)
+    tokens = [torch.argmax(logits[:, -1], dim=-1)[:, None]]
+    for i in range(3):
+        logits, cache = t_lm.decode_step(cfg, params, {
+            "token": tokens[-1],
+            "pos": torch.full((2,), 8 + i, dtype=torch.int32)}, cache)
+        tokens.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
+    assert torch.equal(out["tokens"], torch.cat(tokens, dim=1))
+
+
+def test_fp32_activations_are_passed_explicitly():
+    # the fp32 plain engine is the chip check's reference for the bf16 ones
+    cfg, params = serve.load_model("zamba2-2.7b", smoke=True, device="cpu")
+    prompts = serve.make_prompts(cfg, 2, 64, device="cpu")
+    step = {"token": torch.ones((2, 1), dtype=torch.long),
+            "pos": torch.full((2,), 64, dtype=torch.int32)}
+    runs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        logits, cache = t_lm.prefill(cfg, params, prompts, max_seq=65,
+                                     dtype=dtype)
+        assert cache["shared"]["k"].dtype == dtype
+        step_logits, _ = t_lm.decode_step(cfg, params, step, cache,
+                                          dtype=dtype)
+        assert logits.dtype == step_logits.dtype == dtype
+        runs[dtype] = (logits.float(), step_logits.float())
+    assert t_lm.COMPUTE_DTYPE == torch.bfloat16
+    for a, b in zip(runs[torch.bfloat16], runs[torch.float32]):
+        # bf16 keeps 8 significant bits: a few steps at the largest logit
+        assert (a - b).abs().max() <= 5e-2 * max(1.0, b.abs().max().item())

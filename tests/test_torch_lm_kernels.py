@@ -224,7 +224,7 @@ def test_python_constants_match_the_sources():
     assert _constant("decode_attention.cu", "DA_CH") == t_decode.CHUNK
     assert _switch_cases("flash_attention.cu") == t_flash.HEAD_DIMS
     assert _switch_cases("decode_attention.cu") == t_flash.HEAD_DIMS
-    assert _switch_cases("conv1d.cu") == tuple(range(1, t_conv1d.MAX_FL + 1))
+    assert _switch_cases("conv1d.cu") == t_conv1d.FLS
 
 
 def test_decode_workspace_covers_every_chunk():
