@@ -10,7 +10,10 @@ printing one JSON line:
 1. device  — fails without CUDA; prints ``nvidia-smi`` name and power limit.
 2. build   — compiles every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
              (one process each, in parallel) and lists each kernel's
-             registers and spills.
+             registers and spills, and per library the tensor-core
+             instructions in its SASS (``cuobjdump -sass``: HMMA for
+             mma.sync, HGMMA for wgmma), which shows the bf16 flash kernel
+             on the tensor cores.
 3. shapes  — a traced forward (plain engine) of each CNN records the
              shapes and epilogues the main path gives each kernel.
 4. checks  — every CNN kernel against its plain PyTorch version on the card,
@@ -23,15 +26,26 @@ printing one JSON line:
              neighbouring bf16 value).
    lm_checks — flash attention, decode attention and conv1d against their
              plain versions at zamba2's shapes and ragged ones (GQA, head
-             dims 16, 64, 80, 128, T and S off the tiles, windows,
-             soft-caps, a different pos per sequence with 0 and S - 1, FL
-             2-4, odd C, strided input), fp32 and bf16.  Tolerance:
+             dims 16, 64, 80, 128, T and S off the tiles and at their edges
+             (T 1, 15-17, 63, 65, 127, 129), windows ending inside an mma
+             tile, soft-caps with G = 4, a different pos per sequence with
+             0, S - 1, inside a decode chunk and on its boundary, B * KH =
+             1, a cache of one row, FL 2-4, odd C, strided input), fp32 and
+             bf16.  Every decode case runs twice and must give the same
+             bits (the combine's fixed order, the ticket counters' reset).
+             Tolerance:
              attention fp32 1e-4 (unit-normal inputs, as
              tests/test_kernels.py); bf16 per output element 2^-6 x
              sum_j p_j |v_j| (the plain version on |v| in fp32): p is
              rounded to bf16 on each side and so is the output, four unit
              roundoffs of 2^-8 of that sum at most; conv1d as phase 4 with
              R = FL.
+   flash_bf16_faults — the bf16 flash kernel shares no code with the fp32
+             one that the zamba2 wiring check runs, so faults are planted
+             in its source (``FLASH_BF16_FAULTS``: text edits of
+             csrc/flash_attention.cu, each built apart in a temporary
+             directory, in parallel with phase 2) and the bf16 flash cases
+             above, at the same tolerance, must fail on every one.
 5. times   — each CNN kernel, its plain version and the one PyTorch library
              call (cuDNN conv / cuBLAS GEMM with TF32 off, epilogue not
              included) at the fp32 main-path shapes, and each LM kernel at
@@ -75,13 +89,17 @@ check raises, so the script exits non-zero and prints no last line.
 """
 from __future__ import annotations
 
+import ctypes
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -103,6 +121,22 @@ PROFILE_REPS = 5
 SLEEP_CYCLES = 1_000_000     # ~0.5 ms of device time at H100 clocks
 # zamba2-2.7b serving: batch 4 x 2048-token prompts, 32 generated tokens
 Z_BATCH, Z_PROMPT, Z_GEN, Z_COMPARE, Z_TIMED = 4, 2048, 32, 8, 3
+# Faults planted in the bf16 flash kernel (flash_mma_kernel), name -> (text
+# of csrc/flash_attention.cu, its replacement); the bf16 flash cases must
+# catch each.  The first two touch only rows from 1024 on, which only the
+# zamba2-shaped case has: long rows, where one key or one tile moves the
+# output least.
+FLASH_BF16_FAULTS = {
+    "long_rows_skip_a_tile": (       # keys 192-255
+        "      continue;\n\n    // The tile's work",
+        "      continue;\n    if (q0 >= 1024 && tile0 + it == 3) continue;"
+        "\n\n    // The tile's work"),
+    "long_rows_mask_their_own_key": (
+        "              const bool ok = key <= t && key < s.S &&",
+        "              const bool ok = (key < t || (key == t && t < 1024)) "
+        "&& key < s.S &&"),
+    "row_sum_not_rescaled": ("          l[mt][r] *= alpha;\n", ""),
+}
 
 
 def emit(obj: dict) -> None:
@@ -134,6 +168,27 @@ def ptxas_summary(lines: list[str]) -> dict:
               for m in re.findall(r"(\d+) bytes spill stores", line)]
     return {"kernels": len(regs), "max_registers": max(regs, default=0),
             "spill_store_bytes": sum(spills)}
+
+
+def tensor_core_counts(lib: Path) -> dict | str:
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions in a built library's
+    SASS, in all and per kernel that has any."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return "not counted: cuobjdump not found"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts = {"HMMA": 0, "HGMMA": 0, "by_kernel": {}}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        n = {op: len(re.findall(rf"\b{op}\b", part))
+             for op in ("HMMA", "HGMMA")}
+        counts["HMMA"] += n["HMMA"]
+        counts["HGMMA"] += n["HGMMA"]
+        if n["HMMA"] or n["HGMMA"]:
+            counts["by_kernel"][name[:70]] = n
+    return counts
 
 
 class Checker:
@@ -481,9 +536,24 @@ def lm_kernel_cases() -> list[dict]:
         fa(2, 300, 8, 2, 64), fa(1, 257, 4, 4, 128), fa(2, 200, 4, 2, 64, 64),
         fa(1, 130, 6, 3, 80, softcap=50.0), fa(1, 333, 8, 4, 80, 100, 30.0),
         fa(1, 65, 2, 1, 16),
-        # a different pos per sequence, 0 and S - 1, S off the 128-row chunks
+        # tile edges of the bf16 kernel (128-row query tiles, 16 rows a
+        # warp, 64-key tiles, 8-key mma n-tiles): T around 16, 64, 128
+        *(fa(b, t, 4, 2, dh) for b, t, dh in (
+            (1, 1, 16), (2, 15, 64), (1, 16, 80), (2, 17, 128),
+            (1, 63, 80), (2, 65, 64), (1, 127, 128), (2, 129, 80))),
+        # windows ending inside an mma n-tile; soft-caps with G = 4
+        fa(2, 200, 4, 4, 80, 21), fa(1, 129, 2, 2, 128, 9),
+        fa(1, 150, 8, 2, 64, softcap=30.0), fa(2, 129, 8, 2, 128, 0, 50.0),
+        fa(1, 257, 16, 4, 80, 37, 20.0), fa(1, 100, 4, 1, 16, 0, 5.0),
+        # a different pos per sequence, 0 and S - 1, S off the 64-row chunks
         da(3, 300, 8, 2, 64, (299, 0, 130)), da(2, 129, 4, 4, 128, (128, 64)),
         da(2, 1000, 6, 3, 80, (999, 511)), da(2, 77, 8, 2, 16, (76, 3)),
+        # pos on a chunk's last and first row and inside one; B * KH = 1;
+        # a cache of one row
+        da(4, 300, 8, 2, 80, (63, 64, 100, 128)),
+        da(2, 129, 4, 4, 128, (127, 128)), da(1, 200, 4, 1, 64, (150,)),
+        da(1, 65, 1, 1, 80, (64,)), da(2, 1, 4, 2, 16, (0, 0)),
+        da(1, 1, 8, 1, 128, (0,)),
         # FL 2-4, odd C (one channel a thread), contiguous and strided x
         c1(Z_BATCH, Z_PROMPT, 5248, 4), c1(2, 33, 131, 3), c1(1, 17, 96, 2),
         c1(3, 100, 1000, 4), c1(2, 40, 64, 2, row=80, col0=8),
@@ -550,6 +620,72 @@ def lm_library(case: dict, args):
                             groups=case["c"])
 
 
+def build_with_faults(_build, fa_mod) -> tuple[float, dict]:
+    """Phase 2: every source (``_build.build_all``) and, beside it, one nvcc
+    per planted fault of FLASH_BF16_FAULTS, each building the edited
+    csrc/flash_attention.cu in a temporary directory.  Returns the main
+    build's nvcc seconds and name -> the loaded faulty library."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    procs, libs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as tmp:
+        tmp = Path(tmp)
+        try:
+            for name, (old, new) in FLASH_BF16_FAULTS.items():
+                if src.count(old) != 1:
+                    raise SystemExit(f"planted fault {name}: its text is not "
+                                     "in csrc/flash_attention.cu exactly once")
+                cu = tmp / f"{name}.cu"
+                cu.write_text(src.replace(old, new))
+                with open(tmp / f"{name}.log", "w") as log:
+                    procs[name] = subprocess.Popen(
+                        [_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                         str(_build.CSRC), "-o", str(tmp / f"lib{name}.so"),
+                         str(cu)], stdout=log, stderr=subprocess.STDOUT)
+            nvcc_s = _build.build_all()
+            for name, proc in procs.items():
+                if proc.wait() != 0:
+                    log = (tmp / f"{name}.log").read_text()
+                    raise SystemExit(f"planted fault {name}: nvcc failed: "
+                                     f"{log[-2000:]}")
+                lib = libs[name] = ctypes.CDLL(str(tmp / f"lib{name}.so"))
+                for fn, argtypes in fa_mod._SIGNATURES.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return nvcc_s, libs
+
+
+def check_flash_faults(_build, fa_mod, libs: dict, gen) -> dict:
+    """Each planted fault's library through the flash wrapper on the bf16
+    flash cases of lm_kernel_cases, at their tolerance: how many cases
+    fail and the worst err / tol.  Raises unless every fault fails one."""
+    cases = [c for c in lm_kernel_cases() if c["kernel"] == "flash_attention"]
+    plain = fa_mod.flash_attention_plain
+    out = {}
+    for name, lib in libs.items():
+        chk = Checker()
+        with mock.patch.object(_build, "load", lambda *_: lib):
+            for case in cases:
+                args, kw = lm_operands(case, torch.bfloat16, gen)
+                want = plain(*args, **kw)
+                chk.add("flash_attention", case,
+                        fa_mod.flash_attention(*args, **kw), want,
+                        case["dh"], _attn_tol(want, plain, args, kw))
+        out[name] = {"cases_failed": len(chk.failures()), "of": len(cases),
+                     "max_err_over_tol": max(c["err_over_tol"]
+                                             for c in chk.cases),
+                     "zamba2_case_err_over_tol": chk.cases[0]["err_over_tol"]}
+    missed = [n for n, r in out.items() if not r["cases_failed"]]
+    if missed:
+        raise SystemExit(f"the bf16 flash checks miss planted faults "
+                         f"{missed}: {out}")
+    return out
+
+
 def lm_reduction(case: dict) -> int:
     return case["fl"] if case["kernel"] == "conv1d_causal" else case["dh"]
 
@@ -565,12 +701,18 @@ def check_lm_kernels(chk: Checker, lm_kernels: dict, gen) -> dict:
                    else _attn_tol(want, plain, args, kw))
             chk.add(case["kernel"], {**case, "dtype": str(dtype)[6:]}, got,
                     want, lm_reduction(case), tol)
+            if case["kernel"] == "decode_attention":
+                same = torch.equal(got, wrapper(*args, **kw))
+                rec = chk.cases[-1]
+                rec.update(repeat_identical=same, ok=rec["ok"] and same)
     torch.cuda.synchronize()
     summary = {}
     for kname in lm_kernels:
         cs = [c for c in chk.cases if c["kernel"] == kname]
         summary[kname] = {
             "cases": len(cs), "failed": sum(not c["ok"] for c in cs),
+            **({"repeats_identical": all(c["repeat_identical"] for c in cs)}
+               if kname == "decode_attention" else {}),
             "max_err_over_tol": max(c["err_over_tol"] for c in cs),
             **{f"max_abs_err_{d}": max(c["max_abs_err"] for c in cs
                                        if c["dtype"] == d)
@@ -603,6 +745,11 @@ def time_lm_kernels(lm_kernels: dict, peaks: dict, flush, gen) -> dict:
             "library_ms": cold_time_ms(lm_library(case, args), flush),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        if kname == "decode_attention":
+            # a yardstick of the memory system, not a bound: a device copy
+            # of the K cache moves as many bytes as decode reads (half read,
+            # half written)
+            rows[kname]["cache_copy_ms"] = cold_time_ms(args[1].clone, flush)
     return rows
 
 
@@ -812,16 +959,20 @@ def main() -> int:
           "cuda": torch.version.cuda, "peaks": peaks})
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. build
+    # 2. build (and the bf16 flash kernel's planted faults beside it)
     t0 = time.perf_counter()
-    nvcc_s = _build.build_all()
+    nvcc_s, fault_libs = build_with_faults(_build, fa_mod)
     ptxas = {src.stem: [line.strip()
                         for line in _build.build_log(src.stem).splitlines()
                         if "registers" in line or "spill" in line]
              for src in _build.sources()}
     emit({"phase": "build", "nvcc_seconds": nvcc_s,
           "seconds": time.perf_counter() - t0,
-          "ptxas": {n: ptxas_summary(lines) for n, lines in ptxas.items()}})
+          "ptxas": {n: ptxas_summary(lines) for n, lines in ptxas.items()},
+          "tensor_core_sass": {
+              src.stem: tensor_core_counts(_build.build_dir()
+                                           / f"lib{src.stem}.so")
+              for src in _build.sources()}})
 
     # 3. main-path shapes (plain engine, traced: no kernel launch)
     gen = torch.Generator().manual_seed(SEED)
@@ -894,6 +1045,10 @@ def main() -> int:
         dump(details)
         raise SystemExit(f"{len(chk.failures())} kernel checks failed, "
                          f"first: {chk.failures()[0]}")
+    t0 = time.perf_counter()
+    emit({"phase": "flash_bf16_faults",
+          **check_flash_faults(_build, fa_mod, fault_libs, dgen),
+          "seconds": time.perf_counter() - t0})
 
     # 5. times at the fp32 main-path shapes, with each call's own epilogue
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -932,7 +1087,8 @@ def main() -> int:
     lm_times = time_lm_kernels(lm_kernels, peaks, flush, dgen)
     emit({"phase": "times", "path": "zamba2 kernels, bf16, one call each",
           **{k: {f: r[f] for f in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by", "max_abs_err")}
+                                    "bound_ms", "bound_by", "max_abs_err",
+                                    "cache_copy_ms") if f in r}
              for k, r in lm_times.items()}})
 
     # 6. the main path, through the entry points a user calls

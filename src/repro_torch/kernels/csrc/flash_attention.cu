@@ -17,32 +17,63 @@
 //
 // Why not the Pallas grid: on the TPU the KV axis is the innermost grid
 // dimension and acc/m/l live in scratch across its sequential steps. Blocks
-// here run in parallel and in no order, so one block owns a 64-row query
-// tile of one head and loops over the 64-key tiles itself, with m, l and the
-// fp32 accumulator in registers. KV tiles past the diagonal (and, with a
-// window, before it) are never loaded. Ragged T and S are bounds checks
-// (the Pallas wrapper asserts T % bq == 0); DH is a template parameter,
-// instantiated for the head dims the configs use: 16 (the smoke configs),
-// 64, 80 (zamba2's, not a power of two) and 128.
+// here run in parallel and in no order, so one block owns a query tile of
+// one head and loops over the 64-key tiles itself, with m, l and the fp32
+// accumulator in registers. KV tiles past the diagonal (and, with a window,
+// before it) are never loaded. Ragged T and S are bounds checks (the Pallas
+// wrapper asserts T % bq == 0); DH is a template parameter, instantiated for
+// the head dims the configs use: 16 (the smoke configs), 64, 80 (zamba2's,
+// not a power of two) and 128. Query tiles are handed out longest first
+// (the causal work grows with the tile index), so the last wave is short.
 //
 // Bound on this card: 4 * DH FLOP per (query, key) pair over the causal
 // half, 8.6e10 FLOP at zamba2's prefill shape (B 4, T 2048, H 32, DH 80),
-// against 168 MB of bf16 q, k, v and out: about 500 FLOP per byte, so bound by
-// operations (0.087 ms at the bf16 tensor-core peak). This first version
-// runs on the fp32 CUDA cores (67 TFLOP/s), which also gives the fp32 inputs
-// an exact fp32 result: 256 threads, each with a 4 x 4 micro-tile of the
-// 64 x 64 score tile (16 FMAs per two 16-byte shared-memory reads) and a
-// 4 x DH/16 slice of the output tile; Q, K (both transposed), V and the
-// rounded P tile sit in shared memory as fp32. The query tiles are handed
-// out longest first (the causal work grows with the tile index), so the
-// last wave is short. Tensor cores (mma/wgmma on the bf16 inputs) are later
-// work.
+// against 168 MB of bf16 q, k, v and out: about 500 FLOP per byte, so bound
+// by operations, 0.087 ms at the bf16 tensor-core peak. Two instances:
+//
+// * bf16 (the serving path): flash_mma_kernel, FlashAttention-2's layout on
+//   the tensor cores. A block owns 128 query rows of one head. Up to DH 80
+//   it has 4 warps of 32 rows (two m16 tiles, so every K and V fragment read
+//   from shared memory feeds two products); at DH 128, 8 warps of 16 rows
+//   (two tiles' accumulators would not fit in 255 registers). Q stays in
+//   shared memory and its fragments are read by ldmatrix at each k-step
+//   (held in registers they would spill). 64-key K and V tiles go through a
+//   two-stage shared-memory ring filled by 16-byte cp.async copies (zero-
+//   filled past S): one barrier per tile, after which the next tile's copy
+//   goes into the stage the last tile used and is in flight while this tile
+//   is computed. S = Q K^T and O += P V are mma.sync m16n8k16 bf16 products
+//   accumulating in fp32, K and V fragments read by ldmatrix (V with
+//   .trans). The online softmax runs on the fp32 accumulator in registers
+//   (row max and sum across the 4 lanes of a quad; p = 2^(s c - m c) in one
+//   multiply-add and one MUFU instruction), 16 keys at a time between the
+//   P V products, so P is never held whole. The tile's work is compiled
+//   twice, with and without the mask, and the soft-cap is a template
+//   parameter, so the common tile is straight-line code: only tiles that
+//   cross the diagonal, the window's edge or S evaluate the mask, and a warp
+//   skips a tile none of its rows can see. p is rounded to bf16 in registers
+//   and reused as the A fragment of the PV product (the m16n8 accumulator
+//   layout is the m16k16 A layout). Shared rows are padded by 16 bytes
+//   (DH + 8 elements), which makes ldmatrix free of bank conflicts at DH
+//   80's 160-byte rows. The output goes through shared memory and leaves in
+//   16-byte stores. Heads sharing a kv head are adjacent in the grid.
+// * fp32 (exact fp32, the wiring checks): flash_kernel on the fp32 CUDA
+//   cores, 64-row query tiles, 256 threads, each with a 4 x 4 micro-tile of
+//   the 64 x 64 score tile and a 4 x DH/16 slice of the output tile; Q, K
+//   (both transposed), V and the rounded P tile sit in shared memory as
+//   fp32. The tensor cores' TF32 would not give fp32's result.
 #include "numeric.cuh"
+#include "ptx.cuh"
+
+#include <type_traits>
 
 namespace carla {
 
-constexpr int FA_BQ = 64, FA_BK = 64, FA_THREADS = 256;
+constexpr int FA_BQ = 64, FA_BK = 64, FA_THREADS = 256;  // fp32 kernel
+constexpr int FA_MMA_BQ = 128;   // bf16 kernel: query rows of a block
+constexpr int FA_MMA_BK = 64;    // ... and keys of a K/V tile
+constexpr int FA_STAGES = 2;     // K/V tiles in the bf16 kernel's ring
 constexpr float FA_NEG_INF = -2.3819763e38f;
+constexpr float FA_LOG2E = 1.4426950408889634f;
 
 struct FlashShape {
   int B, T, S, H, KH, window;
@@ -209,18 +240,311 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The bf16 kernel's shape for one head dim: each warp owns MT m16 tiles
+// (16 MT query rows), so every K and V fragment read from shared memory
+// feeds MT products. MT = 2 up to DH 80 (4 warps); at DH 128 the output
+// accumulators of two tiles would not fit in 255 registers, so MT = 1
+// (8 warps).
+//
+// Shared memory (bf16 elements): the Q tile [FA_MMA_BQ][LD], then
+// FA_STAGES stages of a K tile [FA_MMA_BK][LD] and a V tile
+// [FA_MMA_BK][LD]. Rows are padded to LD = DH + 8 elements: 16-byte aligned
+// rows whose ldmatrix phases (8 rows of 16 bytes) hit 32 distinct banks.
+template <int DH>
+struct FlashMma {
+  static constexpr int MT = DH <= 80 ? 2 : 1;
+  static constexpr int WARPS = FA_MMA_BQ / (16 * MT);
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int LD = DH + 8;
+  static constexpr int KV = FA_MMA_BQ * LD;       // first stage
+  static constexpr int STAGE = 2 * FA_MMA_BK * LD;    // K then V
+  static constexpr size_t SMEM_BYTES =
+      (size_t)(KV + FA_STAGES * STAGE) * sizeof(__nv_bfloat16);
+};
+
+template <int DH, bool SOFTCAP>
+__global__ void __launch_bounds__(FlashMma<DH>::THREADS)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ out, FlashShape s) {
+  using F = FlashMma<DH>;
+  constexpr int MT = F::MT, THREADS = F::THREADS, LD = F::LD;
+  constexpr int PIECES = DH / 8;  // 16-byte pieces of a row
+  constexpr int KSTEPS = DH / 16; // k-steps of Q K^T
+  constexpr int NT = FA_MMA_BK / 8;   // n-tiles of 8 keys in a score tile
+  constexpr int DT = DH / 8;      // n-tiles of 8 output columns
+  extern __shared__ __align__(16) __nv_bfloat16 mma_smem[];
+  __nv_bfloat16* Qs = mma_smem;
+
+  // heads of one kv head adjacent; query tiles longest first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * FA_MMA_BQ;
+  const int kh = h / (s.H / s.KH);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int64_t q_row = (int64_t)s.H * DH, kv_row = (int64_t)s.KH * DH;
+
+  for (int i = tid; i < FA_MMA_BQ * PIECES; i += THREADS) {
+    const int r = i / PIECES, c = (i % PIECES) * 8;
+    const bool ok = q0 + r < s.T;
+    cp_async16(Qs + r * LD + c,
+               q + ((int64_t)b * s.T + (ok ? q0 + r : 0)) * q_row +
+                   (int64_t)h * DH + c,
+               ok);
+  }
+
+  const int q_last = min(q0 + FA_MMA_BQ, s.T) - 1;
+  const int k_last = min(q_last, s.S - 1);
+  const int k_first = s.window > 0 ? max(0, q0 - s.window + 1) : 0;
+  const int tile0 = k_first / FA_MMA_BK;
+  const int n_tiles = k_last < 0 ? 0 : max(0, k_last / FA_MMA_BK - tile0 + 1);
+
+  // K and V tile `it` into stage it % FA_STAGES; rows past S read as zeros
+  auto load_kv = [&](int it) {
+    if (it >= n_tiles) return;
+    const int k0 = (tile0 + it) * FA_MMA_BK;
+    __nv_bfloat16* Ks = mma_smem + F::KV + (it % FA_STAGES) * F::STAGE;
+    __nv_bfloat16* Vs = Ks + FA_MMA_BK * LD;
+    for (int i = tid; i < FA_MMA_BK * PIECES; i += THREADS) {
+      const int r = i / PIECES, c = (i % PIECES) * 8;
+      const bool ok = k0 + r < s.S;
+      const int64_t off =
+          ((int64_t)b * s.S + (ok ? k0 + r : 0)) * kv_row + (int64_t)kh * DH +
+          c;
+      cp_async16(Ks + r * LD + c, k + off, ok);
+      cp_async16(Vs + r * LD + c, v + off, ok);
+    }
+  };
+  // one commit group per tile; the first also carries the Q tile
+#pragma unroll
+  for (int it = 0; it < FA_STAGES - 1; ++it) {
+    load_kv(it);
+    cp_async_commit();
+  }
+
+  // The warp's rows are w0 .. w0 + 16 MT - 1; this thread holds rows
+  // w0 + 16 mt + lane / 4 (elements 0, 1 of an accumulator n-tile) and
+  // that + 8 (elements 2, 3), at columns col, col + 1 of each n-tile.
+  const int w0 = q0 + warp * 16 * MT;
+  const int col = 2 * (lane % 4);
+  // p = 2^(s c - m c): c folds the scale (without a soft-cap) and log2(e)
+  // into one multiply-add; m is kept in the units of s
+  const float c = SOFTCAP ? FA_LOG2E : s.scale * FA_LOG2E;
+  float o[MT][DT][4];
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      o[mt][d][0] = o[mt][d][1] = o[mt][d][2] = o[mt][d][3] = 0.f;
+    m[mt][0] = m[mt][1] = FA_NEG_INF;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<FA_STAGES - 2>();  // tile it (at it 0, and Q) has landed
+    __syncthreads();  // ... for every thread; and tile it - 1 is consumed
+    load_kv(it + FA_STAGES - 1);     // into the stage tile it - 1 used
+    cp_async_commit();
+    const int k0 = (tile0 + it) * FA_MMA_BK;
+    const __nv_bfloat16* Ks = mma_smem + F::KV + (it % FA_STAGES) * F::STAGE;
+    const __nv_bfloat16* Vs = Ks + FA_MMA_BK * LD;
+    // a tile none of the warp's rows can see: all past the diagonal, or
+    // all before the window
+    const int w_last = w0 + 16 * MT - 1;
+    if (k0 > w_last || (s.window > 0 && k0 + FA_MMA_BK - 1 <= w0 - s.window))
+      continue;
+
+    // The tile's work, compiled twice: with the mask, for tiles that cross
+    // the diagonal, the window's edge or S, and without it for the rest.
+    auto tile = [&](auto masked) {
+      // S = Q K^T; a B fragment pair covers keys 16 np .. 16 np + 15
+      float sc[MT][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          sc[mt][n][0] = sc[mt][n][1] = sc[mt][n][2] = sc[mt][n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t qa[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_x4(qa[mt], smem_addr(Qs + (w0 - q0 + mt * 16 + lane % 16) *
+                                        LD + kk * 16 + (lane / 16) * 8));
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, smem_addr(Ks + (np * 16 + (lane / 16) * 8 +
+                                           lane % 8) * LD +
+                                    kk * 16 + ((lane / 8) % 2) * 8));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16_16816(sc[mt][2 * np], qa[mt], kf[0], kf[1]);
+            mma_bf16_16816(sc[mt][2 * np + 1], qa[mt], kf[2], kf[3]);
+          }
+        }
+      }
+      if constexpr (SOFTCAP) {
+        const float k_in = s.scale / s.softcap;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[mt][n][e] = s.softcap * tanhf(sc[mt][n][e] * k_in);
+      }
+      if constexpr (decltype(masked)::value) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const int t0 = w0 + mt * 16 + lane / 4;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + n * 8 + col + (e & 1);
+              const int t = t0 + (e >> 1) * 8;
+              const bool ok = key <= t && key < s.S &&
+                              (s.window <= 0 || key > t - s.window);
+              if (!ok) sc[mt][n][e] = FA_NEG_INF;
+            }
+          }
+        }
+      }
+      // online softmax; row r of an m-tile is in elements 2r, 2r + 1 of each
+      // n-tile, spread over the 4 lanes of a quad. First the new row max,
+      // and the old sums and outputs rescaled to it.
+      float mc[MT][2], rs[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = fmaxf(sc[mt][0][2 * r], sc[mt][0][2 * r + 1]);
+#pragma unroll
+          for (int n = 1; n < NT; ++n)
+            mx = fmaxf(mx, fmaxf(sc[mt][n][2 * r], sc[mt][n][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[mt][r], mx);
+          const float alpha = ex2_approx((m[mt][r] - m_new) * c);
+          m[mt][r] = m_new;
+          // a row that sees no key yet gets p = 0 (fmaf(NEG_INF, c, -m c)
+          // would leave the rounding error of m c, not 0)
+          mc[mt][r] = m_new == FA_NEG_INF ? 0.f : m_new * c;
+          l[mt][r] *= alpha;
+          rs[mt][r] = 0.f;
+#pragma unroll
+          for (int d = 0; d < DT; ++d) {
+            o[mt][d][2 * r] *= alpha;
+            o[mt][d][2 * r + 1] *= alpha;
+          }
+        }
+      }
+      // Then, 16 keys at a time, p (fp32 into the row sums; rounded to bf16
+      // as the A fragment) and O += P V, a transposed B fragment pair of V
+      // covering columns 16 dp .. 16 dp + 15.
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t pf[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float* x = sc[mt][2 * j + h2];
+            const float p0 = ex2_approx(fmaf(x[0], c, -mc[mt][0]));
+            const float p1 = ex2_approx(fmaf(x[1], c, -mc[mt][0]));
+            const float p2 = ex2_approx(fmaf(x[2], c, -mc[mt][1]));
+            const float p3 = ex2_approx(fmaf(x[3], c, -mc[mt][1]));
+            rs[mt][0] += p0 + p1;
+            rs[mt][1] += p2 + p3;
+            pf[mt][2 * h2] = pack_bf16(p0, p1);
+            pf[mt][2 * h2 + 1] = pack_bf16(p2, p3);
+          }
+        }
+#pragma unroll
+        for (int dp = 0; dp < DT / 2; ++dp) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, smem_addr(Vs + (j * 16 + ((lane / 8) % 2) * 8 +
+                                                lane % 8) * LD +
+                                          dp * 16 + (lane / 16) * 8));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16_16816(o[mt][2 * dp], pf[mt], vf[0], vf[1]);
+            mma_bf16_16816(o[mt][2 * dp + 1], pf[mt], vf[2], vf[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float sum = rs[mt][r];
+          sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          l[mt][r] += sum;
+        }
+    };
+    if (k0 + FA_MMA_BK - 1 > w0 || k0 + FA_MMA_BK > s.S ||
+        (s.window > 0 && k0 <= w_last - s.window))
+      tile(std::true_type{});
+    else
+      tile(std::false_type{});
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // out = acc / max(l, 1e-30): the warp's rows through its own rows of the
+  // Q tile, then 16-byte stores
+  __nv_bfloat16* Os = Qs + (w0 - q0) * LD;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float den0 = fmaxf(l[mt][0], 1e-30f);
+    const float den1 = fmaxf(l[mt][1], 1e-30f);
+    const int r = mt * 16 + lane / 4;
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      *reinterpret_cast<uint32_t*>(Os + r * LD + d * 8 + col) =
+          pack_bf16(o[mt][d][0] / den0, o[mt][d][1] / den0);
+      *reinterpret_cast<uint32_t*>(Os + (r + 8) * LD + d * 8 + col) =
+          pack_bf16(o[mt][d][2] / den1, o[mt][d][3] / den1);
+    }
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * MT * PIECES; i += 32) {
+    const int r = i / PIECES, c8 = (i % PIECES) * 8;
+    if (w0 + r < s.T)
+      *reinterpret_cast<uint4*>(out + ((int64_t)b * s.T + w0 + r) * q_row +
+                                (int64_t)h * DH + c8) =
+          *reinterpret_cast<const uint4*>(Os + r * LD + c8);
+  }
+}
+
 template <typename T, int DH>
 int launch_dh(const void* q, const void* k, const void* v, void* out,
               const FlashShape& s, cudaStream_t stream) {
-  constexpr size_t bytes = FlashSmem<DH>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(ceil_div(s.T, FA_BQ), s.H, s.B);
-  flash_kernel<T, DH><<<grid, FA_THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    constexpr size_t bytes = FlashMma<DH>::SMEM_BYTES;
+    auto kernel = s.softcap > 0.f ? flash_mma_kernel<DH, true>
+                                  : flash_mma_kernel<DH, false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(s.H, s.B, ceil_div(s.T, FA_MMA_BQ));
+    kernel<<<grid, FlashMma<DH>::THREADS, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), s);
+  } else {
+    constexpr size_t bytes = FlashSmem<DH>::BYTES;
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(ceil_div(s.T, FA_BQ), s.H, s.B);
+    flash_kernel<T, DH><<<grid, FA_THREADS, bytes, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), s);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -2,20 +2,24 @@
 
 ``decode_attention`` runs ``csrc/decode_attention.cu``: one query token per
 sequence against its KV cache, key j visible when ``j <= pos[b]``, the
-softmax in fp32 with p rounded to the cache's dtype before the product.  The
-cache is cut into chunks of ``CHUNK`` rows, each chunk's partial softmax goes
-to an fp32 workspace, and a second kernel combines the chunks in a fixed
-order; chunks past ``pos[b]`` read nothing.  ``pos`` must lie in [0, S).
-The source's header note says which Pallas kernel it replaces, what bounds
-it on the H100 and how its design answers that.
+softmax in fp32 with p rounded to the cache's dtype before the product.  One
+launch: the cache is cut into splits of whole ``CHUNK``-row tiles, each
+block streams its split's tiles and writes its partial softmax to an fp32
+workspace, and the last split of each (b, kh) to finish combines them in a
+fixed order; splits past ``pos[b]`` read nothing.  ``pos`` must lie in
+[0, S), and (H / Kh) * dh may be at most 2048.  ``launch_plan`` sizes the
+grid, the workspace and the ticket counters.  The source's header note says
+which Pallas kernel it replaces, what bounds it on the H100 and how its
+design answers that.
 
 ``decode_attention_plain`` is the plain PyTorch version of the same function.
 A tensor on the CPU takes it; a CUDA tensor launches the kernel or raises.
-``decode_attention.launches`` counts calls (each runs the two kernels).
+``decode_attention.launches`` counts launches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -23,11 +27,18 @@ from . import _build
 from .flash_attention import HEAD_DIMS
 from .ref import decode_attention_ref
 
-CHUNK = 128         # DA_CH of csrc/decode_attention.cu
+CHUNK = 64          # DA_CH of csrc/decode_attention.cu: rows of a tile
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"carla_decode_attention":
-               [_I] + [_P] * 6 + [_I] * 5 + [_F, _P]}
+               [_I] + [_P] * 7 + [_I] * 7 + [_F, _P],
+               "carla_decode_occupancy": [_I] * 4 + [_P]}
+
+# Per device, the kernel's int32 ticket counters: zero before and after every
+# call, so they are allocated once and grown when a call needs more.
+_tickets: dict[torch.device, torch.Tensor] = {}
+# (device, dtype code, heads per kv head, dh) -> blocks the card holds at once
+_slots: dict[tuple, int] = {}
 
 
 def decode_attention_plain(q, cache_k, cache_v, pos) -> torch.Tensor:
@@ -35,9 +46,46 @@ def decode_attention_plain(q, cache_k, cache_v, pos) -> torch.Tensor:
     return decode_attention_ref(q, cache_k, cache_v, pos).to(q.dtype)
 
 
-def workspace_floats(b: int, s: int, h: int, kh: int, dh: int) -> int:
-    """fp32 values of the per-chunk (max, sum, output) workspace."""
-    return b * kh * -(-s // CHUNK) * (h // kh) * (2 + dh)
+class DecodePlan(NamedTuple):
+    splits: int        # splits of the cache per (b, kh): the grid's x extent
+    split_tiles: int   # CHUNK-row tiles a split streams
+    ws_floats: int     # fp32 workspace: a max, a sum and dh outputs per
+                       # (b, kh, split, head of the group)
+    tickets: int       # int32 counters, one per (b, kh)
+
+
+def launch_plan(b: int, s: int, h: int, kh: int, dh: int,
+                slots: int) -> DecodePlan:
+    """The grid, workspace and counters of one launch over a cache of S
+    rows, for a card that holds ``slots`` blocks at once: as many splits
+    per (b, kh) as fit in one wave, each whole tiles and none empty."""
+    tiles = -(-s // CHUNK)
+    want = max(1, slots // (b * kh))
+    split_tiles = -(-tiles // min(want, tiles))
+    splits = -(-tiles // split_tiles)
+    return DecodePlan(splits, split_tiles,
+                      b * kh * splits * (h // kh) * (2 + dh), b * kh)
+
+
+def _resident_blocks(lib, device, code: int, h: int, kh: int, dh: int) -> int:
+    key = (device, code, h // kh, dh)
+    if key not in _slots:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _build.check(lib.carla_decode_occupancy(code, h, kh, dh,
+                                                    ctypes.addressof(n)),
+                         "decode_attention occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _slots[key] = sms * n.value
+    return _slots[key]
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[device] = torch.zeros(n, dtype=torch.int32,
+                                             device=device)
+    return buf
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
@@ -61,15 +109,18 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         raise TypeError(f"decode_attention: pos must be int32 on {q.device}, "
                         f"got {pos.dtype} on {pos.device}")
     pos = pos.contiguous()
-    ws = torch.empty(workspace_floats(b, s, h, kh, dh), dtype=torch.float32,
-                     device=q.device)
-    out = torch.empty_like(q)
     lib = _build.load("decode_attention", _SIGNATURES)
+    plan = launch_plan(b, s, h, kh, dh,
+                       _resident_blocks(lib, q.device, code, h, kh, dh))
+    ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=q.device)
+    tickets = _ticket_buffer(q.device, plan.tickets)
+    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.carla_decode_attention(
             code, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s, h, kh, dh,
-            dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+            pos.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+            b, s, h, kh, dh, plan.splits, plan.split_tiles, dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

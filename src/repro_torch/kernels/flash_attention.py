@@ -3,10 +3,12 @@
 ``flash_attention`` runs ``csrc/flash_attention.cu``: causal GQA attention
 with the Pallas kernel's online softmax in fp32, an optional sliding
 ``window`` and tanh ``softcap``, whole KV tiles past the diagonal skipped.
-Any T and S (the Pallas wrapper needs T % 256 == 0); the head dims of
-``HEAD_DIMS``, those the configs use.  The source's header note says which
-Pallas kernel it replaces, what bounds it on the H100 and how its design
-answers that.
+bf16 runs on the tensor cores (``mma.sync``, 128-row query tiles, 64-key
+K/V tiles); fp32 on the fp32 CUDA cores (64-row tiles), an exact fp32
+result.  Any T and S (the Pallas wrapper needs T % 256 == 0); the head dims
+of ``HEAD_DIMS``, those the configs use.  The source's header note says
+which Pallas kernel it replaces, what bounds it on the H100 and how its
+design answers that.
 
 ``flash_attention_plain`` is the plain PyTorch version of the same function.
 A tensor on the CPU takes it; a CUDA tensor launches the kernel or raises.
@@ -21,7 +23,9 @@ import torch
 from . import _build
 from .ref import flash_attention_ref
 
-BQ, BK = 64, 64     # FA_BQ, FA_BK of csrc/flash_attention.cu
+BQ, BK = 64, 64     # FA_BQ, FA_BK of csrc/flash_attention.cu (fp32)
+MMA_BQ, MMA_BK = 128, 64   # FA_MMA_BQ, FA_MMA_BK (bf16): query rows of a
+                           # block, keys of a K/V tile
 HEAD_DIMS = (16, 64, 80, 128)   # instantiated in csrc/flash_attention.cu
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -221,6 +221,9 @@ def test_python_constants_match_the_sources():
     assert (_constant("flash_attention.cu", "FA_BQ"),
             _constant("flash_attention.cu", "FA_BK")) == (t_flash.BQ,
                                                           t_flash.BK)
+    assert (_constant("flash_attention.cu", "FA_MMA_BQ"),
+            _constant("flash_attention.cu", "FA_MMA_BK")) == (t_flash.MMA_BQ,
+                                                              t_flash.MMA_BK)
     assert _constant("decode_attention.cu", "DA_CH") == t_decode.CHUNK
     assert _switch_cases("flash_attention.cu") == t_flash.HEAD_DIMS
     assert _switch_cases("decode_attention.cu") == t_flash.HEAD_DIMS
@@ -228,7 +231,39 @@ def test_python_constants_match_the_sources():
 
 
 def test_decode_workspace_covers_every_chunk():
-    # (B, S, H, Kh, dh) = zamba2's decode: 17 chunks of 128 rows for S = 2080
-    assert t_decode.workspace_floats(4, 2080, 32, 32, 80) == \
-        4 * 32 * 17 * 1 * (2 + 80)
-    assert t_decode.workspace_floats(2, 128, 6, 3, 16) == 2 * 3 * 1 * 2 * 18
+    # (B, S, H, Kh, dh) = zamba2's decode on 132 SMs holding 4 blocks each:
+    # 4 splits of 9, 9, 9 and 6 tiles, 512 blocks in one wave
+    plan = t_decode.launch_plan(4, 2080, 32, 32, 80, 4 * 132)
+    assert (plan.splits, plan.split_tiles) == (4, 9)
+    assert plan.ws_floats == 4 * 32 * 4 * 1 * (2 + 80)
+    plan = t_decode.launch_plan(2, 64, 6, 3, 16, 4 * 132)
+    assert (plan.splits, plan.split_tiles) == (1, 1)
+    assert plan.ws_floats == 2 * 3 * 1 * 2 * 18
+
+
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 2080])
+@pytest.mark.parametrize("b,h,kh,dh", [(4, 32, 32, 80), (1, 4, 1, 64),
+                                       (3, 8, 2, 128)])
+@pytest.mark.parametrize("slots", [1, 4 * 132])
+def test_decode_launch_plan_covers_every_row_and_head(s, b, h, kh, dh,
+                                                      slots):
+    """The splits cover rows 0..S-1 exactly once in whole CHUNK-row tiles,
+    none empty (the C entry point refuses that), in one wave where the card
+    holds B * Kh blocks or more; the workspace holds (max, sum, dh outputs)
+    for every (b, kh, split, head); one ticket counter per (b, kh) -- the C
+    side's indexing, walked here."""
+    plan = t_decode.launch_plan(b, s, h, kh, dh, slots)
+    rows_per_split = plan.split_tiles * t_decode.CHUNK
+    rows = [r for i in range(plan.splits)
+            for r in range(i * rows_per_split, (i + 1) * rows_per_split)
+            if r < s]
+    assert rows == list(range(s))
+    assert (plan.splits - 1) * rows_per_split < s
+    assert b * kh * plan.splits <= max(slots, b * kh)     # one wave
+    g = h // kh
+    n_ws = b * kh * plan.splits * g            # ws_index(B-1, KH-1, ...) + 1
+    last = (((b - 1) * kh + kh - 1) * plan.splits + plan.splits - 1) * g \
+        + g - 1
+    assert last == n_ws - 1
+    assert plan.ws_floats == 2 * n_ws + n_ws * dh
+    assert plan.tickets == b * kh
