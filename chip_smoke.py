@@ -40,6 +40,11 @@ printing one JSON line:
              rounded to bf16 on each side and so is the output, four unit
              roundoffs of 2^-8 of that sum at most; conv1d as phase 4 with
              R = FL.
+   cnn_faults — faults planted in csrc/gemm_pipe.cuh, the loop of conv2d
+             and act-stationary (``CNN_FAULTS``: text edits, each built
+             with csrc/conv2d.cu in a temporary directory, in parallel with
+             phase 2); the fp32 conv2d checks at the main-path shapes, at
+             the same tolerance, must fail on every one.
    flash_bf16_faults — the bf16 flash kernel shares no code with the fp32
              one that the zamba2 wiring check runs, so faults are planted
              in its source (``FLASH_BF16_FAULTS``: text edits of
@@ -52,7 +57,8 @@ printing one JSON line:
              zamba2's bf16 shapes (library: scaled_dot_product_attention,
              causal or with a position mask, and depthwise F.conv1d), with
              CUDA events and a cold L2 cache, beside the bound
-             max(FLOPs / peak, bytes / bandwidth).
+             max(FLOPs / peak, bytes / bandwidth); and, as the floor of
+             that clock, a trivial one-block kernel timed the same way.
 6. resnet50, resnet50_sparse, vgg16 — the full-width batch-1 224x224 fp32
              forwards through ``models.cnn``; launch counts per forward,
              logits against the same forward with ``impl="ref"`` (tolerance
@@ -89,6 +95,7 @@ check raises, so the script exits non-zero and prints no last line.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import itertools
 import json
@@ -137,6 +144,27 @@ FLASH_BF16_FAULTS = {
         "&& key < s.S &&"),
     "row_sum_not_rescaled": ("          l[mt][r] *= alpha;\n", ""),
 }
+# Faults planted in the CNN kernels' loop (csrc/gemm_pipe.cuh), name ->
+# (text, its replacement), each built into a conv2d library; the fp32
+# conv2d checks at the main-path shapes must catch each.
+CNN_FAULTS = {
+    # vec16: the tap walk wraps one column early, so the last filter
+    # column is never read (and later taps are shifted)
+    "tap_walk_skips_last_column": ("if (++t == s.FW) { t = 0; ++r; }",
+                                   "if (++t == s.FW - 1) { t = 0; ++r; }"),
+    # the last block of a tile sums every split but the last
+    "combine_drops_last_split": ("const int n_split = gridDim.z;",
+                                 "const int n_split = gridDim.z - 1;"),
+    # general path: the index table sends the last input channel to a tap
+    # outside the image, so it reads zeros instead of its value
+    "table_drops_last_channel": ("(rr << 16) | tt);",
+                                 "c == s.C - 1 ? NO_TAP << 16 "
+                                 ": (rr << 16) | tt);"),
+}
+# Where each planted fault goes: its dict, the file it edits, the source
+# built with it.
+PLANTED = ((FLASH_BF16_FAULTS, "flash_attention.cu", "flash_attention.cu"),
+           (CNN_FAULTS, "gemm_pipe.cuh", "conv2d.cu"))
 
 
 def emit(obj: dict) -> None:
@@ -282,8 +310,28 @@ def main_path_shapes(trace, apply, params: dict, x, kw: dict) -> list[dict]:
 
 
 def ragged_calls() -> list[dict]:
-    """Prime channel counts, stride 2, the 7x7 stem pattern, odd rows."""
+    """Prime channel counts, stride 2, the 7x7 stem pattern, odd rows; for
+    conv2d and act-stationary also K off the tiles on the vec16 path, and an
+    input slice one element off 16-byte alignment (``offset``)."""
     return [
+        {"kernel": "conv2d", "x": (2, 9, 11, 48), "w": (3, 3, 48, 72),
+         "stride": 1, "padding": 1},
+        {"kernel": "conv2d", "x": (1, 20, 20, 16), "w": (3, 3, 16, 24),
+         "stride": 2, "padding": 1},
+        {"kernel": "conv2d", "x": (1, 12, 12, 32), "w": (3, 3, 32, 20),
+         "stride": 1, "padding": 1},
+        {"kernel": "conv2d", "x": (1, 14, 14, 64), "w": (3, 3, 64, 64),
+         "stride": 1, "padding": 1, "offset": 1},
+        {"kernel": "mm_act_stationary", "x": (300, 64), "w": (64, 40),
+         "stride": 1, "padding": 0},
+        {"kernel": "mm_act_stationary", "x": (1, 15, 15, 256),
+         "w": (256, 72), "stride": 2, "padding": 0},
+        {"kernel": "mm_act_stationary", "x": (200, 64), "w": (64, 64),
+         "stride": 1, "padding": 0, "offset": 1},
+        {"kernel": "mm_act_stationary", "x": (8192, 128), "w": (128, 136),
+         "stride": 1, "padding": 0},
+        {"kernel": "mm_act_stationary", "x": (2, 56, 57, 96), "w": (96, 72),
+         "stride": 1, "padding": 0},
         {"kernel": "conv2d", "x": (1, 31, 31, 3), "w": (7, 7, 3, 17),
          "stride": 2, "padding": 3},
         {"kernel": "conv2d", "x": (2, 15, 15, 7), "w": (3, 3, 7, 5),
@@ -341,6 +389,25 @@ class Kernels:
                       **ep)
         return fn(x, w, stride=call["stride"], **ep)
 
+    def plan(self, call, x, w, ep) -> dict:
+        """The launch plan the wrapper makes for these operands: tile,
+        splits and gather path (weight-stationary: its splits)."""
+        if call["kernel"] == "mm_weight_stationary":
+            _build = self.mm._build
+            splits, per = _build.plan_splits(
+                -(-w.shape[1] // self.mm.WS_BN), w.shape[0], self.mm.BK,
+                _build.sm_count(x.device))
+            return {"splits": splits, "per": per}
+        if call["kernel"] == "conv2d":
+            p = self.conv.launch_plan(x, w, stride=call["stride"],
+                                      padding=call["padding"],
+                                      residual=ep["residual"])
+        else:
+            p = self.mm.act_plan(x, w, stride=call["stride"],
+                                 residual=ep["residual"])
+        return {"tile": [p.bm, p.bn, p.groups], "splits": p.splits,
+                "per": p.per, "path": p.path}
+
     def plain(self, call, x, w, ep):
         if call["kernel"] == "conv2d":
             return self.conv.conv2d_plain(x, w, stride=call["stride"],
@@ -386,7 +453,8 @@ class Kernels:
 def make_operands(kern: Kernels, call, dtype, gen):
     dev = "cuda"
     rn = lambda *s: torch.randn(s, device=dev, generator=gen)
-    x = rn(*call["x"]).to(dtype)
+    off = call.get("offset", 0)
+    x = rn(math.prod(call["x"]) + off).to(dtype)[off:].view(call["x"])
     w = rn(*call["w"]).to(dtype)
     k = call["w"][-1]
     full = {"scale": 1.0 + 0.2 * rn(k), "bias": 0.3 * rn(k),
@@ -620,43 +688,51 @@ def lm_library(case: dict, args):
                             groups=case["c"])
 
 
-def build_with_faults(_build, fa_mod) -> tuple[float, dict]:
+def build_with_faults(_build) -> tuple[float, dict]:
     """Phase 2: every source (``_build.build_all``) and, beside it, one nvcc
-    per planted fault of FLASH_BF16_FAULTS, each building the edited
-    csrc/flash_attention.cu in a temporary directory.  Returns the main
-    build's nvcc seconds and name -> the loaded faulty library."""
-    src = (_build.CSRC / "flash_attention.cu").read_text()
+    per planted fault of ``PLANTED``, each building its source against a
+    copy of csrc/ in a temporary directory with the one edit made.  Returns
+    the main build's nvcc seconds and name -> the faulty library's path
+    (in a directory that lives as long as the process)."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_faults_"))
+    atexit.register(shutil.rmtree, tmp, True)
     procs, libs = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as tmp:
-        tmp = Path(tmp)
-        try:
-            for name, (old, new) in FLASH_BF16_FAULTS.items():
-                if src.count(old) != 1:
+    try:
+        for faults, edited, target in PLANTED:
+            text = (_build.CSRC / edited).read_text()
+            for name, (old, new) in faults.items():
+                if text.count(old) != 1:
                     raise SystemExit(f"planted fault {name}: its text is not "
-                                     "in csrc/flash_attention.cu exactly once")
-                cu = tmp / f"{name}.cu"
-                cu.write_text(src.replace(old, new))
+                                     f"in csrc/{edited} exactly once")
+                csrc = tmp / name
+                shutil.copytree(_build.CSRC, csrc)
+                (csrc / edited).write_text(text.replace(old, new))
+                libs[name] = tmp / f"lib{name}.so"
                 with open(tmp / f"{name}.log", "w") as log:
                     procs[name] = subprocess.Popen(
-                        [_build._nvcc(), *_build.NVCC_FLAGS, "-I",
-                         str(_build.CSRC), "-o", str(tmp / f"lib{name}.so"),
-                         str(cu)], stdout=log, stderr=subprocess.STDOUT)
-            nvcc_s = _build.build_all()
-            for name, proc in procs.items():
-                if proc.wait() != 0:
-                    log = (tmp / f"{name}.log").read_text()
-                    raise SystemExit(f"planted fault {name}: nvcc failed: "
-                                     f"{log[-2000:]}")
-                lib = libs[name] = ctypes.CDLL(str(tmp / f"lib{name}.so"))
-                for fn, argtypes in fa_mod._SIGNATURES.items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+                        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc),
+                         "-o", str(libs[name]), str(csrc / target)],
+                        stdout=log, stderr=subprocess.STDOUT)
+        nvcc_s = _build.build_all()
+        for name, proc in procs.items():
+            if proc.wait() != 0:
+                log = (tmp / f"{name}.log").read_text()
+                raise SystemExit(f"planted fault {name}: nvcc failed: "
+                                 f"{log[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return nvcc_s, libs
+
+
+def load_fault(path: Path, signatures: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def check_flash_faults(_build, fa_mod, libs: dict, gen) -> dict:
@@ -666,7 +742,8 @@ def check_flash_faults(_build, fa_mod, libs: dict, gen) -> dict:
     cases = [c for c in lm_kernel_cases() if c["kernel"] == "flash_attention"]
     plain = fa_mod.flash_attention_plain
     out = {}
-    for name, lib in libs.items():
+    for name in FLASH_BF16_FAULTS:
+        lib = load_fault(libs[name], fa_mod._SIGNATURES)
         chk = Checker()
         with mock.patch.object(_build, "load", lambda *_: lib):
             for case in cases:
@@ -682,6 +759,35 @@ def check_flash_faults(_build, fa_mod, libs: dict, gen) -> dict:
     missed = [n for n, r in out.items() if not r["cases_failed"]]
     if missed:
         raise SystemExit(f"the bf16 flash checks miss planted faults "
+                         f"{missed}: {out}")
+    return out
+
+
+def check_cnn_faults(kern, _build, libs: dict, conv_calls: list,
+                     gen) -> dict:
+    """Each CNN_FAULTS library through the conv2d wrapper on the fp32
+    main-path conv2d shapes (the full epilogue), at the checks' tolerance:
+    how many cases fail and the worst err / tol.  Raises unless every fault
+    fails one."""
+    out = {}
+    for name in CNN_FAULTS:
+        lib = load_fault(libs[name], kern.conv._SIGNATURES)
+        chk = Checker()
+        with mock.patch.object(_build, "load", lambda *_: lib):
+            for c in conv_calls:
+                x_, w_, full = make_operands(kern, c, torch.float32, gen)
+                ep = epilogue_of(full, True, True, True, True)
+                chk.add("conv2d", {"x": c["x"], "w": c["w"]},
+                        kern.run(c, x_, w_, ep), kern.plain(c, x_, w_, ep),
+                        kern.reduction(c))
+        torch.cuda.synchronize()
+        out[name] = {"cases_failed": len(chk.failures()),
+                     "of": len(conv_calls),
+                     "max_err_over_tol": max(c["err_over_tol"]
+                                             for c in chk.cases)}
+    missed = [n for n, r in out.items() if not r["cases_failed"]]
+    if missed:
+        raise SystemExit(f"the fp32 conv2d checks miss planted faults "
                          f"{missed}: {out}")
     return out
 
@@ -959,9 +1065,9 @@ def main() -> int:
           "cuda": torch.version.cuda, "peaks": peaks})
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # 2. build (and the bf16 flash kernel's planted faults beside it)
+    # 2. build (and the planted faults' builds beside it)
     t0 = time.perf_counter()
-    nvcc_s, fault_libs = build_with_faults(_build, fa_mod)
+    nvcc_s, fault_libs = build_with_faults(_build)
     ptxas = {src.stem: [line.strip()
                         for line in _build.build_log(src.stem).splitlines()
                         if "registers" in line or "spill" in line]
@@ -1010,20 +1116,37 @@ def main() -> int:
                 chk.add(c["kernel"], {"x": c["x"], "w": c["w"],
                                       "stride": c["stride"],
                                       "padding": c["padding"],
+                                      "offset": c.get("offset", 0),
                                       "dtype": str(dtype)[6:],
-                                      "epilogue": combo}, got, want,
-                        kern.reduction(c))
+                                      "epilogue": combo,
+                                      "plan": kern.plan(c, x_, w_, ep)},
+                        got, want, kern.reduction(c))
+                same = torch.equal(got, kern.run(c, x_, w_, ep))
+                rec = chk.cases[-1]
+                rec.update(repeat_identical=same, ok=rec["ok"] and same)
     torch.cuda.synchronize()
-    summary = {}
+    summary, missing = {}, []
     for kname in kern.wrappers:
         cs = [c for c in chk.cases if c["kernel"] == kname]
         summary[kname] = {
             "cases": len(cs), "failed": sum(not c["ok"] for c in cs),
+            "repeats_identical": all(c["repeat_identical"] for c in cs),
             "max_err_over_tol": max(c["err_over_tol"] for c in cs),
             "max_abs_err_fp32": max(c["max_abs_err"] for c in cs
                                     if c["dtype"] == "float32"),
             "max_abs_err_bf16": max(c["max_abs_err"] for c in cs
                                     if c["dtype"] == "bfloat16")}
+        if kname == "mm_weight_stationary":
+            continue
+        for d in ("float32", "bfloat16"):
+            plans = [c["plan"] for c in cs if c["dtype"] == d]
+            seen = ({p["path"] for p in plans}
+                    | {"split" if p["splits"] > 1 else "unsplit"
+                       for p in plans})
+            summary[kname][f"covered_{d}"] = sorted(seen)
+            missing += [f"{kname} {d} {want}" for want in
+                        ("vec16", "general", "split", "unsplit")
+                        if want not in seen]
     emit({"phase": "checks", "seconds": time.perf_counter() - t0,
           "tolerance": "fp32 2e-4 x sqrt(R); bf16 max(2e-2 x sqrt(R), "
                        "2^-7 x max|plain|)",
@@ -1041,10 +1164,16 @@ def main() -> int:
           "tolerance": "attention fp32 1e-4, bf16 2^-6 x sum_j p_j |v_j| "
                        "per element; conv1d as checks with R = FL"})
     details = {"nvidia_smi": smi, "ptxas": ptxas, "checks": chk.cases}
-    if chk.failures():
+    if chk.failures() or missing:
         dump(details)
         raise SystemExit(f"{len(chk.failures())} kernel checks failed, "
-                         f"first: {chk.failures()[0]}")
+                         f"first: {chk.failures()[:1]}; paths not covered: "
+                         f"{missing}")
+    t0 = time.perf_counter()
+    conv_calls = [c for c in unique.values() if c["kernel"] == "conv2d"]
+    emit({"phase": "cnn_faults",
+          **check_cnn_faults(kern, _build, fault_libs, conv_calls, dgen),
+          "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     emit({"phase": "flash_bf16_faults",
           **check_flash_faults(_build, fa_mod, fault_libs, dgen),
@@ -1084,6 +1213,12 @@ def main() -> int:
                        for key in ("ms", "plain_ms", "library_ms",
                                    "bound_ms")}}
         emit({"phase": "times", "path": p, "per_forward": totals})
+    # the fixed time of one launch under this clock: a one-block kernel
+    # that adds 1 to 256 floats, timed as every kernel above
+    tiny = torch.zeros(256, device="cuda")
+    launch_floor_ms = cold_time_ms(lambda: tiny.add_(1), flush)
+    emit({"phase": "times", "path": "launch floor",
+          "trivial_kernel_ms": launch_floor_ms})
     lm_times = time_lm_kernels(lm_kernels, peaks, flush, dgen)
     emit({"phase": "times", "path": "zamba2 kernels, bf16, one call each",
           **{k: {f: r[f] for f in ("ms", "plain_ms", "library_ms",
@@ -1124,6 +1259,7 @@ def main() -> int:
     zamba2 = run_zamba2(serve, lm, attn_mod, fa_mod, da_mod, counters)
 
     dump({**details, "times": per_path, "lm_times": lm_times,
+          "launch_floor_ms": launch_floor_ms,
           "models": models, "zamba2": zamba2})
 
     # 7. kernels line (dense ResNet-50 main path), the card, the last line

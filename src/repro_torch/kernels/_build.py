@@ -13,6 +13,7 @@ Nothing here runs at import time; the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -22,6 +23,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -218,15 +220,139 @@ def plan_splits(tiles: int, reduction: int, bk: int,
 
 
 def split_launch(x, tiles: int, reduction: int, bk: int, m: int, k: int):
-    """Plan the splits for a launch on x's device; allocate the workspace.
+    """Plan the splits for a launch on x's device; allocate the workspace
+    (the weight-stationary kernel, tile_gemm.cuh).
 
     Returns (splits, reduction per split, fp32 workspace or None).
     """
-    n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, per = plan_splits(tiles, reduction, bk, n_sms)
+    splits, per = plan_splits(tiles, reduction, bk, sm_count(x.device))
     ws = (torch.empty((splits, m, k), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
     return splits, per, ws
+
+
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# ---- the pipelined CNN loop of csrc/gemm_pipe.cuh (conv2d, act-stationary)
+PIPE_BK = 16                 # PIPE_BK: reduction indices a chunk
+PIPE_STAGES = 3              # PIPE_STAGES: slots in the shared-memory ring
+PIPE_TABLE_MAX = 2048        # PIPE_TABLE_MAX: general path, indices a split
+# (BM, BN, G) by tile code: block tile and groups of threads splitting each
+# slot's chunks (csrc/gemm_pipe.cuh: PipeM, PipeS, PipeG)
+PIPE_TILES = ((128, 64, 1), (64, 64, 1), (64, 64, 4))
+REFERENCE_SMS = 132          # H100 SXM: the SMs tile_util is reported for
+# The planner's latency model of a launch, in SM cycles, its constants
+# fitted to the H100's times of every main-path layer under every plan
+# (PERF.md, PR 14): a thread's 8x8 tile does 1024 FMAs a chunk; a warp
+# issues at most PIPE_WARP_RATE of them a cycle and a scheduler at most its
+# tile's PIPE_SCHED_RATE over its warps; as many blocks sit on an SM as its
+# registers hold at 170 a thread; a split costs its tile's last block one
+# L2 round trip per G splits, and every block PIPE_START cycles.
+PIPE_WARP_RATE = 0.35
+PIPE_SCHED_RATE = (0.6, 0.56, 0.56)
+PIPE_L2_TRIP = 1000
+PIPE_START = 4000
+
+
+class GemmPlan(NamedTuple):
+    tile: int      # the C side's tile code, an index into PIPE_TILES
+    bm: int
+    bn: int
+    groups: int    # G: groups of threads splitting each slot's chunks
+    splits: int    # grid z: splits of the reduction
+    per: int       # reduction indices a split (a multiple of PIPE_BK)
+    vec: bool      # the vec16 gather path; else the general one
+
+    @property
+    def path(self) -> str:
+        return "vec16" if self.vec else "general"
+
+    def tiles(self, m: int, n: int) -> int:
+        return -(-m // self.bm) * -(-n // self.bn)
+
+
+def pipe_cycles(m: int, n: int, plan: GemmPlan, n_sms: int) -> float:
+    """The latency model's SM cycles for one launch under ``plan``."""
+    threads = plan.groups * plan.bm * plan.bn // 64
+    resident = max(1, 65536 // (threads * 170))
+    per_sm = -(-plan.tiles(m, n) * plan.splits // n_sms)
+    waves = -(-per_sm // resident)
+    sched_warps = min(resident, per_sm) * threads / 32 / 4
+    rate = min(PIPE_WARP_RATE, PIPE_SCHED_RATE[plan.tile] / sched_warps)
+    chunks = -(-plan.per // PIPE_BK)
+    block = -(-chunks // plan.groups) * 1024 / rate + PIPE_START
+    combine = (-(-plan.splits // plan.groups) * PIPE_L2_TRIP
+               if plan.splits > 1 else 0)
+    return waves * block + combine
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_gemm(m: int, n: int, reduction: int, n_sms: int,
+              vec: bool) -> GemmPlan:
+    """Block tile, groups and split of an (m, n) output over ``reduction``.
+
+    Of every tile and split count (each split a whole number of PIPE_BK
+    chunks, at least MIN_CHUNKS_PER_SPLIT of them, and on the general path
+    at most PIPE_TABLE_MAX indices), the one with the least modelled time
+    (``pipe_cycles``).  Ties go to the smaller tile.
+    """
+    chunks = max(1, -(-reduction // PIPE_BK))
+    best = None
+    for code in reversed(range(len(PIPE_TILES))):
+        bm, bn, groups = PIPE_TILES[code]
+        for want in range(1, max(1, chunks // MIN_CHUNKS_PER_SPLIT) + 1):
+            per = -(-chunks // want) * PIPE_BK
+            splits = max(1, -(-reduction // per))
+            if splits != want or (not vec and min(per, reduction)
+                                  > PIPE_TABLE_MAX):
+                continue
+            plan = GemmPlan(code, bm, bn, groups, splits, per, vec)
+            cost = pipe_cycles(m, n, plan, n_sms)
+            if best is None or cost < best[0]:
+                best = (cost, plan)
+    return best[1]
+
+
+def vec_path(c: int, k: int, x, w, residual) -> bool:
+    """Whether a launch may take the vec16 path: C a multiple of PIPE_BK,
+    K a whole number of 16-byte vectors, x, w and the residual (or None)
+    16-byte aligned."""
+    return (c % PIPE_BK == 0 and k * x.element_size() % 16 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+            and (residual is None or residual.data_ptr() % 16 == 0))
+
+
+# Per device, scratch of the kernels that combine splits in the launch
+# (decode attention and the pipelined CNN kernels), allocated once and
+# grown when a call needs more: int32 ticket counters, 0 before and after
+# every call, and the CNN kernels' fp32 partial sums.  Calls that share them
+# must be ordered on one stream.
+_tickets: dict = {}
+_partials: dict = {}
+
+
+def ticket_counters(device, n: int) -> torch.Tensor:
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[device] = torch.zeros(max(n, 1), dtype=torch.int32,
+                                             device=device)
+    return buf
+
+
+def pipe_workspace(x, plan: GemmPlan, m: int, n: int):
+    """(fp32 workspace or None, ticket counters or None) of a pipelined
+    launch: one BM x BN slice per (split, output tile), one counter a tile."""
+    if plan.splits == 1:
+        return None, None
+    tiles = plan.tiles(m, n)
+    need = plan.splits * tiles * plan.bm * plan.bn
+    ws = _partials.get(x.device)
+    if ws is None or ws.numel() < need:
+        ws = _partials[x.device] = torch.empty(need, dtype=torch.float32,
+                                               device=x.device)
+    return ws, ticket_counters(x.device, tiles)
 
 
 def check(err: int, what: str) -> None:

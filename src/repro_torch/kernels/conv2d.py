@@ -2,9 +2,12 @@
 
 ``conv2d`` runs ``csrc/conv2d.cu``, an implicit-GEMM convolution (M = output
 pixels, N = K, reduction = FH·FW·C) with the fused flush epilogue
-(scale/bias → residual → ReLU on the fp32 accumulator, one store).  The
-source's header note says which Pallas kernel it replaces, what bounds it on
-the H100 and how its design answers that.
+(scale/bias → residual → ReLU on the fp32 accumulator, one store), on the
+pipelined loop of ``csrc/gemm_pipe.cuh``.  ``launch_plan`` picks its block
+tile, its split of the reduction and its gather path (``vec16`` or
+``general``, ``_build.plan_gemm`` and ``_build.vec_path``).  The source's
+header note says which Pallas kernel it replaces, what bounds it on the H100
+and how its design answers that.
 
 ``conv2d_plain`` is the plain PyTorch version of the same function.  A
 tensor on the CPU takes it; a CUDA tensor launches the kernel or raises.
@@ -19,12 +22,8 @@ import torch
 from . import _build
 from .ref import conv2d_ref
 
-# Tile of csrc/conv2d.cu (ConvTile): output pixels, output channels, and the
-# reduction chunk.  tests/test_torch_kernels.py holds the two in sync.
-BM, BN, BK = 64, 64, 16
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"carla_conv2d": [_I] + [_P] * 7 + [_I] * 14 + [_P]}
+_SIGNATURES = {"carla_conv2d": [_I] + [_P] * 8 + [_I] * 16 + [_P]}
 
 
 def out_hw(h: int, w: int, fh: int, fw: int, stride: int,
@@ -34,15 +33,31 @@ def out_hw(h: int, w: int, fh: int, fw: int, stride: int,
 
 
 def tile_util(x_shape, w_shape, stride: int = 1, padding: int = 0) -> float:
-    """Logical FLOPs / FLOPs of the padded tiles the kernel runs."""
+    """Logical FLOPs / FLOPs of the padded tiles the kernel runs (on an H100,
+    taking the vec16 path where C allows it)."""
     b, h, w, c = x_shape
     fh, fw, _, k = w_shape
     oh, ow = out_hw(h, w, fh, fw, stride, padding)
     m, r = b * oh * ow, fh * fw * c
     if m * k * r == 0:
         return 1.0
+    plan = _build.plan_gemm(m, k, r, _build.REFERENCE_SMS,
+                            c % _build.PIPE_BK == 0)
     up = lambda n, t: -(-n // t) * t
-    return (m * k * r) / (up(m, BM) * up(k, BN) * up(r, BK))
+    return (m * k * r) / (up(m, plan.bm) * up(k, plan.bn)
+                          * up(r, _build.PIPE_BK))
+
+
+def launch_plan(x, w, *, stride: int = 1, padding: int = 0, residual=None,
+                n_sms: int | None = None) -> _build.GemmPlan:
+    """Tile, split and gather path of the launch for these operands (on
+    x's device, or on a card of ``n_sms`` SMs)."""
+    b, h, wd, cin = x.shape
+    fh, fw, _, k = w.shape
+    oh, ow = out_hw(h, wd, fh, fw, stride, padding)
+    return _build.plan_gemm(b * oh * ow, k, fh * fw * cin,
+                            n_sms or _build.sm_count(x.device),
+                            _build.vec_path(cin, k, x, w, residual))
 
 
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -75,15 +90,16 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                                           bias, residual)
     lib = _build.load("conv2d", _SIGNATURES)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    m = b * oh * ow
-    splits, per, ws = _build.split_launch(
-        x, -(-m // BM) * -(-k // BN), fh * fw * cin, BK, m, k)
+    plan = launch_plan(x, w, stride=stride, padding=padding,
+                       residual=residual)
+    ws, tickets = _build.pipe_workspace(x, plan, b * oh * ow, k)
     with torch.cuda.device(x.device):
         err = lib.carla_conv2d(
             code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
-            _build.ptr(residual), out.data_ptr(), _build.ptr(ws), b, h, wd,
-            cin, k, fh, fw, stride, padding, oh, ow, splits, per, int(relu),
-            torch.cuda.current_stream().cuda_stream)
+            _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
+            _build.ptr(tickets), b, h, wd, cin, k, fh, fw, stride, padding,
+            oh, ow, plan.tile, int(plan.vec), plan.splits, plan.per,
+            int(relu), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "conv2d")
     conv2d.launches += 1
     return out

@@ -5,24 +5,26 @@
 // src/repro/kernels/matmul.py:_mm_weight_stationary_kernel, the Pallas TPU
 // kernels behind ResNet-50's 1x1 convolutions and projections.
 //
-// Both read the activation rows through RowLoader, so a strided 1x1 conv
-// folds its stride into the row addressing: row m = pixel (b, oh, ow) reads
-// x[b, oh*S, ow*S, :] in place and the subsampled view is never materialised.
-// Both accumulate in fp32 on the CUDA cores (no TF32) and apply
+// Both read the activation rows in place, so a strided 1x1 conv folds its
+// stride into the row addressing: row m = pixel (b, oh, ow) reads
+// x[b, oh*S, ow*S, :] and the subsampled view is never materialised. Both
+// accumulate in fp32 on the CUDA cores (no TF32) and apply
 // scale -> bias -> residual -> ReLU on the accumulator before one store.
 //
 // mm_act_stationary (M >= 128 rows): the TPU kernel keeps a (128, C)
 // activation block resident while weight tiles stream over a sequential C
 // grid axis. Here blocks run in parallel in no order, so the C axis becomes
-// the loop inside each block: a 64x64 output tile per block, C in chunks of
-// 16, both operand tiles staged in shared memory, a 4x4 register micro-tile
-// per thread. Bound on this card: at batch 1 the 1x1s do 10-100 FLOP per
-// byte of compulsory traffic, around the fp32 ridge of 20 FLOP/byte, so the
-// big ones are bound by fp32 operations and the small ones by bytes; each
-// activation value is reused 64 times from shared memory and each weight
-// value by the tile's 64 rows. Where the output tiles are too few to fill
-// the SMs (conv4's 196 rows: 4 x 4 tiles for 132 SMs), C is split over
-// blocks as in tile_gemm.cuh.
+// the loop inside each block. Bound on this card: at batch 1 the 1x1s do
+// 10-100 FLOP per byte of compulsory traffic, around the fp32 ridge of 20
+// FLOP/byte, so the big ones are bound by fp32 operations and the small ones
+// by bytes. It is the conv2d kernel's pipelined loop (gemm_pipe.cuh) run as a
+// 1x1 conv (FH = FW = 1, P = 0; a plain matrix is B = M, H = W = 1): a
+// 3-slot cp.async ring, 8x8 register tiles in 128x64 or 64x64 blocks, and
+// where the output tiles do not fill the SMs (conv3/conv4's 784 and 196
+// rows) C cut inside the block (four groups) and across blocks (splits
+// combined in the same launch). Every act-stationary 1x1
+// of ResNet-50 (C and K multiples of 64) takes the vec16 path; a ragged C or
+// K, or a misaligned operand, takes the general one (kernels/matmul.py).
 //
 // mm_weight_stationary (M < 128 rows, ResNet-50's conv5 at batch 1, 49 rows):
 // the weights dominate the bytes (up to 8 MB fp32 against 0.4 MB of
@@ -31,13 +33,13 @@
 // columns, so every weight element is read by exactly one block, once. The
 // TPU's 128-column blocks would give K/128 = 4..16 blocks for 132 SMs; the
 // 32-column slabs give 16..64, and the C range is split on top of that to
-// put about two blocks on every SM (the split reduction of tile_gemm.cuh),
-// still reading each weight element once.
+// put about two blocks on every SM (the split reduction of tile_gemm.cuh,
+// with its second pass), still reading each weight element once.
+#include "gemm_pipe.cuh"
 #include "tile_gemm.cuh"
 
 namespace carla {
 
-using AsTile = Tile<64, 64, 16, 4, 4>;    // kernels/matmul.py: AS_BM, AS_BN
 using WsTile64 = Tile<64, 32, 16, 2, 4>;  // kernels/matmul.py: WS_BN, BK
 using WsTile128 = Tile<128, 32, 16, 4, 4>;
 
@@ -45,8 +47,7 @@ struct Rows {
   int M, H, W, S, OH, OW;
 };
 
-// One kernel body for both stationarities: they differ in the tile (and so
-// in which operand a block keeps), not in the arithmetic.
+// The weight-stationary kernel: all rows of x in one row tile.
 template <typename T, class TL>
 __global__ void __launch_bounds__(THREADS)
 mm_kernel(const T* __restrict__ x, const T* __restrict__ w, Epi ep,
@@ -91,29 +92,39 @@ int launch_ws(const void* x, const void* w, Epi ep, const void* res,
 // Common arguments. dtype: 0 = float32, 1 = bfloat16. x is NHWC
 // (B, H, W, C) read at stride S into M = B*OH*OW rows (a plain (M, C)
 // matrix is H = W = OH = OW = S = 1), w is (C, K), out and res (or null)
-// are (M, K) in x's type, scale/bias are fp32 (K,) or null. ws: fp32
-// workspace of splits * M * K values (null when splits == 1); split z
-// reduces channels [z * k_per_split, (z + 1) * k_per_split).
-// Returns cudaGetLastError().
+// are (M, K) in x's type, scale/bias are fp32 (K,) or null. Split z reduces
+// channels [z * k_per_split, (z + 1) * k_per_split). Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a plan the operands do not
+// allow).
+//
+// act-stationary: tile and vec as carla_conv2d (csrc/conv2d.cu); with
+// splits > 1, ws holds splits * tiles * BM*BN fp32 values and tickets one
+// int32 counter per output tile, 0 before the call and 0 again after it.
 extern "C" int carla_mm_act_stationary(
     int dtype, const void* x, const void* w, const void* scale,
-    const void* bias, const void* res, void* out, void* ws, int M, int C,
-    int K, int H, int W, int S, int OH, int OW, int splits, int k_per_split,
-    int relu, void* stream) {
+    const void* bias, const void* res, void* out, void* ws, void* tickets,
+    int M, int C, int K, int H, int W, int S, int OH, int OW, int tile,
+    int vec, int splits, int k_per_split, int relu, void* stream) {
+  if (OH <= 0 || OW <= 0 || M % (OH * OW) != 0)
+    return (int)cudaErrorInvalidValue;
   const carla::Epi ep{static_cast<const float*>(scale),
                       static_cast<const float*>(bias), relu};
-  const carla::Rows r{M, H, W, S, OH, OW};
+  const carla::ConvShape s{M / (OH * OW), H, W, C, K, 1, 1, S, 0, OH, OW};
   float* wsp = static_cast<float*>(ws);
+  int* tk = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return carla::launch<float, carla::AsTile>(x, w, ep, res, out, wsp, r, C,
-                                               K, splits, k_per_split, st);
+    return carla::pipe_launch<float>(tile, vec, x, w, ep, res, out, wsp, tk,
+                                     s, splits, k_per_split, st);
   if (dtype == 1)
-    return carla::launch<__nv_bfloat16, carla::AsTile>(
-        x, w, ep, res, out, wsp, r, C, K, splits, k_per_split, st);
+    return carla::pipe_launch<__nv_bfloat16>(tile, vec, x, w, ep, res, out,
+                                             wsp, tk, s, splits, k_per_split,
+                                             st);
   return (int)cudaErrorInvalidValue;
 }
 
+// weight-stationary: ws holds splits * M * K fp32 values (null when
+// splits == 1), summed by a second pass.
 extern "C" int carla_mm_weight_stationary(
     int dtype, const void* x, const void* w, const void* scale,
     const void* bias, const void* res, void* out, void* ws, int M, int C,

@@ -34,9 +34,6 @@ _SIGNATURES = {"carla_decode_attention":
                [_I] + [_P] * 7 + [_I] * 7 + [_F, _P],
                "carla_decode_occupancy": [_I] * 4 + [_P]}
 
-# Per device, the kernel's int32 ticket counters: zero before and after every
-# call, so they are allocated once and grown when a call needs more.
-_tickets: dict[torch.device, torch.Tensor] = {}
 # (device, dtype code, heads per kv head, dh) -> blocks the card holds at once
 _slots: dict[tuple, int] = {}
 
@@ -80,14 +77,6 @@ def _resident_blocks(lib, device, code: int, h: int, kh: int, dh: int) -> int:
     return _slots[key]
 
 
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    buf = _tickets.get(device)
-    if buf is None or buf.numel() < n:
-        buf = _tickets[device] = torch.zeros(n, dtype=torch.int32,
-                                             device=device)
-    return buf
-
-
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """q: (B, H, dh); cache: (B, S, Kh, dh); pos: (B,) int -> (B, H, dh)."""
@@ -113,7 +102,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     plan = launch_plan(b, s, h, kh, dh,
                        _resident_blocks(lib, q.device, code, h, kh, dh))
     ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=q.device)
-    tickets = _ticket_buffer(q.device, plan.tickets)
+    tickets = _build.ticket_counters(q.device, plan.tickets)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.carla_decode_attention(

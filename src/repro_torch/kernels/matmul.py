@@ -4,15 +4,15 @@ Two CUDA kernels (``csrc/matmul.cu``) compute the same ``(M, C) @ (C, K)``
 with the fused flush epilogue, mirroring the paper's §III.B / §III.C
 reconfiguration:
 
-* ``matmul_act_stationary`` (§III.B analogue, M >= 128 rows): a tiled GEMM
-  over (M/64, K/64) blocks with the C loop inside each block.
+* ``matmul_act_stationary`` (§III.B analogue, M >= 128 rows): the pipelined
+  loop of ``csrc/gemm_pipe.cuh`` run as a 1x1 conv, the C loop inside each
+  block; ``act_plan`` picks its block tile, its split of C (combined in the
+  same launch) and its gather path (``_build.plan_gemm``).
 * ``matmul_weight_stationary`` (§III.C analogue, M < 128 rows): each block
   owns all M rows and a 32-column weight slab, so each weight element is
-  read once.
-
-Where the output tiles are too few to fill the card, either kernel splits C
-over blocks and a second pass sums the splits and applies the flush
-(``_build.plan_splits``).
+  read once; where its blocks are too few to fill the card it splits C over
+  blocks and a second pass sums the splits and applies the flush
+  (``_build.plan_splits``).
 
 ``matmul`` picks the variant via ``core.modes.select_stationarity`` — the
 software twin of CARLA's controller.
@@ -36,16 +36,17 @@ from ..core.modes import Stationarity, select_stationarity
 from . import _build
 from .ref import conv1x1_ref, matmul_ref
 
-# Tiles of csrc/matmul.cu; tests/test_torch_kernels.py holds them in sync.
-AS_BM, AS_BN = 64, 64          # AsTile: rows, columns per block
+# Tiles of the weight-stationary kernel (csrc/matmul.cu); the act-stationary
+# tiles are _build.PIPE_TILES.  tests/test_torch_kernels.py holds them in
+# sync with the source.
 WS_BN = 32                     # WsTile64 / WsTile128: columns per block
 WS_BMS = (64, 128)             # ... rows per block: all M < 128 rows
-BK = 16                        # reduction chunk, both kernels
+BK = 16                        # reduction chunk
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {name: [_I] + [_P] * 7 + [_I] * 11 + [_P]
-               for name in ("carla_mm_act_stationary",
-                            "carla_mm_weight_stationary")}
+_SIGNATURES = {"carla_mm_act_stationary": [_I] + [_P] * 8 + [_I] * 13 + [_P],
+               "carla_mm_weight_stationary": [_I] + [_P] * 7 + [_I] * 11
+               + [_P]}
 
 
 def _up(n: int, t: int) -> int:
@@ -64,7 +65,9 @@ def tile_util(m: int, c: int, k: int, stationarity: str) -> float:
     if stationarity == Stationarity.WEIGHT_STATIONARY.value:
         padded = _up(m, ws_bm(m)) * _up(k, WS_BN) * _up(c, BK)
     else:
-        padded = _up(m, AS_BM) * _up(k, AS_BN) * _up(c, BK)
+        plan = _build.plan_gemm(m, k, c, _build.REFERENCE_SMS,
+                                c % _build.PIPE_BK == 0)
+        padded = _up(m, plan.bm) * _up(k, plan.bn) * _up(c, _build.PIPE_BK)
     return (m * c * k) / padded
 
 
@@ -93,9 +96,8 @@ def matmul_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     return y.to(x.dtype)
 
 
-def _launch(fn: str, x, w, stride, scale, bias, relu, residual, bm: int,
-            bn: int) -> torch.Tensor:
-    """Check, plan the C splits, launch one of the two kernels."""
+def _check(fn: str, x, w, stride, scale, bias, residual):
+    """(M, C, K, H, W, OH, OW, code, scale, bias, empty output) of a launch."""
     m, c, h, wd, oh, ow, lead = _rows(x, stride)
     c2, k = w.shape
     if c != c2:
@@ -104,17 +106,17 @@ def _launch(fn: str, x, w, stride, scale, bias, relu, residual, bm: int,
     code, sc, bi = _build.launch_operands(fn, x, w, out_shape, scale, bias,
                                           residual)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    splits, per, ws = _build.split_launch(x, -(-m // bm) * -(-k // bn), c,
-                                          BK, m, k)
-    lib = _build.load("matmul", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        err = getattr(lib, "carla_mm_" + fn.removeprefix("matmul_"))(
-            code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
-            _build.ptr(residual), out.data_ptr(), _build.ptr(ws), m, c, k, h,
-            wd, stride, oh, ow, splits, per, int(relu),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, fn)
-    return out
+    return m, c, k, h, wd, oh, ow, code, sc, bi, out
+
+
+def act_plan(x, w, *, stride: int = 1, residual=None,
+             n_sms: int | None = None) -> _build.GemmPlan:
+    """Tile, split and gather path of the act-stationary launch for these
+    operands (on x's device, or on a card of ``n_sms`` SMs)."""
+    m, c = _rows(x, stride)[:2]
+    k = w.shape[1]
+    return _build.plan_gemm(m, k, c, n_sms or _build.sm_count(x.device),
+                            _build.vec_path(c, k, x, w, residual))
 
 
 def matmul_act_stationary(x: torch.Tensor, w: torch.Tensor, *,
@@ -123,12 +125,25 @@ def matmul_act_stationary(x: torch.Tensor, w: torch.Tensor, *,
                           bias: torch.Tensor | None = None,
                           relu: bool = False,
                           residual: torch.Tensor | None = None) -> torch.Tensor:
-    """(M, C) @ (C, K) with the fused flush; 64x64 tiles, C looped inside."""
+    """(M, C) @ (C, K) with the fused flush; pipelined tiles, C looped
+    inside each block."""
     if x.device.type == "cpu":
         return matmul_plain(x, w, stride=stride, scale=scale, bias=bias,
                             relu=relu, residual=residual)
-    out = _launch("matmul_act_stationary", x, w, stride, scale, bias, relu,
-                  residual, AS_BM, AS_BN)
+    fn = "matmul_act_stationary"
+    m, c, k, h, wd, oh, ow, code, sc, bi, out = _check(
+        fn, x, w, stride, scale, bias, residual)
+    plan = act_plan(x, w, stride=stride, residual=residual)
+    ws, tickets = _build.pipe_workspace(x, plan, m, k)
+    lib = _build.load("matmul", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.carla_mm_act_stationary(
+            code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
+            _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
+            _build.ptr(tickets), m, c, k, h, wd, stride, oh, ow, plan.tile,
+            int(plan.vec), plan.splits, plan.per, int(relu),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, fn)
     matmul_act_stationary.launches += 1
     return out
 
@@ -144,8 +159,18 @@ def matmul_weight_stationary(x: torch.Tensor, w: torch.Tensor, *,
     if x.device.type == "cpu":
         return matmul_plain(x, w, stride=stride, scale=scale, bias=bias,
                             relu=relu, residual=residual)
-    out = _launch("matmul_weight_stationary", x, w, stride, scale, bias, relu,
-                  residual, ws_bm(_rows(x, stride)[0]), WS_BN)
+    fn = "matmul_weight_stationary"
+    m, c, k, h, wd, oh, ow, code, sc, bi, out = _check(
+        fn, x, w, stride, scale, bias, residual)
+    splits, per, ws = _build.split_launch(x, -(-k // WS_BN), c, BK, m, k)
+    lib = _build.load("matmul", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.carla_mm_weight_stationary(
+            code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
+            _build.ptr(residual), out.data_ptr(), _build.ptr(ws), m, c, k, h,
+            wd, stride, oh, ow, splits, per, int(relu),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, fn)
     matmul_weight_stationary.launches += 1
     return out
 

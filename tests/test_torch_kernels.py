@@ -142,10 +142,24 @@ def _tiles(source: str) -> dict:
 
 
 def test_python_tile_constants_match_the_sources():
-    conv = _tiles("conv2d.cu")["ConvTile"]
-    assert conv[:3] == (t_conv.BM, t_conv.BN, t_conv.BK)
+    """conv2d and act-stationary: the tiles and constants of gemm_pipe.cuh
+    (PIPE_TILES by tile code); weight-stationary: matmul.cu's Tile<>s."""
+    pipe = (CSRC / "gemm_pipe.cuh").read_text()
+    tiles = dict(re.findall(r"using Pipe(\w) = Pipe<(\d+, \d+, \d+)>;",
+                            pipe))
+    codes = re.findall(r"case (\d): return pipe_launch_tile<T, Pipe(\w)",
+                       pipe)
+    assert [int(c) for c, _ in codes] == list(range(len(_build.PIPE_TILES)))
+    assert [tuple(int(v) for v in tiles[n].split(",")) for _, n in codes] \
+        == list(_build.PIPE_TILES)
+    consts = dict(re.findall(r"constexpr int (PIPE_\w+) = (\d+);", pipe))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "PIPE_BK": _build.PIPE_BK, "PIPE_STAGES": _build.PIPE_STAGES,
+        "PIPE_TABLE_MAX": _build.PIPE_TABLE_MAX}
+    for src in ("conv2d.cu", "matmul.cu"):
+        assert '#include "gemm_pipe.cuh"' in (CSRC / src).read_text()
     mm = _tiles("matmul.cu")
-    assert mm["AsTile"][:3] == (t_mm.AS_BM, t_mm.AS_BN, t_mm.BK)
+    assert set(mm) == {"WsTile64", "WsTile128"}
     assert {mm["WsTile64"][:3], mm["WsTile128"][:3]} == {
         (bm, t_mm.WS_BN, t_mm.BK) for bm in t_mm.WS_BMS}
 
@@ -177,7 +191,8 @@ def test_ctypes_signatures_match_the_c_entry_points(module, source):
 
 def test_build_hash_covers_every_source():
     names = {p.name for p in CSRC.iterdir()}
-    assert {"conv2d.cu", "matmul.cu", "tile_gemm.cuh", "numeric.cuh"} <= names
+    assert {"conv2d.cu", "matmul.cu", "gemm_pipe.cuh", "tile_gemm.cuh",
+            "numeric.cuh"} <= names
     assert [p.name for p in _build.sources()] == [
         "conv1d.cu", "conv2d.cu", "decode_attention.cu", "flash_attention.cu",
         "matmul.cu"]
@@ -201,10 +216,117 @@ def test_split_plan_covers_the_reduction(tiles, reduction):
 
 
 def test_tile_util_counts_padding():
+    # 64 pixels x 64 channels: the 64x64 tile, nothing padded
     assert t_conv.tile_util((1, 8, 8, 16), (3, 3, 16, 64), 1, 1) == 1.0
+    # the stem's R = 147 pads to 160 (10 chunks of 16)
+    m = 112 * 112
+    plan = _build.plan_gemm(m, 64, 147, 132, False)
+    assert t_conv.tile_util((1, 224, 224, 3), (7, 7, 3, 64), 2, 3) == (
+        m * 64 * 147 / (-(-m // plan.bm) * plan.bm * 64 * 160))
+    # act-stationary pads M and K to its plan's tile, C to whole chunks
+    for m, c, k in ((64, 32, 64), (64, 64, 32), (300, 97, 40)):
+        p = _build.plan_gemm(m, k, c, 132, c % 16 == 0)
+        want = m * c * k / (-(-m // p.bm) * p.bm * -(-k // p.bn) * p.bn
+                            * -(-c // 16) * 16)
+        assert t_mm.tile_util(m, c, k, "activation_stationary") == want
     assert t_mm.tile_util(64, 32, 64, "activation_stationary") == 1.0
+    assert t_mm.tile_util(128, 64, 64, "activation_stationary") == 1.0
     assert t_mm.tile_util(49, 512, 2048, "weight_stationary") == 49 / 64
     assert t_mm.tile_util(100, 16, 32, "weight_stationary") == 100 / 128
+
+
+# (M, N, R) of main-path layers at batch 1 and ragged ones
+GEMMS = [(12544, 64, 147), (3136, 64, 576), (784, 128, 1152),
+         (196, 256, 2304), (49, 512, 4608), (50176, 64, 27),
+         (50176, 64, 576), (12544, 128, 1152), (196, 512, 4608),
+         (3136, 256, 64), (196, 1024, 256), (300, 40, 64), (1, 5, 17),
+         (513, 257, 129), (64, 67, 1179), (7, 9, 40000), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("vec", [True, False])
+@pytest.mark.parametrize("m,n,r", GEMMS)
+def test_pipe_plan_covers_the_reduction(m, n, r, vec):
+    """Every index of R in exactly one split, whole chunks, at least
+    MIN_CHUNKS_PER_SPLIT of them when split, and on the general path a split
+    no longer than the kernel's index table."""
+    p = _build.plan_gemm(m, n, r, 132, vec)
+    assert (p.bm, p.bn, p.groups) == _build.PIPE_TILES[p.tile]
+    assert p.vec == vec
+    assert p.per % _build.PIPE_BK == 0 and p.splits >= 1
+    assert (p.splits - 1) * p.per < r <= p.splits * p.per
+    if p.splits > 1:
+        assert p.per >= _build.PIPE_BK * _build.MIN_CHUNKS_PER_SPLIT
+    if not vec:
+        assert min(p.per, r) <= _build.PIPE_TABLE_MAX
+    assert p.path == ("vec16" if vec else "general")
+
+
+def test_pipe_plan_splits_only_what_does_not_fill_the_card():
+    # VGG-16's conv1_2: 392 tiles of 128x64 fill 132 SMs three times over
+    assert _build.plan_gemm(50176, 64, 576, 132, True).splits == 1
+    # ResNet-50's conv5 3x3 at batch 1: 49 pixels, 8 tiles of 64x64, so
+    # the reduction is cut across blocks and inside them
+    p = _build.plan_gemm(49, 512, 4608, 132, True)
+    assert (p.bm, p.bn) == (64, 64) and p.splits > 1
+    assert p.tiles(49, 512) * p.splits * p.groups >= 132
+    # the model: more splits only while they shorten the busiest SM's work
+    for m, n, r in GEMMS:
+        best = _build.plan_gemm(m, n, r, 132, True)
+        one = _build.GemmPlan(best.tile, best.bm, best.bn, best.groups, 1,
+                              -(-r // 16) * 16, True)
+        assert (_build.pipe_cycles(m, n, best, 132)
+                <= _build.pipe_cycles(m, n, one, 132))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vec_path_needs_whole_vectors_and_alignment(dtype):
+    es = torch.tensor([], dtype=dtype).element_size()
+    x, w = torch.zeros(2, 5, 5, 32, dtype=dtype), torch.zeros(32, 64,
+                                                             dtype=dtype)
+    assert _build.vec_path(32, 64, x, w, None)
+    assert not _build.vec_path(3, 64, x, w, None)        # C off the chunk
+    assert not _build.vec_path(24, 64, x, w, None)
+    assert not _build.vec_path(32, 24 // es, x, w, None)  # K of 24 bytes
+    assert _build.vec_path(32, 16 // es, x, w, None)
+    odd = torch.zeros(2 * 5 * 5 * 32 + 1, dtype=dtype)[1:].view(2, 5, 5, 32)
+    assert odd.data_ptr() % 16 and not _build.vec_path(32, 64, odd, w, None)
+    assert not _build.vec_path(32, 64, x, w, odd)        # the residual
+
+
+def test_wrappers_plan_the_path_from_their_operands():
+    x = torch.zeros(1, 14, 14, 64)
+    w = torch.zeros(3, 3, 64, 64)
+    p = t_conv.launch_plan(x, w, stride=1, padding=1, n_sms=132)
+    assert p == _build.plan_gemm(196, 64, 576, 132, True)
+    odd = torch.zeros(14 * 14 * 64 + 1)[1:].view(1, 14, 14, 64)
+    assert t_conv.launch_plan(odd, w, padding=1, n_sms=132).path == "general"
+    assert t_conv.launch_plan(torch.zeros(1, 8, 8, 3), torch.zeros(
+        7, 7, 3, 64), stride=2, padding=3, n_sms=132).path == "general"
+    # a strided 1x1 plans over its subsampled rows
+    p = t_mm.act_plan(torch.zeros(1, 29, 29, 96), torch.zeros(96, 128),
+                      stride=2, n_sms=132)
+    assert p == _build.plan_gemm(15 * 15, 128, 96, 132, True)
+    assert t_mm.act_plan(torch.zeros(300, 97), torch.zeros(97, 40),
+                         n_sms=132).path == "general"
+
+
+def test_pipe_workspace_and_shared_counters():
+    x = torch.zeros(1, 7, 7, 512)
+    one = _build.plan_gemm(50176, 64, 576, 132, True)
+    assert _build.pipe_workspace(x, one, 50176, 64) == (None, None)
+    p = _build.plan_gemm(49, 512, 4608, 132, True)
+    ws, tickets = _build.pipe_workspace(x, p, 49, 512)
+    assert ws.dtype == torch.float32
+    assert ws.numel() >= p.splits * p.tiles(49, 512) * p.bm * p.bn
+    # one partial-sum buffer a device, grown on demand
+    assert _build.pipe_workspace(x, p, 49, 512)[0] is ws
+    assert tickets.dtype == torch.int32 and not tickets.any()
+    assert tickets.numel() >= p.tiles(49, 512)
+    # one buffer a device, grown on demand, shared with decode attention
+    assert _build.ticket_counters(x.device, 3) is tickets
+    big = _build.ticket_counters(x.device, tickets.numel() + 5)
+    assert big.numel() == tickets.numel() + 5 and not big.any()
+    assert _build.ticket_counters(x.device, 1) is big
 
 
 def test_engine_resolution():
