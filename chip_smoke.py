@@ -41,10 +41,12 @@ printing one JSON line:
              roundoffs of 2^-8 of that sum at most; conv1d as phase 4 with
              R = FL.
    cnn_faults — faults planted in csrc/gemm_pipe.cuh, the loop of conv2d
-             and act-stationary (``CNN_FAULTS``: text edits, each built
-             with csrc/conv2d.cu in a temporary directory, in parallel with
-             phase 2); the fp32 conv2d checks at the main-path shapes, at
-             the same tolerance, must fail on every one.
+             and both 1x1 GEMMs (``CNN_FAULTS``: text edits, each built
+             with csrc/conv2d.cu and csrc/matmul.cu in a temporary
+             directory, in parallel with phase 2); the fp32 conv2d and
+             weight-stationary checks at the main-path shapes, at the same
+             tolerance, must fail on every one, and the dropped split on a
+             weight-stationary case.
    flash_bf16_faults — the bf16 flash kernel shares no code with the fp32
              one that the zamba2 wiring check runs, so faults are planted
              in its source (``FLASH_BF16_FAULTS``: text edits of
@@ -59,6 +61,9 @@ printing one JSON line:
              CUDA events and a cold L2 cache, beside the bound
              max(FLOPs / peak, bytes / bandwidth); and, as the floor of
              that clock, a trivial one-block kernel timed the same way.
+             Each weight-stationary main-path call is also run once under
+             ``torch.profiler``, which must see exactly one device kernel
+             (its splits are combined in the launch).
 6. resnet50, resnet50_sparse, vgg16 — the full-width batch-1 224x224 fp32
              forwards through ``models.cnn``; launch counts per forward,
              logits against the same forward with ``impl="ref"`` (tolerance
@@ -145,8 +150,9 @@ FLASH_BF16_FAULTS = {
     "row_sum_not_rescaled": ("          l[mt][r] *= alpha;\n", ""),
 }
 # Faults planted in the CNN kernels' loop (csrc/gemm_pipe.cuh), name ->
-# (text, its replacement), each built into a conv2d library; the fp32
-# conv2d checks at the main-path shapes must catch each.
+# (text, its replacement), each built into a conv2d and a matmul library;
+# the fp32 conv2d and weight-stationary checks at the main-path shapes must
+# catch each.
 CNN_FAULTS = {
     # vec16: the tap walk wraps one column early, so the last filter
     # column is never read (and later taps are shifted)
@@ -161,10 +167,10 @@ CNN_FAULTS = {
                                  "c == s.C - 1 ? NO_TAP << 16 "
                                  ": (rr << 16) | tt);"),
 }
-# Where each planted fault goes: its dict, the file it edits, the source
+# Where each planted fault goes: its dict, the file it edits, the sources
 # built with it.
-PLANTED = ((FLASH_BF16_FAULTS, "flash_attention.cu", "flash_attention.cu"),
-           (CNN_FAULTS, "gemm_pipe.cuh", "conv2d.cu"))
+PLANTED = ((FLASH_BF16_FAULTS, "flash_attention.cu", ("flash_attention.cu",)),
+           (CNN_FAULTS, "gemm_pipe.cuh", ("conv2d.cu", "matmul.cu")))
 
 
 def emit(obj: dict) -> None:
@@ -310,9 +316,9 @@ def main_path_shapes(trace, apply, params: dict, x, kw: dict) -> list[dict]:
 
 
 def ragged_calls() -> list[dict]:
-    """Prime channel counts, stride 2, the 7x7 stem pattern, odd rows; for
-    conv2d and act-stationary also K off the tiles on the vec16 path, and an
-    input slice one element off 16-byte alignment (``offset``)."""
+    """Prime channel counts, stride 2, the 7x7 stem pattern, odd rows; K
+    off the tiles on the vec16 path, an input slice one element off 16-byte
+    alignment (``offset``), and a C too short to split."""
     return [
         {"kernel": "conv2d", "x": (2, 9, 11, 48), "w": (3, 3, 48, 72),
          "stride": 1, "padding": 1},
@@ -350,6 +356,10 @@ def ragged_calls() -> list[dict]:
          "w": (61, 1031), "stride": 2, "padding": 0},
         {"kernel": "mm_weight_stationary", "x": (1, 4099), "w": (4099, 37),
          "stride": 1, "padding": 0},
+        {"kernel": "mm_weight_stationary", "x": (1, 7, 7, 32),
+         "w": (32, 64), "stride": 1, "padding": 0},
+        {"kernel": "mm_weight_stationary", "x": (49, 512), "w": (512, 256),
+         "stride": 1, "padding": 0, "offset": 1},
     ]
 
 
@@ -391,20 +401,16 @@ class Kernels:
 
     def plan(self, call, x, w, ep) -> dict:
         """The launch plan the wrapper makes for these operands: tile,
-        splits and gather path (weight-stationary: its splits)."""
-        if call["kernel"] == "mm_weight_stationary":
-            _build = self.mm._build
-            splits, per = _build.plan_splits(
-                -(-w.shape[1] // self.mm.WS_BN), w.shape[0], self.mm.BK,
-                _build.sm_count(x.device))
-            return {"splits": splits, "per": per}
+        splits and gather path."""
         if call["kernel"] == "conv2d":
             p = self.conv.launch_plan(x, w, stride=call["stride"],
                                       padding=call["padding"],
                                       residual=ep["residual"])
         else:
-            p = self.mm.act_plan(x, w, stride=call["stride"],
-                                 residual=ep["residual"])
+            planner = (self.mm.ws_plan
+                       if call["kernel"] == "mm_weight_stationary"
+                       else self.mm.act_plan)
+            p = planner(x, w, stride=call["stride"], residual=ep["residual"])
         return {"tile": [p.bm, p.bn, p.groups], "splits": p.splits,
                 "per": p.per, "path": p.path}
 
@@ -518,9 +524,23 @@ def profile_busy(fn, reps: int = PROFILE_REPS) -> dict:
         by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e3 / reps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"device_busy_ms": busy / 1e3 / reps,
+            "device_kernels_per_call": len(spans) / reps,
             "profiled_wall_ms": wall_ms / reps,
             "idle_share": 1.0 - busy / 1e3 / wall_ms,
             "top_device_ms": {n[:80]: t for n, t in top}}
+
+
+def device_kernels(fn) -> int:
+    """Device kernels (and copies) of one call of fn under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
 
 
 def host_profile(fn, reps: int = PROFILE_REPS) -> dict:
@@ -692,13 +712,13 @@ def build_with_faults(_build) -> tuple[float, dict]:
     """Phase 2: every source (``_build.build_all``) and, beside it, one nvcc
     per planted fault of ``PLANTED``, each building its source against a
     copy of csrc/ in a temporary directory with the one edit made.  Returns
-    the main build's nvcc seconds and name -> the faulty library's path
-    (in a directory that lives as long as the process)."""
+    the main build's nvcc seconds and (name, source stem) -> the faulty
+    library's path (in a directory that lives as long as the process)."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_faults_"))
     atexit.register(shutil.rmtree, tmp, True)
     procs, libs = {}, {}
     try:
-        for faults, edited, target in PLANTED:
+        for faults, edited, targets in PLANTED:
             text = (_build.CSRC / edited).read_text()
             for name, (old, new) in faults.items():
                 if text.count(old) != 1:
@@ -707,17 +727,21 @@ def build_with_faults(_build) -> tuple[float, dict]:
                 csrc = tmp / name
                 shutil.copytree(_build.CSRC, csrc)
                 (csrc / edited).write_text(text.replace(old, new))
-                libs[name] = tmp / f"lib{name}.so"
-                with open(tmp / f"{name}.log", "w") as log:
-                    procs[name] = subprocess.Popen(
-                        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc),
-                         "-o", str(libs[name]), str(csrc / target)],
-                        stdout=log, stderr=subprocess.STDOUT)
+                for target in targets:
+                    key = (name, Path(target).stem)
+                    tag = f"{name}_{key[1]}"
+                    libs[key] = tmp / f"lib{tag}.so"
+                    with open(tmp / f"{tag}.log", "w") as log:
+                        procs[tag] = subprocess.Popen(
+                            [_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                             str(csrc), "-o", str(libs[key]),
+                             str(csrc / target)],
+                            stdout=log, stderr=subprocess.STDOUT)
         nvcc_s = _build.build_all()
-        for name, proc in procs.items():
+        for tag, proc in procs.items():
             if proc.wait() != 0:
-                log = (tmp / f"{name}.log").read_text()
-                raise SystemExit(f"planted fault {name}: nvcc failed: "
+                log = (tmp / f"{tag}.log").read_text()
+                raise SystemExit(f"planted fault {tag}: nvcc failed: "
                                  f"{log[-2000:]}")
     finally:
         for proc in procs.values():
@@ -743,7 +767,7 @@ def check_flash_faults(_build, fa_mod, libs: dict, gen) -> dict:
     plain = fa_mod.flash_attention_plain
     out = {}
     for name in FLASH_BF16_FAULTS:
-        lib = load_fault(libs[name], fa_mod._SIGNATURES)
+        lib = load_fault(libs[name, "flash_attention"], fa_mod._SIGNATURES)
         chk = Checker()
         with mock.patch.object(_build, "load", lambda *_: lib):
             for case in cases:
@@ -763,32 +787,39 @@ def check_flash_faults(_build, fa_mod, libs: dict, gen) -> dict:
     return out
 
 
-def check_cnn_faults(kern, _build, libs: dict, conv_calls: list,
-                     gen) -> dict:
-    """Each CNN_FAULTS library through the conv2d wrapper on the fp32
-    main-path conv2d shapes (the full epilogue), at the checks' tolerance:
-    how many cases fail and the worst err / tol.  Raises unless every fault
-    fails one."""
+def check_cnn_faults(kern, _build, libs: dict, calls: list, gen) -> dict:
+    """Each CNN_FAULTS library pair through the conv2d and weight-stationary
+    wrappers on their fp32 main-path shapes (the full epilogue), at the
+    checks' tolerance: how many cases of each kernel fail and the worst
+    err / tol.  Raises unless every fault fails a case, and unless the
+    dropped split fails a weight-stationary case."""
     out = {}
     for name in CNN_FAULTS:
-        lib = load_fault(libs[name], kern.conv._SIGNATURES)
+        faulty = {"conv2d": load_fault(libs[name, "conv2d"],
+                                       kern.conv._SIGNATURES),
+                  "matmul": load_fault(libs[name, "matmul"],
+                                       kern.mm._SIGNATURES)}
         chk = Checker()
-        with mock.patch.object(_build, "load", lambda *_: lib):
-            for c in conv_calls:
+        with mock.patch.object(_build, "load", lambda lib, _: faulty[lib]):
+            for c in calls:
                 x_, w_, full = make_operands(kern, c, torch.float32, gen)
                 ep = epilogue_of(full, True, True, True, True)
-                chk.add("conv2d", {"x": c["x"], "w": c["w"]},
+                chk.add(c["kernel"], {"x": c["x"], "w": c["w"]},
                         kern.run(c, x_, w_, ep), kern.plain(c, x_, w_, ep),
                         kern.reduction(c))
         torch.cuda.synchronize()
-        out[name] = {"cases_failed": len(chk.failures()),
-                     "of": len(conv_calls),
-                     "max_err_over_tol": max(c["err_over_tol"]
-                                             for c in chk.cases)}
-    missed = [n for n, r in out.items() if not r["cases_failed"]]
-    if missed:
-        raise SystemExit(f"the fp32 conv2d checks miss planted faults "
-                         f"{missed}: {out}")
+        out[name] = {}
+        for kname in sorted({c["kernel"] for c in calls}):
+            cs = [c for c in chk.cases if c["kernel"] == kname]
+            out[name][kname] = {
+                "cases_failed": sum(not c["ok"] for c in cs), "of": len(cs),
+                "max_err_over_tol": max(c["err_over_tol"] for c in cs)}
+    missed = [n for n, r in out.items()
+              if not any(k["cases_failed"] for k in r.values())]
+    if missed or not out["combine_drops_last_split"][
+            "mm_weight_stationary"]["cases_failed"]:
+        raise SystemExit(f"the fp32 conv2d and weight-stationary checks miss "
+                         f"planted faults {missed}: {out}")
     return out
 
 
@@ -1136,8 +1167,6 @@ def main() -> int:
                                     if c["dtype"] == "float32"),
             "max_abs_err_bf16": max(c["max_abs_err"] for c in cs
                                     if c["dtype"] == "bfloat16")}
-        if kname == "mm_weight_stationary":
-            continue
         for d in ("float32", "bfloat16"):
             plans = [c["plan"] for c in cs if c["dtype"] == d]
             seen = ({p["path"] for p in plans}
@@ -1170,9 +1199,10 @@ def main() -> int:
                          f"first: {chk.failures()[:1]}; paths not covered: "
                          f"{missing}")
     t0 = time.perf_counter()
-    conv_calls = [c for c in unique.values() if c["kernel"] == "conv2d"]
+    fault_calls = [c for c in unique.values()
+                   if c["kernel"] in ("conv2d", "mm_weight_stationary")]
     emit({"phase": "cnn_faults",
-          **check_cnn_faults(kern, _build, fault_libs, conv_calls, dgen),
+          **check_cnn_faults(kern, _build, fault_libs, fault_calls, dgen),
           "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     emit({"phase": "flash_bf16_faults",
@@ -1202,6 +1232,9 @@ def main() -> int:
                 "plain_ms": cold_time_ms(lambda: kern.plain(c, x_, w_, ep),
                                          flush),
                 "library_ms": lib_ms, "bound_ms": bound, "bound_by": by})
+            if c["kernel"] == "mm_weight_stationary":
+                rows[-1]["device_kernels"] = device_kernels(
+                    lambda: kern.run(c, x_, w_, ep))
         per_path[p] = rows
         totals = {}
         for kname in kern.wrappers:
@@ -1219,6 +1252,20 @@ def main() -> int:
     launch_floor_ms = cold_time_ms(lambda: tiny.add_(1), flush)
     emit({"phase": "times", "path": "launch floor",
           "trivial_kernel_ms": launch_floor_ms})
+    for p in ("resnet50", "resnet50_sparse"):
+        emit({"phase": "times", "path": f"{p} weight-stationary calls",
+              "launch_floor_ms": launch_floor_ms,
+              "calls": [{**{f: r[f] for f in ("x", "w", "stride", "ms",
+                                              "bound_ms", "device_kernels")},
+                         "above_floor_ms": r["ms"] - launch_floor_ms}
+                        for r in per_path[p]
+                        if r["kernel"] == "mm_weight_stationary"]})
+    many = [(r["x"], r["w"], r["device_kernels"])
+            for rows in per_path.values() for r in rows
+            if r.get("device_kernels", 1) != 1]
+    if many:
+        raise SystemExit(f"weight-stationary calls that ran other than one "
+                         f"device kernel: {many}")
     lm_times = time_lm_kernels(lm_kernels, peaks, flush, dgen)
     emit({"phase": "times", "path": "zamba2 kernels, bf16, one call each",
           **{k: {f: r[f] for f in ("ms", "plain_ms", "library_ms",

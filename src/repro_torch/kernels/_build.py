@@ -200,42 +200,14 @@ def attention_operands(what: str, **tensors) -> int:
     return DTYPE_CODES[first.dtype]
 
 
-MIN_CHUNKS_PER_SPLIT = 4    # a split reduces at least 4 chunks of BK values
-
-
-def plan_splits(tiles: int, reduction: int, bk: int,
-                n_sms: int) -> tuple[int, int]:
-    """(splits, reduction per split) for the split reduction (tile_gemm.cuh).
-
-    No split when the output tiles alone fill the SMs.  Otherwise enough
-    splits to put about two blocks on every SM, each split a whole number
-    of BK chunks and at least MIN_CHUNKS_PER_SPLIT of them.
-    """
-    chunks = -(-reduction // bk)
-    if tiles >= n_sms or chunks < 2 * MIN_CHUNKS_PER_SPLIT:
-        return 1, chunks * bk
-    want = min(-(-2 * n_sms // tiles), chunks // MIN_CHUNKS_PER_SPLIT)
-    per = -(-chunks // want) * bk
-    return -(-reduction // per), per
-
-
-def split_launch(x, tiles: int, reduction: int, bk: int, m: int, k: int):
-    """Plan the splits for a launch on x's device; allocate the workspace
-    (the weight-stationary kernel, tile_gemm.cuh).
-
-    Returns (splits, reduction per split, fp32 workspace or None).
-    """
-    splits, per = plan_splits(tiles, reduction, bk, sm_count(x.device))
-    ws = (torch.empty((splits, m, k), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
-    return splits, per, ws
+MIN_CHUNKS_PER_SPLIT = 4    # a split reduces at least 4 chunks of PIPE_BK
 
 
 def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# ---- the pipelined CNN loop of csrc/gemm_pipe.cuh (conv2d, act-stationary)
+# ---- the pipelined CNN loop of csrc/gemm_pipe.cuh (conv2d, both 1x1 GEMMs)
 PIPE_BK = 16                 # PIPE_BK: reduction indices a chunk
 PIPE_STAGES = 3              # PIPE_STAGES: slots in the shared-memory ring
 PIPE_TABLE_MAX = 2048        # PIPE_TABLE_MAX: general path, indices a split
@@ -288,19 +260,15 @@ def pipe_cycles(m: int, n: int, plan: GemmPlan, n_sms: int) -> float:
     return waves * block + combine
 
 
-@functools.lru_cache(maxsize=4096)
-def plan_gemm(m: int, n: int, reduction: int, n_sms: int,
-              vec: bool) -> GemmPlan:
-    """Block tile, groups and split of an (m, n) output over ``reduction``.
-
-    Of every tile and split count (each split a whole number of PIPE_BK
-    chunks, at least MIN_CHUNKS_PER_SPLIT of them, and on the general path
-    at most PIPE_TABLE_MAX indices), the one with the least modelled time
-    (``pipe_cycles``).  Ties go to the smaller tile.
-    """
+def _least_cycles(m: int, n: int, reduction: int, n_sms: int, vec: bool,
+                  codes) -> GemmPlan:
+    """Of every tile in ``codes`` and every split count (each split a whole
+    number of PIPE_BK chunks, at least MIN_CHUNKS_PER_SPLIT of them, and on
+    the general path at most PIPE_TABLE_MAX indices), the plan with the
+    least modelled time (``pipe_cycles``); ties go to the earlier code."""
     chunks = max(1, -(-reduction // PIPE_BK))
     best = None
-    for code in reversed(range(len(PIPE_TILES))):
+    for code in codes:
         bm, bn, groups = PIPE_TILES[code]
         for want in range(1, max(1, chunks // MIN_CHUNKS_PER_SPLIT) + 1):
             per = -(-chunks // want) * PIPE_BK
@@ -313,6 +281,29 @@ def plan_gemm(m: int, n: int, reduction: int, n_sms: int,
             if best is None or cost < best[0]:
                 best = (cost, plan)
     return best[1]
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_gemm(m: int, n: int, reduction: int, n_sms: int,
+              vec: bool) -> GemmPlan:
+    """Block tile, groups and split of an (m, n) output over ``reduction``
+    (conv2d, act-stationary): the least modelled time over every tile.
+    Ties go to the smaller tile."""
+    return _least_cycles(m, n, reduction, n_sms, vec,
+                         reversed(range(len(PIPE_TILES))))
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_weight_stationary(m: int, n: int, c: int, n_sms: int,
+                           vec: bool) -> GemmPlan:
+    """The weight-stationary plan of an (m, c) @ (c, n) product: the least
+    modelled time over the tiles that hold the rows in the fewest row tiles
+    (all of them in one for m <= 128), so each weight element is read from
+    device memory by one block (by ceil(m / 128) above 128 rows)."""
+    fewest = min(-(-max(m, 1) // bm) for bm, _, _ in PIPE_TILES)
+    return _least_cycles(m, n, c, n_sms, vec,
+                         [code for code in reversed(range(len(PIPE_TILES)))
+                          if -(-max(m, 1) // PIPE_TILES[code][0]) == fewest])
 
 
 def vec_path(c: int, k: int, x, w, residual) -> bool:

@@ -1,6 +1,9 @@
 // The pipelined fp32 implicit-GEMM main loop of the CNN kernels: conv2d and
-// the act-stationary 1x1 GEMM (a 1x1 conv is the case FH = FW = 1, P = 0;
-// a plain (M, C) matrix is B = M, H = W = OH = OW = S = 1).
+// both 1x1 GEMMs, act-stationary and weight-stationary (a 1x1 conv is the
+// case FH = FW = 1, P = 0; a plain (M, C) matrix is B = M, H = W = OH = OW
+// = S = 1). The two GEMMs differ only in their plan (kernels/_build.py):
+// weight-stationary holds all M rows in one row tile, so each weight
+// element is read by one block, once.
 //
 // out[m, n] = flush(sum_q A[m, q] * B[q, n]) with row m = output pixel
 // (b, oh, ow), q = (r, t, c) a filter tap and input channel, A gathered from
@@ -59,10 +62,29 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "numeric.cuh"
 #include "ptx.cuh"
-#include "tile_gemm.cuh"  // Epi, flush
 
 namespace carla {
+
+// Per-output-channel fp32 scale/bias (either may be null) and the ReLU flag.
+struct Epi {
+  const float* scale;
+  const float* bias;
+  int relu;
+};
+
+// The fused flush on one fp32 value of output element idx = m*N + n; `res`
+// is the residual (same shape and type as the output) or null.
+template <typename T>
+__device__ __forceinline__ float flush(float y, const Epi& ep, const T* res,
+                                       int64_t idx, int n) {
+  if (ep.scale) y *= ep.scale[n];
+  if (ep.bias) y += ep.bias[n];
+  if (res) y += to_f32(res[idx]);
+  if (ep.relu) y = fmaxf(y, 0.f);
+  return y;
+}
 
 constexpr int PIPE_BK = 16;          // reduction indices a chunk
 constexpr int PIPE_STAGES = 3;       // slots in the shared-memory ring
@@ -528,7 +550,8 @@ int pipe_launch_tile(const void* x, const void* w, Epi ep, const void* res,
 
 // The block tiles, by the wrapper's tile code (kernels/_build.py:PIPE_TILES):
 // 128x64 for layers with many output tiles, 64x64 for fewer, and 64x64
-// with four groups for the few-tile layers of batch 1. (128x128 blocks ran
+// with four groups for the few-tile layers of batch 1. Weight-stationary
+// takes one of those whose rows hold all of M. (128x128 blocks ran
 // at half 128x64's rate on the H100: 255 registers, one block an SM.)
 using PipeM = Pipe<128, 64, 1>;
 using PipeS = Pipe<64, 64, 1>;

@@ -4,15 +4,16 @@ Two CUDA kernels (``csrc/matmul.cu``) compute the same ``(M, C) @ (C, K)``
 with the fused flush epilogue, mirroring the paper's §III.B / §III.C
 reconfiguration:
 
-* ``matmul_act_stationary`` (§III.B analogue, M >= 128 rows): the pipelined
-  loop of ``csrc/gemm_pipe.cuh`` run as a 1x1 conv, the C loop inside each
-  block; ``act_plan`` picks its block tile, its split of C (combined in the
-  same launch) and its gather path (``_build.plan_gemm``).
-* ``matmul_weight_stationary`` (§III.C analogue, M < 128 rows): each block
-  owns all M rows and a 32-column weight slab, so each weight element is
-  read once; where its blocks are too few to fill the card it splits C over
-  blocks and a second pass sums the splits and applies the flush
-  (``_build.plan_splits``).
+* ``matmul_act_stationary`` (§III.B analogue, M >= 128 rows): the C loop
+  inside each block; ``act_plan`` picks its block tile, its split of C and
+  its gather path (``_build.plan_gemm``).
+* ``matmul_weight_stationary`` (§III.C analogue, M < 128 rows): all M rows
+  in one row tile, so each weight element is read from device memory by one
+  block, once; ``ws_plan`` picks the tile among those, its split of C and
+  its gather path (``_build.plan_weight_stationary``).
+
+Both run the pipelined loop of ``csrc/gemm_pipe.cuh`` as a 1x1 conv, one
+launch a call: splits of C are combined in the same launch.
 
 ``matmul`` picks the variant via ``core.modes.select_stationarity`` — the
 software twin of CARLA's controller.
@@ -36,38 +37,30 @@ from ..core.modes import Stationarity, select_stationarity
 from . import _build
 from .ref import conv1x1_ref, matmul_ref
 
-# Tiles of the weight-stationary kernel (csrc/matmul.cu); the act-stationary
-# tiles are _build.PIPE_TILES.  tests/test_torch_kernels.py holds them in
-# sync with the source.
-WS_BN = 32                     # WsTile64 / WsTile128: columns per block
-WS_BMS = (64, 128)             # ... rows per block: all M < 128 rows
-BK = 16                        # reduction chunk
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"carla_mm_act_stationary": [_I] + [_P] * 8 + [_I] * 13 + [_P],
-               "carla_mm_weight_stationary": [_I] + [_P] * 7 + [_I] * 11
-               + [_P]}
+_ARGS = [_I] + [_P] * 8 + [_I] * 13 + [_P]
+_SIGNATURES = {"carla_mm_act_stationary": _ARGS,
+               "carla_mm_weight_stationary": _ARGS}
 
 
 def _up(n: int, t: int) -> int:
     return -(-n // t) * t
 
 
-def ws_bm(m: int) -> int:
-    """Row tile of the weight-stationary kernel: one tile holds all rows."""
-    return WS_BMS[0] if m <= WS_BMS[0] else WS_BMS[1]
+def _planner(stationarity: str):
+    return (_build.plan_weight_stationary
+            if stationarity == Stationarity.WEIGHT_STATIONARY.value
+            else _build.plan_gemm)
 
 
 def tile_util(m: int, c: int, k: int, stationarity: str) -> float:
-    """Logical FLOPs / FLOPs of the padded tiles the kernel runs."""
+    """Logical FLOPs / FLOPs of the padded tiles the kernel runs (on an H100,
+    taking the vec16 path where C allows it)."""
     if m * c * k == 0:
         return 1.0
-    if stationarity == Stationarity.WEIGHT_STATIONARY.value:
-        padded = _up(m, ws_bm(m)) * _up(k, WS_BN) * _up(c, BK)
-    else:
-        plan = _build.plan_gemm(m, k, c, _build.REFERENCE_SMS,
-                                c % _build.PIPE_BK == 0)
-        padded = _up(m, plan.bm) * _up(k, plan.bn) * _up(c, _build.PIPE_BK)
+    plan = _planner(stationarity)(m, k, c, _build.REFERENCE_SMS,
+                                  c % _build.PIPE_BK == 0)
+    padded = _up(m, plan.bm) * _up(k, plan.bn) * _up(c, _build.PIPE_BK)
     return (m * c * k) / padded
 
 
@@ -109,14 +102,48 @@ def _check(fn: str, x, w, stride, scale, bias, residual):
     return m, c, k, h, wd, oh, ow, code, sc, bi, out
 
 
+def _plan(planner, x, w, stride, residual, n_sms) -> _build.GemmPlan:
+    m, c = _rows(x, stride)[:2]
+    k = w.shape[1]
+    return planner(m, k, c, n_sms or _build.sm_count(x.device),
+                   _build.vec_path(c, k, x, w, residual))
+
+
 def act_plan(x, w, *, stride: int = 1, residual=None,
              n_sms: int | None = None) -> _build.GemmPlan:
     """Tile, split and gather path of the act-stationary launch for these
     operands (on x's device, or on a card of ``n_sms`` SMs)."""
-    m, c = _rows(x, stride)[:2]
-    k = w.shape[1]
-    return _build.plan_gemm(m, k, c, n_sms or _build.sm_count(x.device),
-                            _build.vec_path(c, k, x, w, residual))
+    return _plan(_build.plan_gemm, x, w, stride, residual, n_sms)
+
+
+def ws_plan(x, w, *, stride: int = 1, residual=None,
+            n_sms: int | None = None) -> _build.GemmPlan:
+    """Tile, split and gather path of the weight-stationary launch for these
+    operands (on x's device, or on a card of ``n_sms`` SMs)."""
+    return _plan(_build.plan_weight_stationary, x, w, stride, residual,
+                 n_sms)
+
+
+def _launch(wrapper, entry: str, planner, x, w, stride, scale, bias, relu,
+            residual) -> torch.Tensor:
+    """Check the operands, plan with ``planner``, launch ``entry`` and count
+    the launch on ``wrapper``."""
+    fn = wrapper.__name__
+    m, c, k, h, wd, oh, ow, code, sc, bi, out = _check(
+        fn, x, w, stride, scale, bias, residual)
+    plan = _plan(planner, x, w, stride, residual, None)
+    ws, tickets = _build.pipe_workspace(x, plan, m, k)
+    lib = _build.load("matmul", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = getattr(lib, entry)(
+            code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
+            _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
+            _build.ptr(tickets), m, c, k, h, wd, stride, oh, ow, plan.tile,
+            int(plan.vec), plan.splits, plan.per, int(relu),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, fn)
+    wrapper.launches += 1
+    return out
 
 
 def matmul_act_stationary(x: torch.Tensor, w: torch.Tensor, *,
@@ -130,22 +157,9 @@ def matmul_act_stationary(x: torch.Tensor, w: torch.Tensor, *,
     if x.device.type == "cpu":
         return matmul_plain(x, w, stride=stride, scale=scale, bias=bias,
                             relu=relu, residual=residual)
-    fn = "matmul_act_stationary"
-    m, c, k, h, wd, oh, ow, code, sc, bi, out = _check(
-        fn, x, w, stride, scale, bias, residual)
-    plan = act_plan(x, w, stride=stride, residual=residual)
-    ws, tickets = _build.pipe_workspace(x, plan, m, k)
-    lib = _build.load("matmul", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        err = lib.carla_mm_act_stationary(
-            code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
-            _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
-            _build.ptr(tickets), m, c, k, h, wd, stride, oh, ow, plan.tile,
-            int(plan.vec), plan.splits, plan.per, int(relu),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, fn)
-    matmul_act_stationary.launches += 1
-    return out
+    return _launch(matmul_act_stationary, "carla_mm_act_stationary",
+                   _build.plan_gemm, x, w, stride, scale, bias, relu,
+                   residual)
 
 
 def matmul_weight_stationary(x: torch.Tensor, w: torch.Tensor, *,
@@ -159,20 +173,9 @@ def matmul_weight_stationary(x: torch.Tensor, w: torch.Tensor, *,
     if x.device.type == "cpu":
         return matmul_plain(x, w, stride=stride, scale=scale, bias=bias,
                             relu=relu, residual=residual)
-    fn = "matmul_weight_stationary"
-    m, c, k, h, wd, oh, ow, code, sc, bi, out = _check(
-        fn, x, w, stride, scale, bias, residual)
-    splits, per, ws = _build.split_launch(x, -(-k // WS_BN), c, BK, m, k)
-    lib = _build.load("matmul", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        err = lib.carla_mm_weight_stationary(
-            code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
-            _build.ptr(residual), out.data_ptr(), _build.ptr(ws), m, c, k, h,
-            wd, stride, oh, ow, splits, per, int(relu),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, fn)
-    matmul_weight_stationary.launches += 1
-    return out
+    return _launch(matmul_weight_stationary, "carla_mm_weight_stationary",
+                   _build.plan_weight_stationary, x, w, stride, scale, bias,
+                   relu, residual)
 
 
 matmul_act_stationary.launches = 0

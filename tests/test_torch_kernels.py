@@ -11,7 +11,7 @@ residual, ReLU) is both on and off across each sweep.
 
 The rest checks what the card run relies on and the CPU can see: the
 Python tile constants and ctypes signatures against the CUDA sources, the
-split planner, engine resolution and the launch counters.
+planners, engine resolution and the launch counters.
 """
 import re
 from pathlib import Path
@@ -134,16 +134,9 @@ def test_cpu_path_counts_no_launch():
 CSRC = Path(_build.__file__).parent / "csrc"
 
 
-def _tiles(source: str) -> dict:
-    text = (CSRC / source).read_text()
-    return {name: tuple(int(v) for v in args.split(","))
-            for name, args in re.findall(r"using (\w+) = Tile<([\d, ]+)>;",
-                                         text)}
-
-
 def test_python_tile_constants_match_the_sources():
-    """conv2d and act-stationary: the tiles and constants of gemm_pipe.cuh
-    (PIPE_TILES by tile code); weight-stationary: matmul.cu's Tile<>s."""
+    """conv2d and both 1x1 GEMMs: the tiles and constants of gemm_pipe.cuh
+    (PIPE_TILES by tile code); matmul.cu defines no tile of its own."""
     pipe = (CSRC / "gemm_pipe.cuh").read_text()
     tiles = dict(re.findall(r"using Pipe(\w) = Pipe<(\d+, \d+, \d+)>;",
                             pipe))
@@ -157,11 +150,9 @@ def test_python_tile_constants_match_the_sources():
         "PIPE_BK": _build.PIPE_BK, "PIPE_STAGES": _build.PIPE_STAGES,
         "PIPE_TABLE_MAX": _build.PIPE_TABLE_MAX}
     for src in ("conv2d.cu", "matmul.cu"):
-        assert '#include "gemm_pipe.cuh"' in (CSRC / src).read_text()
-    mm = _tiles("matmul.cu")
-    assert set(mm) == {"WsTile64", "WsTile128"}
-    assert {mm["WsTile64"][:3], mm["WsTile128"][:3]} == {
-        (bm, t_mm.WS_BN, t_mm.BK) for bm in t_mm.WS_BMS}
+        text = (CSRC / src).read_text()
+        assert '#include "gemm_pipe.cuh"' in text
+        assert not re.search(r"Tile<|__global__", text)
 
 
 def _c_signatures(source: str) -> dict:
@@ -191,28 +182,15 @@ def test_ctypes_signatures_match_the_c_entry_points(module, source):
 
 def test_build_hash_covers_every_source():
     names = {p.name for p in CSRC.iterdir()}
-    assert {"conv2d.cu", "matmul.cu", "gemm_pipe.cuh", "tile_gemm.cuh",
-            "numeric.cuh"} <= names
+    assert {"conv2d.cu", "matmul.cu", "gemm_pipe.cuh", "numeric.cuh",
+            "ptx.cuh"} <= names
+    assert "tile_gemm.cuh" not in names
     assert [p.name for p in _build.sources()] == [
         "conv1d.cu", "conv2d.cu", "decode_attention.cu", "flash_attention.cu",
         "matmul.cu"]
     assert len(_build.source_hash()) == 16
     gitignore = (Path(__file__).parents[1] / ".gitignore").read_text()
     assert "src/repro_torch/kernels/_build/" in gitignore.split()
-
-
-@pytest.mark.parametrize("tiles,reduction", [
-    (8, 4608), (16, 2304), (49, 576), (196, 147), (64, 1024), (16, 2048),
-    (1, 48), (3, 17), (200, 100000)])
-def test_split_plan_covers_the_reduction(tiles, reduction):
-    splits, per = _build.plan_splits(tiles, reduction, 16, 132)
-    assert per % 16 == 0 and splits >= 1
-    assert (splits - 1) * per < reduction <= splits * per
-    if tiles >= 132:
-        assert splits == 1
-    if splits > 1:
-        assert per >= 16 * _build.MIN_CHUNKS_PER_SPLIT
-        assert tiles * splits >= 132 or per == 16 * _build.MIN_CHUNKS_PER_SPLIT
 
 
 def test_tile_util_counts_padding():
@@ -231,8 +209,12 @@ def test_tile_util_counts_padding():
         assert t_mm.tile_util(m, c, k, "activation_stationary") == want
     assert t_mm.tile_util(64, 32, 64, "activation_stationary") == 1.0
     assert t_mm.tile_util(128, 64, 64, "activation_stationary") == 1.0
+    # weight-stationary pads M to its one row tile, K to the plan's columns
     assert t_mm.tile_util(49, 512, 2048, "weight_stationary") == 49 / 64
-    assert t_mm.tile_util(100, 16, 32, "weight_stationary") == 100 / 128
+    p = _build.plan_weight_stationary(100, 32, 16, 132, True)
+    assert (p.bm, p.bn) == (128, 64)
+    assert t_mm.tile_util(100, 16, 32, "weight_stationary") == (
+        100 * 32 / (128 * 64))
 
 
 # (M, N, R) of main-path layers at batch 1 and ragged ones
@@ -327,6 +309,118 @@ def test_pipe_workspace_and_shared_counters():
     big = _build.ticket_counters(x.device, tickets.numel() + 5)
     assert big.numel() == tickets.numel() + 5 and not big.any()
     assert _build.ticket_counters(x.device, 1) is big
+
+
+# plan_gemm's (tile code, splits, per) at every conv2d and act-stationary
+# shape of the main path (ResNet-50 dense and sparse, VGG-16, batch 1) and
+# of GEMMS, keyed (M, N, R, vec): the values it gave when the CNN loop was
+# tuned.  The weight-stationary planner must leave them as they are.
+PINNED_PLANS = {
+    (49, 256, 2304, True): (2, 18, 128), (49, 512, 4608, True): (2, 15, 320),
+    (196, 128, 512, True): (2, 8, 64), (196, 128, 1024, True): (2, 16, 64),
+    (196, 128, 1152, True): (2, 9, 128), (196, 256, 512, True): (2, 8, 64),
+    (196, 256, 1024, True): (2, 8, 128), (196, 256, 2304, True): (2, 8, 288),
+    (196, 512, 4608, True): (2, 4, 1152), (196, 1024, 128, True): (2, 2, 64),
+    (196, 1024, 256, True): (2, 2, 128), (196, 1024, 512, True): (2, 2, 256),
+    (784, 64, 256, True): (2, 4, 64), (784, 64, 512, True): (2, 8, 64),
+    (784, 64, 576, True): (2, 9, 64), (784, 128, 256, True): (2, 4, 64),
+    (784, 128, 512, True): (2, 4, 128), (784, 128, 1152, True): (2, 5, 240),
+    (784, 512, 64, True): (2, 1, 64), (784, 512, 128, True): (2, 1, 128),
+    (784, 512, 256, True): (2, 1, 256), (784, 512, 2304, True): (1, 5, 464),
+    (784, 512, 4608, True): (1, 5, 928), (3136, 32, 64, True): (2, 1, 64),
+    (3136, 32, 256, True): (2, 2, 128), (3136, 32, 288, True): (2, 2, 144),
+    (3136, 64, 64, True): (2, 1, 64), (3136, 64, 256, True): (2, 2, 128),
+    (3136, 64, 576, True): (2, 2, 288), (3136, 256, 32, True): (1, 1, 32),
+    (3136, 256, 64, True): (2, 1, 64), (3136, 256, 1152, True): (1, 4, 288),
+    (3136, 256, 2304, True): (1, 4, 576),
+    (12544, 64, 147, False): (1, 2, 80), (12544, 128, 576, True): (0, 2, 288),
+    (12544, 128, 1152, True): (0, 2, 576), (50176, 64, 27, False): (0, 1, 32),
+    (50176, 64, 576, True): (0, 1, 576),
+    # GEMMS not on the main path
+    (12544, 64, 147, True): (1, 2, 80), (50176, 64, 27, True): (0, 1, 32),
+    (300, 40, 64, True): (2, 1, 64), (1, 5, 17, True): (2, 1, 32),
+    (513, 257, 129, True): (2, 2, 80), (64, 67, 1179, True): (2, 10, 128),
+    (7, 9, 40000, True): (2, 90, 448), (1, 1, 1, True): (1, 1, 16),
+}
+
+
+def _main_path_gemms():
+    """(kernel, M, N, R or C, vec) of every CNN kernel call at batch 1."""
+    from repro_torch.core import networks
+    layers = [layer for sparse in (False, True)
+              for layer in networks.resnet50_conv_layers(sparse)
+              + networks.resnet50_projection_shortcuts(sparse)]
+    out = []
+    for layer in layers + networks.vgg16_conv_layers():
+        vec = layer.IC % _build.PIPE_BK == 0
+        if layer.FL > 1:
+            ol = (layer.IL - layer.FL + 2 * layer.Z) // layer.S + 1
+            out.append(("conv2d", ol * ol, layer.K,
+                        layer.FL ** 2 * layer.IC, vec))
+        else:
+            ol = -(-layer.IL // layer.S)
+            kind = ("weight" if ol * ol < 128 else "act")
+            out.append((kind, ol * ol, layer.K, layer.IC, vec))
+    return out
+
+
+def test_pinned_plans_cover_the_main_path():
+    pipe = {g[1:] for g in _main_path_gemms() if g[0] != "weight"}
+    assert pipe <= set(PINNED_PLANS)
+    assert {(m, n, r, True) for m, n, r in GEMMS} <= set(PINNED_PLANS)
+
+
+@pytest.mark.parametrize("m,n,r,vec", sorted(PINNED_PLANS))
+def test_pipe_plans_are_pinned(m, n, r, vec):
+    p = _build.plan_gemm(m, n, r, 132, vec)
+    assert (p.tile, p.splits, p.per) == PINNED_PLANS[m, n, r, vec]
+
+
+# (M, N, C, vec) of the weight-stationary calls: ResNet-50's conv5 1x1s at
+# batch 1, dense and sparse, then ragged ones (no C here is whole chunks)
+WS_MAIN = sorted({g[1:] for g in _main_path_gemms() if g[0] == "weight"})
+WS_GEMMS = WS_MAIN + [(m, k, c, False) for m in (1, 49, 64, 65, 97, 127)
+                      for c in (61, 193, 4099) for k in (37, 89, 1031)]
+
+
+@pytest.mark.parametrize("m,n,c,vec", WS_GEMMS)
+def test_ws_plan_holds_the_rows_in_one_tile(m, n, c, vec):
+    """One row tile (each weight element read by one block), every channel
+    in exactly one split of whole chunks, at least MIN_CHUNKS_PER_SPLIT of
+    them when split, on the general path no split longer than the index
+    table, and a workspace that pipe_workspace gives."""
+    p = _build.plan_weight_stationary(m, n, c, 132, vec)
+    assert (p.bm, p.bn, p.groups) == _build.PIPE_TILES[p.tile]
+    assert p.bm >= m and p.vec == vec
+    assert p.per % _build.PIPE_BK == 0 and p.splits >= 1
+    assert (p.splits - 1) * p.per < c <= p.splits * p.per
+    if p.splits > 1:
+        assert p.per >= _build.PIPE_BK * _build.MIN_CHUNKS_PER_SPLIT
+    if not vec:
+        assert min(p.per, c) <= _build.PIPE_TABLE_MAX
+    ws, tickets = _build.pipe_workspace(torch.zeros(1), p, m, n)
+    if p.splits == 1:
+        assert ws is None and tickets is None
+    else:
+        assert ws.numel() >= p.splits * p.tiles(m, n) * p.bm * p.bn
+        assert tickets.numel() >= p.tiles(m, n) and not tickets.any()
+
+
+def test_ws_plan_of_the_conv5_calls_splits_c_in_the_launch():
+    # 49 rows in one 64-row tile; the column slabs alone do not fill the
+    # card, so C is split and the splits meet in the same launch
+    assert len(WS_MAIN) == 7
+    for m, n, c, vec in WS_MAIN:
+        p = _build.plan_weight_stationary(m, n, c, 132, vec)
+        assert m == 49 and p.bm == 64 and vec and p.splits > 1
+    # above one tile's rows the weights are read once per 128-row tile
+    assert _build.plan_weight_stationary(200, 64, 64, 132, True).bm == 128
+    x, w = torch.zeros(1, 14, 14, 1024), torch.zeros(1024, 512)
+    assert t_mm.ws_plan(x, w, stride=2, n_sms=132) == \
+        _build.plan_weight_stationary(49, 512, 1024, 132, True)
+    odd = torch.zeros(49 * 512 + 1)[1:].view(49, 512)
+    assert t_mm.ws_plan(odd, torch.zeros(512, 256), n_sms=132).path == \
+        "general"
 
 
 def test_engine_resolution():
