@@ -64,11 +64,33 @@ printing one JSON line:
              Each weight-stationary main-path call is also run once under
              ``torch.profiler``, which must see exactly one device kernel
              (its splits are combined in the launch).
+   attn_dh256 — gemma2-9b's attention (head dim 256, 16 heads over 8 kv
+             heads): flash at T 6144 and 6144 - 37, window 4096 and 0,
+             soft-cap 50, and decode over a 6144-row cache (B 4), fp32 and
+             bf16, against the plain versions at the lm_checks tolerance
+             (decode twice, the same bits); the DH 256 instances' ptxas
+             registers and spills (none may spill); bf16 times at the full
+             shapes beside the bound, the plain version and SDPA (causal or
+             window-masked; SDPA has no soft-cap).
 6. resnet50, resnet50_sparse, vgg16 — the full-width batch-1 224x224 fp32
              forwards through ``models.cnn``; launch counts per forward,
              logits against the same forward with ``impl="ref"`` (tolerance
              1e-3 x max|ref|), median forward time on the host clock, and
              under ``torch.profiler`` the device's busy time per forward.
+   tune    — every layer of ResNet-50 (dense and sparse) and VGG-16 tuned
+             by ``repro_torch.launch.tune`` into a temporary user cache;
+             then, tuner on, each forward counted and held to the untuned
+             one (1e-3 x max|untuned|), every traced carla_conv and kernel
+             span carrying its layer's entry (tuned=True, its tile), every
+             main-path call's tuned output held to its plain version (the
+             checks' tolerance) and timed against the analytic plan (cold
+             L2), forward medians tuner on and off, and how many layers
+             changed plan.  A committed table (kernels/tuned/) must not be
+             stale.
+   report  — the planned-vs-measured table (``observability.report``, the
+             paper's Table II) of one traced ResNet-50 forward, printed; its
+             Chrome trace (``observability.export``) written to a temporary
+             file must parse with one complete event per span.
    zamba2  — serving zamba2-2.7b at full width through
              ``repro_torch.launch.serve``: random weights from seed 0, batch
              4 x 2048-token prompts, 31 greedy decode steps (32 tokens,
@@ -92,6 +114,13 @@ printing one JSON line:
              application per step takes pos + 1; one prefill flash call
              sees half the keys) are measured in both; the fp32 check must
              catch all three.
+   gemma2  — gemma2-9b prefill at full width (d_model 3584, 16 heads of
+             256, vocab 256000), 4 of its 42 layers (two local, two global),
+             one 6144-token prompt, bf16, through ``models.lm.prefill``:
+             exactly 4 flash launches, the last position's logits against
+             the plain engine in bf16 and fp32 as zamba2's (a planted
+             half-window fault must fail the fp32 check), host-clock
+             prefill median and device busy time.
 7. the ``kernels`` line, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -133,6 +162,9 @@ PROFILE_REPS = 5
 SLEEP_CYCLES = 1_000_000     # ~0.5 ms of device time at H100 clocks
 # zamba2-2.7b serving: batch 4 x 2048-token prompts, 32 generated tokens
 Z_BATCH, Z_PROMPT, Z_GEN, Z_COMPARE, Z_TIMED = 4, 2048, 32, 8, 3
+# gemma2-9b prefill at full width: 4 of its 42 layers (two local, two
+# global), one 6144-token prompt
+G_LAYERS, G_PROMPT, G_TIMED = 4, 6144, 3
 # Faults planted in the bf16 flash kernel (flash_mma_kernel), name -> (text
 # of csrc/flash_attention.cu, its replacement); the bf16 flash cases must
 # catch each.  The first two touch only rows from 1024 on, which only the
@@ -399,6 +431,18 @@ class Kernels:
                       **ep)
         return fn(x, w, stride=call["stride"], **ep)
 
+    def run_tuned(self, call, x, w, ep, tiles):
+        """The call under a tuned plan; a 1x1 takes the entry's
+        stationarity, as the dispatch does."""
+        if call["kernel"] == "conv2d":
+            return self.conv.conv2d(x, w, stride=call["stride"],
+                                    padding=call["padding"], tiles=tiles,
+                                    **ep)
+        wrapper = (self.wrappers["mm_weight_stationary"]
+                   if tiles.stationarity == "weight_stationary"
+                   else self.wrappers["mm_act_stationary"])
+        return wrapper(x, w, stride=call["stride"], tiles=tiles, **ep)
+
     def plan(self, call, x, w, ep) -> dict:
         """The launch plan the wrapper makes for these operands: tile,
         splits and gather path."""
@@ -530,17 +574,27 @@ def profile_busy(fn, reps: int = PROFILE_REPS) -> dict:
             "top_device_ms": {n[:80]: t for n, t in top}}
 
 
-def device_kernels(fn) -> int:
-    """Device kernels (and copies) of one call of fn under torch.profiler."""
+def device_kernels(fn, tries: int = 3) -> int:
+    """Device kernels (and copies) of one call of fn under torch.profiler.
+
+    A profile that records no device activity at all for a call that
+    launched a kernel is the profiler losing its events (seen once in
+    about ten runs), not a count: it is taken again, up to ``tries`` times.
+    Any other count is returned as it is.
+    """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+        if n:
+            return n
+    return 0
 
 
 def host_profile(fn, reps: int = PROFILE_REPS) -> dict:
@@ -1067,6 +1121,357 @@ def run_zamba2(serve, lm, attn_mod, fa_mod, da_mod, counters: dict) -> dict:
     return rec
 
 
+# ------------------------------------------------------- head dim 256 ------
+def dh256_cases() -> list[dict]:
+    """gemma2-9b's attention (dh 256, 16 heads over 8 kv heads): a local
+    (window 4096) and a global layer's prefill at T 6144 and 37 rows off the
+    tiles, soft-cap 50; decode over a 6144-row cache, pos at S - 1, 0,
+    inside and on a 64-row chunk's last row."""
+    fa = lambda t, window: dict(kernel="flash_attention", b=1, t=t, h=16,
+                                kh=8, dh=256, window=window, softcap=50.0)
+    return [fa(G_PROMPT, 4096), fa(G_PROMPT, 0), fa(G_PROMPT - 37, 4096),
+            fa(G_PROMPT - 37, 0),
+            dict(kernel="decode_attention", b=4, s=G_PROMPT, h=16, kh=8,
+                 dh=256, pos=(G_PROMPT - 1, 0, 3000, 4095))]
+
+
+def ptxas_instances(log: str, tag: str) -> dict:
+    """Registers and spilled bytes of each kernel instance in one source's
+    ``-Xptxas -v`` output whose mangled name holds ``tag``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if tag in m.group(1) else None
+        elif name:
+            rec = out.setdefault(name[:90], {})
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                             ("spill_load_bytes", r"(\d+) bytes spill loads")):
+                hit = re.search(pat, line)
+                if hit:
+                    rec[key] = int(hit.group(1))
+    return out
+
+
+def dh256_library(case: dict, args):
+    """SDPA at the same shape: causal, or masked to the window (it has no
+    soft-cap, so it is a yardstick of the shape, not the same function)."""
+    if case["kernel"] == "decode_attention" or not case["window"]:
+        return lm_library(case, args)
+    q, k, v = (a.transpose(1, 2) for a in args)
+    i = torch.arange(case["t"], device=DEVICE)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                         - case["window"])
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def check_dh256(_build, lm_kernels: dict, peaks: dict, flush, gen) -> dict:
+    """Phase attn_dh256: flash and decode at gemma2's shapes against their
+    plain versions in fp32 and bf16 (tolerances as lm_checks; decode twice,
+    the same bits), the new instances' registers and spills (none may
+    spill), and each kernel's bf16 time at the full shapes beside its
+    bound, its plain version and SDPA."""
+    chk = Checker()
+    for case in dh256_cases():
+        wrapper, plain = lm_kernels[case["kernel"]]
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = lm_operands(case, dtype, gen)
+            got, want = wrapper(*args, **kw), plain(*args, **kw)
+            chk.add(case["kernel"], {**case, "dtype": str(dtype)[6:]}, got,
+                    want, case["dh"], _attn_tol(want, plain, args, kw))
+            if case["kernel"] == "decode_attention":
+                same = torch.equal(got, wrapper(*args, **kw))
+                chk.cases[-1].update(repeat_identical=same,
+                                     ok=chk.cases[-1]["ok"] and same)
+            del args, got, want
+    torch.cuda.synchronize()
+    ptx = {n: ptxas_instances(_build.build_log(n), "Li256")
+           for n in ("flash_attention", "decode_attention")}
+    spills = [(n, k) for n, inst in ptx.items() for k, r in inst.items()
+              if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
+    times = {}
+    for case in dh256_cases()[:2] + dh256_cases()[-1:]:
+        wrapper, plain = lm_kernels[case["kernel"]]
+        pos = None
+        if case["kernel"] == "decode_attention":
+            pos = (case["s"] - 1,) * case["b"]
+        args, kw = lm_operands(case, torch.bfloat16, gen, pos)
+        flops, nbytes = lm_cost(case, torch.bfloat16, pos or ())
+        t_ops, t_bytes = flops / peaks["bf16"], nbytes / peaks["bw"]
+        name = (f"flash window {case['window']}"
+                if case["kernel"] == "flash_attention" else "decode")
+        times[name] = {
+            "case": {**case, "pos": list(pos)} if pos else case,
+            "max_abs_err": (wrapper(*args, **kw).float()
+                            - plain(*args, **kw).float()).abs().max().item(),
+            "ms": cold_time_ms(lambda: wrapper(*args, **kw), flush),
+            "plain_ms": cold_time_ms(lambda: plain(*args, **kw), flush, 3),
+            "library_ms": cold_time_ms(dh256_library(case, args), flush),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+    rec = {"phase": "attn_dh256", "cases": len(chk.cases),
+           "failed": chk.failures(),
+           "max_err_over_tol": max(c["err_over_tol"] for c in chk.cases),
+           "ptxas": ptx, "times_bf16": times,
+           "tolerance": "as lm_checks",
+           "library": "scaled_dot_product_attention (causal or window "
+                      "mask, no soft-cap)"}
+    emit(rec)
+    if chk.failures() or spills:
+        raise SystemExit(f"attn_dh256: {len(chk.failures())} checks failed "
+                         f"({chk.failures()[:1]}); spilling instances "
+                         f"{spills}")
+    return rec
+
+
+# ------------------------------------------------------------- gemma2 ------
+def run_gemma2(lm, attn_mod, fa_mod, da_mod, counters: dict) -> dict:
+    """gemma2-9b prefill at full width (d_model 3584, 16 heads of 256,
+    vocab 256000), G_LAYERS layers, one G_PROMPT-token prompt, bf16:
+    counted launches, last-position logits against the plain engine (as
+    zamba2's: bf16 within sqrt(2) x the plain bf16 engine's distance from
+    the plain fp32 one; fp32, the wiring, within 1e-3 x max(1, max|ref|),
+    where a planted fault, half the window in the first of every two flash
+    calls, must be caught), host-clock times and device busy share."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import with_compute_copies
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("gemma2-9b"), n_layers=G_LAYERS)
+    params = with_compute_copies(lm.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+        device=DEVICE))
+    prompts = serve.make_prompts(cfg, 1, G_PROMPT, device=DEVICE, seed=SEED)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for f in counters.values():
+        f.launches = 0
+    logits, _ = lm.prefill(cfg, params, prompts, max_seq=G_PROMPT)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    want = {k: 0 for k in counters}
+    want["flash_attention"] = cfg.n_layers
+
+    def run(**kw):
+        out, _ = lm.prefill(cfg, params, prompts, max_seq=G_PROMPT, **kw)
+        return out[:, -1].float()
+    got, ref = logits[:, -1].float(), run(impl="ref")
+    got32, ref32 = run(dtype=torch.float32), run(impl="ref",
+                                                dtype=torch.float32)
+    err = (got - ref).abs().max().item()
+    noise = (ref - ref32).abs().max().item()
+    err32 = (got32 - ref32).abs().max().item()
+    tol, tol32 = 2 ** 0.5 * noise, 1e-3 * max(1.0, ref32.abs().max().item())
+    _, attr, fault = planted_faults(attn_mod, fa_mod, da_mod, 2)[
+        "one_prefill_flash_half_window"]
+    with mock.patch.object(attn_mod, attr, fault):
+        fault_err = (run(dtype=torch.float32) - ref32).abs().max().item()
+    times = []
+    for _ in range(G_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lm.prefill(cfg, params, prompts, max_seq=G_PROMPT)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(got32).all())
+    rec = {"phase": "gemma2", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "d_head": cfg.d_head, "vocab": cfg.vocab, "prompt_len": G_PROMPT,
+           "setup_s": setup_s, "launches": launches,
+           "expected_launches": want, "logits_shape": list(logits.shape),
+           "finite": finite, "max_abs_err": err, "tol": tol,
+           "plain_bf16_vs_fp32": noise, "fp32_max_abs_err": err32,
+           "fp32_tol": tol32, "max_abs_ref": ref.abs().max().item(),
+           "planted_fault_fp32_err": fault_err,
+           "argmax_agree": bool((got.argmax(-1) == ref.argmax(-1)).all()),
+           "prefill_ms_median": statistics.median(times),
+           "prefill_ms_all": times,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "prefill_device": profile_busy(
+               lambda: lm.prefill(cfg, params, prompts, max_seq=G_PROMPT),
+               reps=1)}
+    emit(rec)
+    if launches != want:
+        raise SystemExit(f"gemma2: launches {launches} != {want}")
+    if not finite or err > tol or err32 > tol32:
+        raise SystemExit(f"gemma2: logits off the plain engine by {err} "
+                         f"(tol {tol}) in bf16, {err32} (tol {tol32}) in "
+                         "fp32")
+    if fault_err <= tol32:
+        raise SystemExit("gemma2: the fp32 logit check misses the planted "
+                         "half-window fault")
+    return rec
+
+
+# --------------------------------------------------------------- tune ------
+def tuned_key(autotune, call: dict) -> str:
+    """The tuning key of one main-path kernel call, its epilogue included."""
+    if call["kernel"] == "conv2d":
+        return autotune.conv2d_key(call["x"], call["w"], call["stride"],
+                                   call["padding"], "float32",
+                                   call["epilogue"])
+    x, s = call["x"], call["stride"]
+    rows = x[0] if len(x) == 2 else x[0] * -(-x[1] // s) * -(-x[2] // s)
+    return autotune.gemm_key(rows, *call["w"], "float32", call["epilogue"])
+
+
+def run_tune(kern, calls: dict, paths: dict, x, counters: dict,
+             gen) -> dict:
+    """Phase tune: tune every layer of ResNet-50 (dense and sparse) and of
+    VGG-16 into a temporary user cache (``launch.tune``), then per network,
+    with the tuner on: one counted forward, held to the untuned forward
+    (1e-3 x max|untuned|); under the tracer every carla_conv and kernel
+    span must carry its layer's entry (tuned=True, its tile); every
+    main-path call timed (cold L2) under its tuned plan and under the
+    analytic one, and its tuned output held to the plain version; forward
+    medians with the tuner on and off.  A committed table must not be
+    stale."""
+    from repro_torch.core import autotune, carla
+    from repro_torch.launch import tune
+    from repro_torch.observability import trace
+    stale = autotune.stale_tables()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    atexit.register(shutil.rmtree, tmp, True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = tmp
+    t0 = time.perf_counter()
+    entries, records = {}, {}
+    for net, sparse in (("resnet50", True), ("vgg16", False)):
+        e, r = tune.tune_layers(tune.net_layers(net, sparse))
+        entries.update(e)
+        records.update(r)
+    tune_s = time.perf_counter() - t0
+    autotune.save_user_cache(entries)
+    autotune.reset()
+    changed = {k: [records[k][0]["short"], e.config.short, e.default_ms,
+                   e.tuned_ms]
+               for k, e in entries.items() if e.config != records[k][0][
+                   "config"]}
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    per_net, problems = {}, []
+    autotune.enable()
+    try:
+        for p, d in paths.items():
+            apply, params, kw = d["apply"], d["params"], d["kw"]
+            for f in counters.values():
+                f.launches = 0
+            out = apply(params, x, **kw)
+            torch.cuda.synchronize()
+            launches = {k: f.launches for k, f in counters.items()}
+            autotune.disable()
+            untuned = apply(params, x, **kw)
+            autotune.enable()
+            err = (out - untuned).abs().max().item()
+            tol = 1e-3 * untuned.abs().max().item()
+            with trace.capture() as tr:
+                apply(params, x, **kw)
+            spans = tr.find("carla_conv")
+            untagged = []
+            for sp in spans:
+                a = sp.attrs
+                plan = carla.plan_conv(tuple(a["x_shape"]),
+                                       tuple(a["w_shape"]), a["stride"],
+                                       a["padding"], epilogue_tag=a[
+                                           "epilogue"])
+                child = sp.children[0].attrs
+                want = (plan.tile_config.short
+                        if plan.tile_config is not None else None)
+                if want is None or not (a["tuned"] and child["tuned"]
+                                        and a["tile_config"] == want
+                                        == child["tile_config"]):
+                    untagged.append([a["layer"], want, a["tile_config"],
+                                     child["tile_config"]])
+            chk = Checker()
+            sums = {"default_ms": 0.0, "tuned_ms": 0.0}
+            for c in calls[p]:
+                x_, w_, full = make_operands(kern, c, torch.float32, gen)
+                ep = model_epilogue(full, c["epilogue"])
+                tiles = autotune.lookup(tuned_key(autotune, c)).config
+                chk.add(c["kernel"], {"x": c["x"], "w": c["w"],
+                                      "tiles": tiles.short},
+                        kern.run_tuned(c, x_, w_, ep, tiles),
+                        kern.plain(c, x_, w_, ep), kern.reduction(c))
+                sums["default_ms"] += cold_time_ms(
+                    lambda: kern.run(c, x_, w_, ep), flush)
+                sums["tuned_ms"] += cold_time_ms(
+                    lambda: kern.run_tuned(c, x_, w_, ep, tiles), flush)
+            fwd = {}
+            for on in (True, False):
+                (autotune.enable if on else autotune.disable)()
+                ts = []
+                for _ in range(FWD_REPS):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    apply(params, x, **kw)
+                    torch.cuda.synchronize()
+                    ts.append((time.perf_counter() - t1) * 1e3)
+                fwd["tuned" if on else "untuned"] = statistics.median(ts)
+            autotune.enable()
+            per_net[p] = {
+                "launches": launches, "max_abs_err_vs_untuned": err,
+                "tol": tol, "spans": len(spans), "spans_not_tuned": untagged,
+                "kernel_sum_cold_l2": sums, "tuned_calls_failed":
+                    chk.failures(), "forward_median_ms": fwd}
+            cnn_launches = sum(v for k, v in launches.items()
+                               if k in kern.wrappers)
+            if (err > tol or untagged or chk.failures()
+                    or cnn_launches != len(calls[p])
+                    or any(launches[k] for k in launches
+                           if k not in kern.wrappers)):
+                problems.append(p)
+    finally:
+        autotune.disable()
+        autotune.reset()
+        del os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    rec = {"phase": "tune", "keys": len(entries), "tune_seconds": tune_s,
+           "changed_plan": len(changed), "changed": changed,
+           "committed_tables_stale": stale, "per_net": per_net}
+    emit(rec)
+    if problems or stale:
+        raise SystemExit(f"tune: tuned forwards off for {problems}; stale "
+                         f"committed tables {stale}")
+    return {**rec, "records": {k: [{f: r[f] for f in ("short", "ok",
+                                                       "err_over_tol",
+                                                       "rounds")}
+                                   for r in rs]
+                               for k, rs in records.items()}}
+
+
+# ------------------------------------------------------------- report ------
+def run_report(cnn, params, x, peaks: dict) -> dict:
+    """Phase report: the planned-vs-measured table (paper Table II) of one
+    traced ResNet-50 forward, utilisation against the card's fp32 peak;
+    its Chrome trace written to a temporary file must parse, with one
+    complete event per span."""
+    from repro_torch.observability import export, report, trace
+    with trace.capture() as tr:
+        cnn.resnet50_apply(params, x)
+    rows = report.reconcile(tr.spans, peak_gflops=peaks["fp32"] / 1e9)
+    table = report.format_table(rows)
+    path = Path(tempfile.mkdtemp(prefix="chip_smoke_trace_")) / "trace.json"
+    atexit.register(shutil.rmtree, path.parent, True)
+    export.export_chrome_trace(tr.spans, str(path))
+    doc = json.loads(path.read_text())
+    n_spans = sum(1 for root in tr.spans for _ in root.walk())
+    n_complete = sum(e["ph"] == "X" for e in doc["traceEvents"])
+    print(table, flush=True)
+    rec = {"phase": "report", "rows": len(rows),
+           "totals": report.totals(rows), "spans": n_spans,
+           "complete_events": n_complete,
+           "trace_events": len(doc["traceEvents"]),
+           "measured": "host wall time per dispatch up to "
+                       "torch.cuda.synchronize; util% against the fp32 "
+                       "peak"}
+    emit(rec)
+    if n_complete != n_spans or len(rows) != 53:
+        raise SystemExit(f"report: {n_complete} complete events for "
+                         f"{n_spans} spans, {len(rows)} rows")
+    return {**rec, "table": table}
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1272,6 +1677,7 @@ def main() -> int:
                                     "bound_ms", "bound_by", "max_abs_err",
                                     "cache_copy_ms") if f in r}
              for k, r in lm_times.items()}})
+    dh256 = check_dh256(_build, lm_kernels, peaks, flush, dgen)
 
     # 6. the main path, through the entry points a user calls
     counters = {"conv2d": conv_mod.conv2d,
@@ -1303,11 +1709,15 @@ def main() -> int:
     emit({"phase": "resnet50_prepruned", "median_ms": statistics.median(times),
           "min_ms": min(times)})
     emit({"phase": "host", **host_profile(lambda: cnn.resnet50_apply(r50, x))})
+    tuned = run_tune(kern, calls, paths, x, counters, dgen)
+    table2 = run_report(cnn, r50, x, peaks)
     zamba2 = run_zamba2(serve, lm, attn_mod, fa_mod, da_mod, counters)
+    gemma2 = run_gemma2(lm, attn_mod, fa_mod, da_mod, counters)
 
     dump({**details, "times": per_path, "lm_times": lm_times,
           "launch_floor_ms": launch_floor_ms,
-          "models": models, "zamba2": zamba2})
+          "models": models, "zamba2": zamba2, "attn_dh256": dh256,
+          "gemma2": gemma2, "tune": tuned, "report": table2})
 
     # 7. kernels line (dense ResNet-50 main path), the card, the last line
     sources = {"conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
@@ -1320,6 +1730,9 @@ def main() -> int:
     by_path = {p: m["launches"] for p, m in models.items()}
     by_path["zamba2_prefill"] = zamba2["launches_per_prefill"]
     by_path["zamba2_decode"] = zamba2["launches_per_decode_step"]
+    by_path["gemma2_prefill"] = gemma2["launches"]
+    by_path.update({f"{p}_tuned": r["launches"]
+                    for p, r in tuned["per_net"].items()})
     line = []
     for kname, (src, replaces) in sources.items():
         rs = [r for r in per_path["resnet50"] if r["kernel"] == kname]
@@ -1346,6 +1759,8 @@ def main() -> int:
             "src/repro/kernels/decode_attention.py:31"),
         "conv1d_causal": ("src/repro_torch/kernels/csrc/conv1d.cu",
                           "src/repro/kernels/conv1d.py:23")}
+    dh256_rows = {"flash_attention": dh256["times_bf16"]["flash window 0"],
+                  "decode_attention": dh256["times_bf16"]["decode"]}
     for kname, (src, replaces) in lm_sources.items():
         r = lm_times[kname]
         line.append({
@@ -1356,7 +1771,10 @@ def main() -> int:
                                  "bound_by", "library_ms")},
             "shapes": "one call at the zamba2 serving shape, bf16: "
                       + json.dumps({k: v for k, v in r["case"].items()
-                                    if k != "kernel"})})
+                                    if k != "kernel"}),
+            **({"gemma2_dh256": {f: dh256_rows[kname][f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}} if kname in dh256_rows else {})})
     emit({"kernels": line})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

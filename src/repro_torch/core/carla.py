@@ -14,17 +14,18 @@ instead of round-tripping once per element-wise op.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
-from ..kernels import conv2d as _conv2d_mod
 from ..kernels import matmul as _mm
 from ..kernels import ops
 from ..observability import trace
+from . import autotune
+from .autotune import TileConfig
 from .cost_model import LayerCost, layer_cost
 from .fuse import Epilogue
-from .modes import ConvLayer, Dataflow, Stationarity, select_dataflow
+from .modes import ConvLayer, Dataflow, select_dataflow
 from .sparsity import SparsityTag
 
 _NO_EPILOGUE = Epilogue()
@@ -37,16 +38,50 @@ class ConvPlan:
     layer: ConvLayer
     dataflow: Dataflow          # the analytic controller rule's choice
     cost: LayerCost
+    # empirical tuning-cache hit for this layer's shape key (None = miss or
+    # tuning disabled); ``tuning_source`` says where the plan came from.
+    tile_config: TileConfig | None = field(default=None, compare=False)
+    tuning_source: str = field(default="analytic", compare=False)
+
+    @property
+    def effective_dataflow(self) -> Dataflow:
+        """The dataflow the dispatch will actually run: a measured
+        stationarity in the tuning cache overrides the analytic 1x1 rule."""
+        if (self.layer.FL == 1 and self.tile_config is not None
+                and self.tile_config.stationarity):
+            if self.tile_config.stationarity == autotune.WS:
+                return Dataflow.CONV1X1_WEIGHT_STATIONARY
+            return Dataflow.CONV1X1_FEATURE_STATIONARY
+        return self.dataflow
 
 
 def plan_conv(x_shape: tuple[int, ...], w_shape: tuple[int, ...],
-              stride: int = 1, padding: int = 0,
-              name: str = "conv") -> ConvPlan:
-    """Controller decision + analytic cost for a conv of the given shapes."""
-    _, h, _, cin = x_shape
-    fh, _, _, k = w_shape
+              stride: int = 1, padding: int = 0, name: str = "conv",
+              dtype: str = "float32",
+              epilogue_tag: str = "none") -> ConvPlan:
+    """Controller decision + analytic cost for a conv of the given shapes.
+
+    When the empirical tuning cache is enabled (``core.autotune``) the plan
+    consults it first: a hit carries a measured tile and split count — and,
+    for 1x1 layers, the measured stationarity choice
+    (``effective_dataflow``) — while ``dataflow``/``cost`` always report the
+    paper's analytic rule so the two can be reconciled.
+    """
+    b, h, w_sp, cin = x_shape
+    fh, fw, _, k = w_shape
     layer = ConvLayer(name, IL=h, IC=cin, K=k, FL=fh, S=stride, Z=padding)
-    return ConvPlan(layer, select_dataflow(layer), layer_cost(layer))
+    entry = None
+    if autotune.enabled():
+        if fh == 1 and fw == 1:
+            rows = b * -(-h // stride) * -(-w_sp // stride)
+            entry = autotune.lookup_gemm(rows, cin, k, dtype, epilogue_tag)
+        else:
+            entry = autotune.lookup_conv2d(x_shape, w_shape, stride, padding,
+                                           dtype, epilogue_tag)
+    return ConvPlan(layer, select_dataflow(layer), layer_cost(layer),
+                    tile_config=entry.config if entry is not None else None,
+                    tuning_source=(entry.source if entry is not None
+                                   else "analytic"))
 
 
 def _dispatch(x, w, plan: ConvPlan, stride: int, padding: int, impl: str,
@@ -89,21 +124,22 @@ def carla_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         w = w[None, None]
     ep = epilogue or _NO_EPILOGUE
     plan = plan_conv(tuple(x.shape), tuple(w.shape), stride, padding,
-                     name=name)
+                     name=name, dtype=ops.dtype_name(x), epilogue_tag=ep.tag)
 
     if not trace.enabled():
         return _dispatch(x, w, plan, stride, padding, impl, epilogue)
 
     cost = plan.cost
     if plan.layer.FL == 1:
-        rows = _mm.gemm_rows(x, stride)
-        tile_util = _mm.tile_util(
-            rows, plan.layer.IC, plan.layer.K,
-            Stationarity.WEIGHT_STATIONARY.value
-            if plan.dataflow == Dataflow.CONV1X1_WEIGHT_STATIONARY
-            else Stationarity.ACTIVATION_STATIONARY.value)
+        tile_util = autotune.tile_util_gemm(
+            _mm.gemm_rows(x, stride), plan.layer.IC, plan.layer.K,
+            plan.tile_config,
+            stationarity=autotune.WS
+            if plan.effective_dataflow == Dataflow.CONV1X1_WEIGHT_STATIONARY
+            else autotune.AS)
     else:
-        tile_util = _conv2d_mod.tile_util(x.shape, w.shape, stride, padding)
+        tile_util = autotune.tile_util_conv2d(x.shape, w.shape, stride,
+                                              padding, plan.tile_config)
     sparse_attrs = {}
     if sparsity is not None:
         sparse_attrs = {
@@ -122,9 +158,12 @@ def carla_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
             analytic_time_ms=cost.time_s * 1e3,
             analytic_dram_bytes=cost.dram_bytes,
             analytic_puf=cost.puf,
-            tuned=False, tile_config="default", tuning_source="analytic",
+            tuned=plan.tile_config is not None,
+            tile_config=(plan.tile_config.short
+                         if plan.tile_config is not None else "default"),
+            tuning_source=plan.tuning_source,
             tile_util=tile_util,
-            effective_dataflow=plan.dataflow.value,
+            effective_dataflow=plan.effective_dataflow.value,
             **sparse_attrs) as sp:
         out = _dispatch(x, w, plan, stride, padding, impl, epilogue)
         if out.is_cuda:

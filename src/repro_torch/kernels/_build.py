@@ -260,27 +260,65 @@ def pipe_cycles(m: int, n: int, plan: GemmPlan, n_sms: int) -> float:
     return waves * block + combine
 
 
+def split_plan(tile: int, splits: int, reduction: int,
+               vec: bool) -> GemmPlan | None:
+    """Tile ``tile`` with the reduction cut into ``splits`` splits of whole
+    PIPE_BK chunks, or None where no cut gives exactly that many or, on the
+    general path, a split would hold more than PIPE_TABLE_MAX indices (the
+    launches the C side refuses)."""
+    chunks = max(1, -(-reduction // PIPE_BK))
+    per = -(-chunks // splits) * PIPE_BK
+    if max(1, -(-reduction // per)) != splits or (
+            not vec and min(per, reduction) > PIPE_TABLE_MAX):
+        return None
+    bm, bn, groups = PIPE_TILES[tile]
+    return GemmPlan(tile, bm, bn, groups, splits, per, vec)
+
+
+def pipe_plans(reduction: int, vec: bool, codes):
+    """Every plan of the tiles in ``codes`` whose splits hold at least
+    MIN_CHUNKS_PER_SPLIT chunks each (or one split), in code order, then
+    split count."""
+    chunks = max(1, -(-reduction // PIPE_BK))
+    for code in codes:
+        for want in range(1, max(1, chunks // MIN_CHUNKS_PER_SPLIT) + 1):
+            plan = split_plan(code, want, reduction, vec)
+            if plan is not None:
+                yield plan
+
+
+def fixed_plan(tile: int, splits: int, reduction: int,
+               vec: bool) -> GemmPlan:
+    """The plan a caller names (a tuned entry), checked as the C side
+    checks it; raises ValueError for one the launch cannot take."""
+    if not 0 <= tile < len(PIPE_TILES) or splits < 1:
+        raise ValueError(f"no pipelined plan has tile {tile}, {splits} "
+                         "splits")
+    plan = split_plan(tile, splits, reduction, vec)
+    if plan is None:
+        raise ValueError(
+            f"a reduction of {reduction} cannot take {splits} splits of "
+            f"whole {PIPE_BK}-index chunks on the "
+            f"{'vec16' if vec else 'general'} path")
+    return plan
+
+
+def ws_codes(m: int) -> list[int]:
+    """The tiles that hold m rows in the fewest row tiles, smallest first:
+    the weight-stationary plan's choice, so that each weight element is
+    read from device memory by one block (by ceil(m / 128) above 128
+    rows)."""
+    fewest = min(-(-max(m, 1) // bm) for bm, _, _ in PIPE_TILES)
+    return [code for code in reversed(range(len(PIPE_TILES)))
+            if -(-max(m, 1) // PIPE_TILES[code][0]) == fewest]
+
+
 def _least_cycles(m: int, n: int, reduction: int, n_sms: int, vec: bool,
                   codes) -> GemmPlan:
-    """Of every tile in ``codes`` and every split count (each split a whole
-    number of PIPE_BK chunks, at least MIN_CHUNKS_PER_SPLIT of them, and on
-    the general path at most PIPE_TABLE_MAX indices), the plan with the
-    least modelled time (``pipe_cycles``); ties go to the earlier code."""
-    chunks = max(1, -(-reduction // PIPE_BK))
-    best = None
-    for code in codes:
-        bm, bn, groups = PIPE_TILES[code]
-        for want in range(1, max(1, chunks // MIN_CHUNKS_PER_SPLIT) + 1):
-            per = -(-chunks // want) * PIPE_BK
-            splits = max(1, -(-reduction // per))
-            if splits != want or (not vec and min(per, reduction)
-                                  > PIPE_TABLE_MAX):
-                continue
-            plan = GemmPlan(code, bm, bn, groups, splits, per, vec)
-            cost = pipe_cycles(m, n, plan, n_sms)
-            if best is None or cost < best[0]:
-                best = (cost, plan)
-    return best[1]
+    """Of ``pipe_plans``, the plan with the least modelled time
+    (``pipe_cycles``); ties go to the earlier one."""
+    return min(pipe_plans(reduction, vec, codes),
+               key=lambda plan: pipe_cycles(m, n, plan, n_sms))
 
 
 @functools.lru_cache(maxsize=4096)
@@ -297,13 +335,9 @@ def plan_gemm(m: int, n: int, reduction: int, n_sms: int,
 def plan_weight_stationary(m: int, n: int, c: int, n_sms: int,
                            vec: bool) -> GemmPlan:
     """The weight-stationary plan of an (m, c) @ (c, n) product: the least
-    modelled time over the tiles that hold the rows in the fewest row tiles
-    (all of them in one for m <= 128), so each weight element is read from
-    device memory by one block (by ceil(m / 128) above 128 rows)."""
-    fewest = min(-(-max(m, 1) // bm) for bm, _, _ in PIPE_TILES)
-    return _least_cycles(m, n, c, n_sms, vec,
-                         [code for code in reversed(range(len(PIPE_TILES)))
-                          if -(-max(m, 1) // PIPE_TILES[code][0]) == fewest])
+    modelled time over ``ws_codes(m)``, the tiles that hold the rows in the
+    fewest row tiles (all of them in one for m <= 128)."""
+    return _least_cycles(m, n, c, n_sms, vec, ws_codes(m))
 
 
 def vec_path(c: int, k: int, x, w, residual) -> bool:

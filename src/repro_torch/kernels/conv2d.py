@@ -5,7 +5,10 @@ pixels, N = K, reduction = FH·FW·C) with the fused flush epilogue
 (scale/bias → residual → ReLU on the fp32 accumulator, one store), on the
 pipelined loop of ``csrc/gemm_pipe.cuh``.  ``launch_plan`` picks its block
 tile, its split of the reduction and its gather path (``vec16`` or
-``general``, ``_build.plan_gemm`` and ``_build.vec_path``).  The source's
+``general``, ``_build.plan_gemm`` and ``_build.vec_path``), or takes the
+tile and split count of a tuned entry (``tiles``, a
+``core.autotune.TileConfig``), checked as the C side checks it: a plan the
+launch cannot take raises.  The source's
 header note says which Pallas kernel it replaces, what bounds it on the H100
 and how its design answers that.
 
@@ -32,32 +35,18 @@ def out_hw(h: int, w: int, fh: int, fw: int, stride: int,
             (w - fw + 2 * padding) // stride + 1)
 
 
-def tile_util(x_shape, w_shape, stride: int = 1, padding: int = 0) -> float:
-    """Logical FLOPs / FLOPs of the padded tiles the kernel runs (on an H100,
-    taking the vec16 path where C allows it)."""
-    b, h, w, c = x_shape
-    fh, fw, _, k = w_shape
-    oh, ow = out_hw(h, w, fh, fw, stride, padding)
-    m, r = b * oh * ow, fh * fw * c
-    if m * k * r == 0:
-        return 1.0
-    plan = _build.plan_gemm(m, k, r, _build.REFERENCE_SMS,
-                            c % _build.PIPE_BK == 0)
-    up = lambda n, t: -(-n // t) * t
-    return (m * k * r) / (up(m, plan.bm) * up(k, plan.bn)
-                          * up(r, _build.PIPE_BK))
-
-
 def launch_plan(x, w, *, stride: int = 1, padding: int = 0, residual=None,
-                n_sms: int | None = None) -> _build.GemmPlan:
+                n_sms: int | None = None, tiles=None) -> _build.GemmPlan:
     """Tile, split and gather path of the launch for these operands (on
-    x's device, or on a card of ``n_sms`` SMs)."""
+    x's device, or on a card of ``n_sms`` SMs; or the tuned ``tiles``)."""
     b, h, wd, cin = x.shape
     fh, fw, _, k = w.shape
     oh, ow = out_hw(h, wd, fh, fw, stride, padding)
+    vec = _build.vec_path(cin, k, x, w, residual)
+    if tiles is not None:
+        return _build.fixed_plan(tiles.tile, tiles.splits, fh * fw * cin, vec)
     return _build.plan_gemm(b * oh * ow, k, fh * fw * cin,
-                            n_sms or _build.sm_count(x.device),
-                            _build.vec_path(cin, k, x, w, residual))
+                            n_sms or _build.sm_count(x.device), vec)
 
 
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -71,11 +60,11 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
            padding: int = 0, scale: torch.Tensor | None = None,
            bias: torch.Tensor | None = None, relu: bool = False,
-           residual: torch.Tensor | None = None) -> torch.Tensor:
+           residual: torch.Tensor | None = None, tiles=None) -> torch.Tensor:
     """x: (B, H, W, C), w: (FH, FW, C, K) -> (B, OH, OW, K) in x's dtype.
 
     scale/bias ((K,)), residual ((B, OH, OW, K), contiguous, x's dtype) and
-    relu are fused into the flush.
+    relu are fused into the flush; ``tiles`` names a tuned plan.
     """
     b, h, wd, cin = x.shape
     fh, fw, cin2, k = w.shape
@@ -91,7 +80,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     lib = _build.load("conv2d", _SIGNATURES)
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     plan = launch_plan(x, w, stride=stride, padding=padding,
-                       residual=residual)
+                       residual=residual, tiles=tiles)
     ws, tickets = _build.pipe_workspace(x, plan, b * oh * ow, k)
     with torch.cuda.device(x.device):
         err = lib.carla_conv2d(

@@ -51,6 +51,13 @@
 //   the next call. The counters belong to the caller, zeroed once. With a
 //   few splits per (b, kh) the fence, the ticket and the combine are paid
 //   a few times per sequence, not once per 64 rows.
+//
+// DH 256 (gemma2-9b, G = 2): the bf16 ring's two stages of 64-row K and V
+// tiles take 135,168 bytes, 141,848 with the fp32 q, scores and partials,
+// under the 227 KB opt-in. In fp32 two stages would take 266,240 bytes, more
+// than an SM has, so that instance (the fp32 wiring checks) streams through
+// a ring of one stage, 137,752 bytes at G = 2: a tile's copy then waits for
+// the last tile's readers and is not overlapped with its compute.
 #include "numeric.cuh"
 #include "ptx.cuh"
 
@@ -58,7 +65,7 @@ namespace carla {
 
 constexpr int DA_CH = 64;        // cache rows of a tile
 constexpr int DA_THREADS = 128;
-constexpr int DA_STAGES = 2;     // tiles of a block's ring
+constexpr int DA_STAGES = 2;     // tiles of a block's ring, where two fit
 constexpr int DA_SLOTS = 4;      // V-pass items a thread may own
 constexpr float DA_NEG_INF = -2.3819763e38f;
 
@@ -73,7 +80,7 @@ __device__ __forceinline__ int64_t ws_index(const DecodeShape& s, int b,
   return (((int64_t)b * s.KH + kh) * s.n_splits + split) * s.G + g;
 }
 
-// Shared memory: DA_STAGES stages of K rows [DA_CH][LD] and V rows
+// Shared memory: STAGES stages of K rows [DA_CH][LD] and V rows
 // [DA_CH][LD] of T, then fp32 q [G][DH], scores / rounded p [G][DA_CH], the
 // running max, sum and rescale factor [3][G], and the row groups' partial
 // outputs [row group][G][DH].
@@ -82,6 +89,10 @@ struct DecodeSmem {
   static constexpr int LD = DH + 16 / sizeof(T);  // a 16-byte pad per row
   static constexpr int PIECES = DH / Vec16<T>::N; // 16-byte pieces per row
   static constexpr int STAGE = 2 * DA_CH * LD;    // K then V, elements
+  // DA_STAGES stages where their bytes leave room beside them (the largest
+  // today, bf16 at DH 256, take 135,168), else one (fp32 at DH 256)
+  static constexpr int STAGES =
+      (size_t)DA_STAGES * STAGE * sizeof(T) <= 160 * 1024 ? DA_STAGES : 1;
 
   // The V pass's work: (head, 16-byte piece) items, the rows of a tile
   // split over this many groups of them; thread t owns units t + j *
@@ -92,7 +103,7 @@ struct DecodeSmem {
     return items >= DA_THREADS ? 1 : DA_THREADS / items;
   }
   __host__ __device__ static size_t bytes(int G) {
-    return (size_t)DA_STAGES * STAGE * sizeof(T) +
+    return (size_t)STAGES * STAGE * sizeof(T) +
            sizeof(float) * ((size_t)G * DH + (size_t)G * DA_CH + 3 * G +
                             (size_t)row_groups(G) * G * DH);
   }
@@ -107,9 +118,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               int* __restrict__ tickets, DecodeShape s) {
   using SM = DecodeSmem<T, DH>;
   constexpr int VEC = Vec16<T>::N, LD = SM::LD, PIECES = SM::PIECES;
+  constexpr int STAGES = SM::STAGES;
   extern __shared__ __align__(16) unsigned char da_smem[];
   T* ring = reinterpret_cast<T*>(da_smem);
-  float* qs = reinterpret_cast<float*>(ring + DA_STAGES * SM::STAGE);
+  float* qs = reinterpret_cast<float*>(ring + STAGES * SM::STAGE);
   float* ps = qs + s.G * DH;
   float* m_s = ps + s.G * DA_CH;
   float* l_s = m_s + s.G;
@@ -129,12 +141,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t row_stride = (int64_t)s.KH * DH;
   const int64_t base = (int64_t)b * s.S * row_stride + (int64_t)kh * DH;
 
-  // tile `it` (rows r_begin + 64 it ..) into stage it % DA_STAGES
+  // tile `it` (rows r_begin + 64 it ..) into stage it % STAGES
   auto load_tile = [&](int it) {
     if (it >= n_tiles) return;
     const int r0 = r_begin + it * DA_CH;
     const int nrows = min(DA_CH, r_end - r0);
-    T* ks = ring + (it % DA_STAGES) * SM::STAGE;
+    T* ks = ring + (it % STAGES) * SM::STAGE;
     T* vs = ks + DA_CH * LD;
     for (int i = tid; i < nrows * PIECES; i += DA_THREADS) {
       const int r = i / PIECES, c = (i % PIECES) * VEC;
@@ -144,7 +156,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 #pragma unroll
-  for (int it = 0; it < DA_STAGES - 1; ++it) {
+  for (int it = 0; it < STAGES - 1; ++it) {
     load_tile(it);
     cp_async_commit();
   }
@@ -167,11 +179,19 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < VEC; ++e) a[j][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    cp_async_wait<DA_STAGES - 2>();  // tile it has landed
-    __syncthreads();  // ... for every thread; tile it - 1 is consumed
-    load_tile(it + DA_STAGES - 1);
-    cp_async_commit();
-    const T* ks = ring + (it % DA_STAGES) * SM::STAGE;
+    if constexpr (STAGES == 1) {
+      __syncthreads();  // tile it - 1 is consumed
+      load_tile(it);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();  // tile it has landed for every thread
+    } else {
+      cp_async_wait<STAGES - 2>();  // tile it has landed
+      __syncthreads();  // ... for every thread; tile it - 1 is consumed
+      load_tile(it + STAGES - 1);
+      cp_async_commit();
+    }
+    const T* ks = ring + (it % STAGES) * SM::STAGE;
     const T* vs = ks + DA_CH * LD;
     const int nrows = min(DA_CH, r_end - (r_begin + it * DA_CH));
 
@@ -343,6 +363,8 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
     case 80: return launch_dh<T, 80>(q, k, v, pos, out, ws, tickets, s,
                                      stream, blocks_per_sm);
     case 128: return launch_dh<T, 128>(q, k, v, pos, out, ws, tickets, s,
+                                       stream, blocks_per_sm);
+    case 256: return launch_dh<T, 256>(q, k, v, pos, out, ws, tickets, s,
                                        stream, blocks_per_sm);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -23,8 +23,9 @@
 // before it) are never loaded. Ragged T and S are bounds checks (the Pallas
 // wrapper asserts T % bq == 0); DH is a template parameter, instantiated for
 // the head dims the configs use: 16 (the smoke configs), 64, 80 (zamba2's,
-// not a power of two) and 128. Query tiles are handed out longest first
-// (the causal work grows with the tile index), so the last wave is short.
+// not a power of two), 128 and 256 (gemma2's). Query tiles are handed out
+// longest first (the causal work grows with the tile index), so the last
+// wave is short.
 //
 // Bound on this card: 4 * DH FLOP per (query, key) pair over the causal
 // half, 8.6e10 FLOP at zamba2's prefill shape (B 4, T 2048, H 32, DH 80),
@@ -34,12 +35,12 @@
 // * bf16 (the serving path): flash_mma_kernel, FlashAttention-2's layout on
 //   the tensor cores. A block owns 128 query rows of one head. Up to DH 80
 //   it has 4 warps of 32 rows (two m16 tiles, so every K and V fragment read
-//   from shared memory feeds two products); at DH 128, 8 warps of 16 rows
-//   (two tiles' accumulators would not fit in 255 registers). Q stays in
-//   shared memory and its fragments are read by ldmatrix at each k-step
-//   (held in registers they would spill). 64-key K and V tiles go through a
-//   two-stage shared-memory ring filled by 16-byte cp.async copies (zero-
-//   filled past S): one barrier per tile, after which the next tile's copy
+//   from shared memory feeds two products); at DH 128 and 256, 8 warps of
+//   16 rows (two tiles' accumulators would not fit in 255 registers). Q
+//   stays in shared memory and its fragments are read by ldmatrix at each
+//   k-step (held in registers they would spill). 64-key K and V tiles go
+//   through a two-stage shared-memory ring filled by 16-byte cp.async copies
+//   (zero-filled past S): one barrier per tile, after which the next tile's copy
 //   goes into the stage the last tile used and is in flight while this tile
 //   is computed. S = Q K^T and O += P V are mma.sync m16n8k16 bf16 products
 //   accumulating in fp32, K and V fragments read by ldmatrix (V with
@@ -61,6 +62,18 @@
 //   the 64 x 64 score tile and a 4 x DH/16 slice of the output tile; Q, K
 //   (both transposed), V and the rounded P tile sit in shared memory as
 //   fp32. The tensor cores' TF32 would not give fp32's result.
+//
+// DH 256 (gemma2-9b prefill: B 1, T 6144, H 16, KH 8, soft-cap 50, windows
+// 4096 and 0): 4 * 256 FLOP per visible pair, 3.1e11 FLOP for a global
+// layer against 151 MB of bf16 q, k, v and out, so bound by operations, 0.31
+// ms at the bf16 peak. What bounds the two instances on this card is their
+// footprint. The bf16 block (8 warps of 16 rows, MT = 1) keeps a 16 x 256
+// fp32 output tile per warp in registers, 128 a thread before the 32 of a
+// score tile, under the 255 that a block of 256 threads allows; its shared
+// memory is the Q tile and two K/V stages at LD = 264, 202,752 bytes, one
+// block per SM. The fp32 block needs 223,232 bytes (Q and K transposed, V
+// and P), 9 KB under the 227 KB opt-in. launch_dh returns the opt-in's
+// error if the card refuses it.
 #include "numeric.cuh"
 #include "ptx.cuh"
 
@@ -242,8 +255,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // The bf16 kernel's shape for one head dim: each warp owns MT m16 tiles
 // (16 MT query rows), so every K and V fragment read from shared memory
-// feeds MT products. MT = 2 up to DH 80 (4 warps); at DH 128 the output
-// accumulators of two tiles would not fit in 255 registers, so MT = 1
+// feeds MT products. MT = 2 up to DH 80 (4 warps); at DH 128 and 256 the
+// output accumulators of two tiles would not fit in 255 registers, so MT = 1
 // (8 warps).
 //
 // Shared memory (bf16 elements): the Q tile [FA_MMA_BQ][LD], then
@@ -556,6 +569,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
     case 64: return launch_dh<T, 64>(q, k, v, out, s, stream);
     case 80: return launch_dh<T, 80>(q, k, v, out, s, stream);
     case 128: return launch_dh<T, 128>(q, k, v, out, s, stream);
+    case 256: return launch_dh<T, 256>(q, k, v, out, s, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,7 +26,7 @@ from .ref import flash_attention_ref
 BQ, BK = 64, 64     # FA_BQ, FA_BK of csrc/flash_attention.cu (fp32)
 MMA_BQ, MMA_BK = 128, 64   # FA_MMA_BQ, FA_MMA_BK (bf16): query rows of a
                            # block, keys of a K/V tile
-HEAD_DIMS = (16, 64, 80, 128)   # instantiated in csrc/flash_attention.cu
+HEAD_DIMS = (16, 64, 80, 128, 256)   # instantiated in csrc/*_attention.cu
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"carla_flash_attention":

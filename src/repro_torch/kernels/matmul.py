@@ -16,7 +16,10 @@ Both run the pipelined loop of ``csrc/gemm_pipe.cuh`` as a 1x1 conv, one
 launch a call: splits of C are combined in the same launch.
 
 ``matmul`` picks the variant via ``core.modes.select_stationarity`` — the
-software twin of CARLA's controller.
+software twin of CARLA's controller — unless given a stationarity.  Every
+launch takes the planner's plan, or the tile and split count of a tuned
+entry (``tiles``, a ``core.autotune.TileConfig``): that plan is checked as
+the C side checks it and raises if the launch cannot take it.
 
 ``x`` is either a plain ``(M, C)`` matrix or an NHWC ``(B, H, W, C)`` tensor
 read at ``stride``: then row m is pixel ``(b, oh*stride, ow*stride)`` and the
@@ -41,27 +44,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_I] + [_P] * 8 + [_I] * 13 + [_P]
 _SIGNATURES = {"carla_mm_act_stationary": _ARGS,
                "carla_mm_weight_stationary": _ARGS}
-
-
-def _up(n: int, t: int) -> int:
-    return -(-n // t) * t
-
-
-def _planner(stationarity: str):
-    return (_build.plan_weight_stationary
-            if stationarity == Stationarity.WEIGHT_STATIONARY.value
-            else _build.plan_gemm)
-
-
-def tile_util(m: int, c: int, k: int, stationarity: str) -> float:
-    """Logical FLOPs / FLOPs of the padded tiles the kernel runs (on an H100,
-    taking the vec16 path where C allows it)."""
-    if m * c * k == 0:
-        return 1.0
-    plan = _planner(stationarity)(m, k, c, _build.REFERENCE_SMS,
-                                  c % _build.PIPE_BK == 0)
-    padded = _up(m, plan.bm) * _up(k, plan.bn) * _up(c, _build.PIPE_BK)
-    return (m * c * k) / padded
 
 
 def _rows(x: torch.Tensor, stride: int):
@@ -102,36 +84,40 @@ def _check(fn: str, x, w, stride, scale, bias, residual):
     return m, c, k, h, wd, oh, ow, code, sc, bi, out
 
 
-def _plan(planner, x, w, stride, residual, n_sms) -> _build.GemmPlan:
+def _plan(planner, x, w, stride, residual, n_sms, tiles) -> _build.GemmPlan:
     m, c = _rows(x, stride)[:2]
     k = w.shape[1]
-    return planner(m, k, c, n_sms or _build.sm_count(x.device),
-                   _build.vec_path(c, k, x, w, residual))
+    vec = _build.vec_path(c, k, x, w, residual)
+    if tiles is not None:
+        return _build.fixed_plan(tiles.tile, tiles.splits, c, vec)
+    return planner(m, k, c, n_sms or _build.sm_count(x.device), vec)
 
 
 def act_plan(x, w, *, stride: int = 1, residual=None,
-             n_sms: int | None = None) -> _build.GemmPlan:
+             n_sms: int | None = None, tiles=None) -> _build.GemmPlan:
     """Tile, split and gather path of the act-stationary launch for these
-    operands (on x's device, or on a card of ``n_sms`` SMs)."""
-    return _plan(_build.plan_gemm, x, w, stride, residual, n_sms)
+    operands (on x's device, or on a card of ``n_sms`` SMs; or the tuned
+    ``tiles``)."""
+    return _plan(_build.plan_gemm, x, w, stride, residual, n_sms, tiles)
 
 
 def ws_plan(x, w, *, stride: int = 1, residual=None,
-            n_sms: int | None = None) -> _build.GemmPlan:
+            n_sms: int | None = None, tiles=None) -> _build.GemmPlan:
     """Tile, split and gather path of the weight-stationary launch for these
-    operands (on x's device, or on a card of ``n_sms`` SMs)."""
+    operands (on x's device, or on a card of ``n_sms`` SMs; or the tuned
+    ``tiles``)."""
     return _plan(_build.plan_weight_stationary, x, w, stride, residual,
-                 n_sms)
+                 n_sms, tiles)
 
 
 def _launch(wrapper, entry: str, planner, x, w, stride, scale, bias, relu,
-            residual) -> torch.Tensor:
-    """Check the operands, plan with ``planner``, launch ``entry`` and count
-    the launch on ``wrapper``."""
+            residual, tiles) -> torch.Tensor:
+    """Check the operands, plan with ``planner`` (or take ``tiles``),
+    launch ``entry`` and count the launch on ``wrapper``."""
     fn = wrapper.__name__
     m, c, k, h, wd, oh, ow, code, sc, bi, out = _check(
         fn, x, w, stride, scale, bias, residual)
-    plan = _plan(planner, x, w, stride, residual, None)
+    plan = _plan(planner, x, w, stride, residual, None, tiles)
     ws, tickets = _build.pipe_workspace(x, plan, m, k)
     lib = _build.load("matmul", _SIGNATURES)
     with torch.cuda.device(x.device):
@@ -151,7 +137,8 @@ def matmul_act_stationary(x: torch.Tensor, w: torch.Tensor, *,
                           scale: torch.Tensor | None = None,
                           bias: torch.Tensor | None = None,
                           relu: bool = False,
-                          residual: torch.Tensor | None = None) -> torch.Tensor:
+                          residual: torch.Tensor | None = None,
+                          tiles=None) -> torch.Tensor:
     """(M, C) @ (C, K) with the fused flush; pipelined tiles, C looped
     inside each block."""
     if x.device.type == "cpu":
@@ -159,7 +146,7 @@ def matmul_act_stationary(x: torch.Tensor, w: torch.Tensor, *,
                             relu=relu, residual=residual)
     return _launch(matmul_act_stationary, "carla_mm_act_stationary",
                    _build.plan_gemm, x, w, stride, scale, bias, relu,
-                   residual)
+                   residual, tiles)
 
 
 def matmul_weight_stationary(x: torch.Tensor, w: torch.Tensor, *,
@@ -167,15 +154,15 @@ def matmul_weight_stationary(x: torch.Tensor, w: torch.Tensor, *,
                              scale: torch.Tensor | None = None,
                              bias: torch.Tensor | None = None,
                              relu: bool = False,
-                             residual: torch.Tensor | None = None
-                             ) -> torch.Tensor:
+                             residual: torch.Tensor | None = None,
+                             tiles=None) -> torch.Tensor:
     """(M, C) @ (C, K) for small M: every weight element is read once."""
     if x.device.type == "cpu":
         return matmul_plain(x, w, stride=stride, scale=scale, bias=bias,
                             relu=relu, residual=residual)
     return _launch(matmul_weight_stationary, "carla_mm_weight_stationary",
                    _build.plan_weight_stationary, x, w, stride, scale, bias,
-                   relu, residual)
+                   relu, residual, tiles)
 
 
 matmul_act_stationary.launches = 0
@@ -188,11 +175,14 @@ def gemm_rows(x: torch.Tensor, stride: int = 1) -> int:
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
-           stationarity: Stationarity | None = None,
+           stationarity: Stationarity | None = None, tiles=None,
            **epilogue) -> torch.Tensor:
-    """CARLA-style reconfigurable GEMM: pick residency from the M extent."""
+    """CARLA-style reconfigurable GEMM: pick residency from the M extent
+    (unless given), launch with the planner's plan or the tuned ``tiles``."""
     if stationarity is None:
         stationarity = select_stationarity(gemm_rows(x, stride))
     if stationarity == Stationarity.WEIGHT_STATIONARY:
-        return matmul_weight_stationary(x, w, stride=stride, **epilogue)
-    return matmul_act_stationary(x, w, stride=stride, **epilogue)
+        return matmul_weight_stationary(x, w, stride=stride, tiles=tiles,
+                                        **epilogue)
+    return matmul_act_stationary(x, w, stride=stride, tiles=tiles,
+                                 **epilogue)

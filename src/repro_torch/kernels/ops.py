@@ -8,7 +8,13 @@
 The engine that actually ran is recorded as the ``impl`` span attribute.
 
 Mode selection (which stationarity a GEMM uses) is orthogonal to ``impl``
-and follows ``core.modes`` — the software twin of CARLA's controller.
+and follows ``core.modes`` — the software twin of CARLA's controller —
+unless the empirical tuning cache (``core.autotune``) holds a measured
+winner for the layer's shape key, in which case the cached tile, splits
+*and* stationarity are used instead.  The lookup is gated on
+``autotune.enabled()`` (one attribute read, so the disabled path costs
+nothing), is made only on the ``cuda`` engine (the plain versions have no
+plan), and is an O(1) dict hit.
 
 ``conv1d_causal`` is Mamba2's short depthwise conv (no epilogue, no tiling
 ledger: its span carries the same attributes as ``repro``'s).  The attention
@@ -23,15 +29,17 @@ Every entry point is telemetry-instrumented: when the global tracer is
 enabled (``observability.trace``), the dispatch records the operand shapes,
 FLOPs, the bytes the operands and result touch, the wall time up to
 ``torch.cuda.synchronize``, the fused epilogue and the HBM bytes it saved,
-and ``tile_util`` (logical FLOPs / FLOPs of the padded tiles the kernel
-runs).  There is no tuning cache yet: spans say ``tuned=False``,
-``tile_config="default"``, ``tuning_source="analytic"``.  When tracing is
-disabled (the default) the only cost is one attribute read per call.
+the tuning ledger — ``tuned`` (did the cache hit), ``tile_config`` and
+``tuning_source`` (what ran and why) — and ``tile_util`` (logical FLOPs /
+FLOPs of the padded tiles the kernel runs).  When tracing is disabled (the
+default) the only cost is one attribute read per call.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import autotune
+from ..core.autotune import TileConfig
 from ..core.fuse import Epilogue
 from ..core.modes import Stationarity, select_stationarity
 from ..observability import trace
@@ -77,16 +85,28 @@ def _epilogue_attrs(sp, ep: Epilogue, out: torch.Tensor) -> None:
         sp.attrs["epilogue_hbm_saved"] = 2 * ep.n_fused_ops * _nbytes(out)
 
 
-def _tuning_attrs(sp) -> None:
-    sp.attrs["tuned"] = False
-    sp.attrs["tile_config"] = "default"
-    sp.attrs["tuning_source"] = "analytic"
+def _lookup(kind: str, key_args, impl: str):
+    """Tuning-cache probe: O(1) dict hit, only on the cuda engine."""
+    if not autotune.enabled() or impl != "cuda":
+        return None
+    if kind == "conv2d":
+        return autotune.lookup_conv2d(*key_args)
+    return autotune.lookup_gemm(*key_args)
 
 
-def _conv2d(x, w, ep: Epilogue, stride, padding, impl):
-    fn = _conv2d_mod.conv2d if impl == "cuda" else _conv2d_mod.conv2d_plain
-    return fn(x, w, stride=stride, padding=padding, scale=ep.scale,
-              bias=ep.bias, relu=ep.relu, residual=ep.residual)
+def _tuning_attrs(sp, entry, tiles: TileConfig | None) -> None:
+    """Record what the tuning cache contributed to this dispatch."""
+    sp.attrs["tuned"] = entry is not None
+    sp.attrs["tile_config"] = tiles.short if tiles is not None else "default"
+    sp.attrs["tuning_source"] = entry.source if entry is not None else "default"
+
+
+def _conv2d(x, w, ep: Epilogue, stride, padding, impl, tiles):
+    kw = dict(stride=stride, padding=padding, scale=ep.scale, bias=ep.bias,
+              relu=ep.relu, residual=ep.residual)
+    if impl == "cuda":
+        return _conv2d_mod.conv2d(x, w, tiles=tiles, **kw)
+    return _conv2d_mod.conv2d_plain(x, w, **kw)
 
 
 def conv2d(x, w, *, stride: int = 1, padding: int = 0, impl: str = "auto",
@@ -94,32 +114,48 @@ def conv2d(x, w, *, stride: int = 1, padding: int = 0, impl: str = "auto",
     """General NHWC conv; CARLA 3x3/7x7 serial-accumulation dataflow."""
     ep = epilogue or _NO_EPILOGUE
     impl = resolve(impl, x)
+    entry = _lookup("conv2d", (x.shape, w.shape, stride, padding,
+                               dtype_name(x), ep.tag), impl)
+    tiles = entry.config if entry is not None else None
     if not trace.enabled():
-        return _conv2d(x, w, ep, stride, padding, impl)
+        return _conv2d(x, w, ep, stride, padding, impl, tiles)
     fh, fw, _, k = w.shape
     with trace.span("kernels.conv2d", impl=impl,
                     x_shape=list(x.shape), w_shape=list(w.shape),
                     stride=stride, padding=padding,
                     dtype=dtype_name(x)) as sp:
-        out = _conv2d(x, w, ep, stride, padding, impl)
+        out = _conv2d(x, w, ep, stride, padding, impl, tiles)
         _sync(out)
         b, oh, ow, _ = out.shape
         sp.attrs["flops"] = 2 * b * oh * ow * k * fh * fw * x.shape[-1]
         sp.attrs["bytes_touched"] = _nbytes(x, w, out, ep.scale, ep.bias,
                                             ep.residual)
-        sp.attrs["tile_util"] = _conv2d_mod.tile_util(x.shape, w.shape,
-                                                      stride, padding)
-        _tuning_attrs(sp)
+        sp.attrs["tile_util"] = autotune.tile_util_conv2d(
+            x.shape, w.shape, stride, padding, tiles)
+        _tuning_attrs(sp, entry, tiles)
         _epilogue_attrs(sp, ep, out)
     return out
 
 
-def _gemm(x, w, ep: Epilogue, stride, st: Stationarity, impl):
+def _gemm(x, w, ep: Epilogue, stride, st: Stationarity, impl, tiles):
     """x: (M, C), or NHWC read at stride (a 1x1 conv)."""
     kw = dict(scale=ep.scale, bias=ep.bias, relu=ep.relu, residual=ep.residual)
     if impl == "cuda":
-        return _mm.matmul(x, w, stride=stride, stationarity=st, **kw)
+        return _mm.matmul(x, w, stride=stride, stationarity=st, tiles=tiles,
+                          **kw)
     return _mm.matmul_plain(x, w, stride=stride, **kw)
+
+
+def _gemm_stationarity(rows: int, tiles: TileConfig | None,
+                       stationarity: Stationarity | None = None
+                       ) -> Stationarity:
+    """The dataflow of a GEMM: an explicit ``stationarity``, then the
+    tuning cache's measured choice, then the controller's rule."""
+    if stationarity is not None:
+        return stationarity
+    if tiles is not None and tiles.stationarity:
+        return Stationarity(tiles.stationarity)
+    return select_stationarity(rows)
 
 
 def conv1x1(x, w, *, stride: int = 1, impl: str = "auto",
@@ -129,14 +165,16 @@ def conv1x1(x, w, *, stride: int = 1, impl: str = "auto",
     impl = resolve(impl, x)
     c, k = x.shape[-1], w.shape[-1]
     rows = _mm.gemm_rows(x, stride)      # x[:, ::s, ::s] row count
-    st = select_stationarity(rows)
+    entry = _lookup("gemm", (rows, c, k, dtype_name(x), ep.tag), impl)
+    tiles = entry.config if entry is not None else None
+    st = _gemm_stationarity(rows, tiles)
     if not trace.enabled():
-        return _gemm(x, w, ep, stride, st, impl)
+        return _gemm(x, w, ep, stride, st, impl, tiles)
     with trace.span("kernels.conv1x1", impl=impl,
                     x_shape=list(x.shape), w_shape=list(w.shape),
                     stride=stride, stationarity=st.value,
                     dtype=dtype_name(x)) as sp:
-        out = _gemm(x, w, ep, stride, st, impl)
+        out = _gemm(x, w, ep, stride, st, impl, tiles)
         _sync(out)
         sp.attrs["flops"] = 2 * rows * c * k
         # A strided 1x1 reads only the subsampled view of the input — count
@@ -144,8 +182,9 @@ def conv1x1(x, w, *, stride: int = 1, impl: str = "auto",
         sp.attrs["bytes_touched"] = (rows * c * x.element_size()
                                      + _nbytes(w, out, ep.scale, ep.bias,
                                                ep.residual))
-        sp.attrs["tile_util"] = _mm.tile_util(rows, c, k, st.value)
-        _tuning_attrs(sp)
+        sp.attrs["tile_util"] = autotune.tile_util_gemm(rows, c, k, tiles,
+                                                        st.value)
+        _tuning_attrs(sp, entry, tiles)
         _epilogue_attrs(sp, ep, out)
     return out
 
@@ -156,20 +195,23 @@ def gemm(x, w, *, impl: str = "auto",
     """(M, C) @ (C, K) with CARLA stationarity planning."""
     ep = epilogue or _NO_EPILOGUE
     impl = resolve(impl, x)
-    st = stationarity or select_stationarity(x.shape[0])
+    entry = _lookup("gemm", (x.shape[0], x.shape[1], w.shape[-1],
+                             dtype_name(x), ep.tag), impl)
+    tiles = entry.config if entry is not None else None
+    st = _gemm_stationarity(x.shape[0], tiles, stationarity)
     if not trace.enabled():
-        return _gemm(x, w, ep, 1, st, impl)
+        return _gemm(x, w, ep, 1, st, impl, tiles)
     with trace.span("kernels.gemm", impl=impl,
                     x_shape=list(x.shape), w_shape=list(w.shape),
                     stationarity=st.value, dtype=dtype_name(x)) as sp:
-        out = _gemm(x, w, ep, 1, st, impl)
+        out = _gemm(x, w, ep, 1, st, impl, tiles)
         _sync(out)
         sp.attrs["flops"] = 2 * x.shape[0] * x.shape[1] * w.shape[-1]
         sp.attrs["bytes_touched"] = _nbytes(x, w, out, ep.scale, ep.bias,
                                             ep.residual)
-        sp.attrs["tile_util"] = _mm.tile_util(x.shape[0], x.shape[1],
-                                              w.shape[-1], st.value)
-        _tuning_attrs(sp)
+        sp.attrs["tile_util"] = autotune.tile_util_gemm(
+            x.shape[0], x.shape[1], w.shape[-1], tiles, st.value)
+        _tuning_attrs(sp, entry, tiles)
         _epilogue_attrs(sp, ep, out)
     return out
 

@@ -7,13 +7,16 @@ The port of ``repro.launch.serve``: random weights from seed 0, random
 prompts, one prefill, then ``gen - 1`` decode steps that update the cache
 in place; it prints the prefill time, the decode time per token and a
 sample.  On CUDA (the default device) the attention and Mamba2 conv run
-through the hand-written kernels.  ``--mesh``, ``--metrics-port`` and
-``--event-log`` wait for the distribution and observability ports
-(ROADMAP.md).
+through the hand-written kernels.  ``--metrics-port`` serves the loop's
+Prometheus metrics (prefill and per-token latencies, prompt and generated
+token counts) and ``--event-log`` appends ``serve.prefill`` and
+``serve.complete`` events, as ``repro.launch.serve``'s flags do.  ``--mesh``
+waits for the distribution port (ROADMAP.md).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import time
 
@@ -24,6 +27,9 @@ from ..models import lm
 from ..models.config import ModelConfig
 from ..models.convert import resolve_device
 from ..models.layers import with_compute_copies
+from ..observability import events
+from ..observability.metrics import MetricsRegistry
+from ..observability.prom import MetricsExporter
 
 
 def _sync(device: torch.device) -> None:
@@ -101,18 +107,55 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the hand-written kernels) or cpu "
                          "(their plain versions)")
+    ap.add_argument("--metrics-port", type=int,
+                    default=int(os.environ.get("REPRO_TORCH_METRICS_PORT",
+                                               "-1")),
+                    help="serve Prometheus /metrics on this port (0 = "
+                         "ephemeral, -1 = off; env REPRO_TORCH_METRICS_PORT)")
+    ap.add_argument("--event-log",
+                    default=os.environ.get("REPRO_TORCH_EVENT_LOG") or None,
+                    help="append structured JSONL events to this path "
+                         "(env REPRO_TORCH_EVENT_LOG)")
     args = ap.parse_args(argv)
 
     cfg, params = load_model(args.arch, smoke=args.smoke, device=args.device)
     prompts = make_prompts(cfg, args.batch, args.prompt_len,
                            device=args.device)
-    out = generate(cfg, params, prompts, args.gen)
-    print(f"prefill {args.prompt_len} tokens x{args.batch}: "
-          f"{out['prefill_ms']:.0f} ms")
-    steps = out["step_ms"]
-    ms = statistics.mean(steps) if steps else 0.0
-    print(f"decoded {out['tokens'].shape[1]} tokens/seq @ {ms:.0f} ms/token")
-    print("sample:", out["tokens"][0, :12].tolist())
+    telemetry = MetricsRegistry()
+    exporter = None
+    if args.event_log:
+        events.install(args.event_log)
+    try:
+        if args.metrics_port >= 0:
+            exporter = MetricsExporter({"serve": telemetry},
+                                       port=args.metrics_port)
+            print(f"metrics: http://127.0.0.1:{exporter.start()}/metrics")
+        out = generate(cfg, params, prompts, args.gen)
+        steps = out["step_ms"]
+        telemetry.latency("prefill").observe(out["prefill_ms"] / 1e3)
+        telemetry.counter("prompt_tokens").inc(args.batch * args.prompt_len)
+        for ms in steps:
+            telemetry.latency("decode_token").observe(ms / 1e3)
+        telemetry.counter("tokens_generated").inc(args.batch * args.gen)
+        events.emit("serve.prefill", arch=cfg.name, batch=args.batch,
+                    prompt_tokens=args.prompt_len, ms=out["prefill_ms"])
+        ms = statistics.mean(steps) if steps else 0.0
+        events.emit("serve.complete", arch=cfg.name, batch=args.batch,
+                    tokens=int(out["tokens"].shape[1]), ms_per_token=ms)
+        print(f"prefill {args.prompt_len} tokens x{args.batch}: "
+              f"{out['prefill_ms']:.0f} ms")
+        print(f"decoded {out['tokens'].shape[1]} tokens/seq @ {ms:.0f} "
+              "ms/token")
+        lw = telemetry.latency("decode_token")
+        if lw.count:
+            print(lw.format())
+        print("sample:", out["tokens"][0, :12].tolist())
+    finally:
+        if exporter is not None:
+            exporter.stop()
+        if args.event_log:
+            events.uninstall()
+    return telemetry
 
 
 if __name__ == "__main__":

@@ -40,7 +40,12 @@ def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.models.cnn, "
             "repro_torch.kernels.ops, repro_torch.core.carla, "
             "repro_torch.models.convert, repro_torch.models.lm, "
-            "repro_torch.launch.serve, repro_torch.configs.zamba2_2_7b; "
+            "repro_torch.launch.serve, repro_torch.configs.zamba2_2_7b, "
+            "repro_torch.core.autotune, repro_torch.core.decompose, "
+            "repro_torch.launch.tune, repro_torch.observability.report, "
+            "repro_torch.observability.export, "
+            "repro_torch.observability.prom, "
+            "repro_torch.observability.events; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

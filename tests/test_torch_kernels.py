@@ -25,6 +25,8 @@ from test_kernels import CONV_CASES, MM_CASES, _tol
 from repro.kernels import conv2d as j_conv2d
 from repro.kernels import matmul_act_stationary as j_mm_as
 from repro.kernels import matmul_weight_stationary as j_mm_ws
+from repro_torch.core import autotune
+from repro_torch.core.autotune import AS, WS
 from repro_torch.core.fuse import Epilogue
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import conv2d as t_conv
@@ -195,25 +197,27 @@ def test_build_hash_covers_every_source():
 
 def test_tile_util_counts_padding():
     # 64 pixels x 64 channels: the 64x64 tile, nothing padded
-    assert t_conv.tile_util((1, 8, 8, 16), (3, 3, 16, 64), 1, 1) == 1.0
+    assert autotune.tile_util_conv2d((1, 8, 8, 16), (3, 3, 16, 64),
+                                     1, 1) == 1.0
     # the stem's R = 147 pads to 160 (10 chunks of 16)
     m = 112 * 112
     plan = _build.plan_gemm(m, 64, 147, 132, False)
-    assert t_conv.tile_util((1, 224, 224, 3), (7, 7, 3, 64), 2, 3) == (
+    assert autotune.tile_util_conv2d((1, 224, 224, 3), (7, 7, 3, 64),
+                                     2, 3) == (
         m * 64 * 147 / (-(-m // plan.bm) * plan.bm * 64 * 160))
     # act-stationary pads M and K to its plan's tile, C to whole chunks
     for m, c, k in ((64, 32, 64), (64, 64, 32), (300, 97, 40)):
         p = _build.plan_gemm(m, k, c, 132, c % 16 == 0)
         want = m * c * k / (-(-m // p.bm) * p.bm * -(-k // p.bn) * p.bn
                             * -(-c // 16) * 16)
-        assert t_mm.tile_util(m, c, k, "activation_stationary") == want
-    assert t_mm.tile_util(64, 32, 64, "activation_stationary") == 1.0
-    assert t_mm.tile_util(128, 64, 64, "activation_stationary") == 1.0
+        assert autotune.tile_util_gemm(m, c, k, stationarity=AS) == want
+    assert autotune.tile_util_gemm(64, 32, 64, stationarity=AS) == 1.0
+    assert autotune.tile_util_gemm(128, 64, 64, stationarity=AS) == 1.0
     # weight-stationary pads M to its one row tile, K to the plan's columns
-    assert t_mm.tile_util(49, 512, 2048, "weight_stationary") == 49 / 64
+    assert autotune.tile_util_gemm(49, 512, 2048, stationarity=WS) == 49 / 64
     p = _build.plan_weight_stationary(100, 32, 16, 132, True)
     assert (p.bm, p.bn) == (128, 64)
-    assert t_mm.tile_util(100, 16, 32, "weight_stationary") == (
+    assert autotune.tile_util_gemm(100, 16, 32, stationarity=WS) == (
         100 * 32 / (128 * 64))
 
 

@@ -109,7 +109,7 @@ def test_conv1d_span_matches_repro():
 
 # --------------------------- decode attention --------------------------------
 DECODE_CASES = [(2, 256, 8, 2, 32, 64), (1, 1000, 4, 4, 64, 256),
-                (2, 64, 6, 3, 16, 64)]
+                (2, 64, 6, 3, 16, 64), (2, 128, 4, 2, 256, 64)]
 
 
 @pytest.mark.parametrize("b,s,h,kh,dh,bs", DECODE_CASES)
@@ -129,7 +129,8 @@ def test_decode_attention_matches_pallas(b, s, h, kh, dh, bs, dtype):
 
 # ---------------------------- flash attention --------------------------------
 FLASH_CASES = [(1, 512, 4, 2, 32, 0, 0.0), (2, 512, 8, 4, 64, 128, 0.0),
-               (1, 512, 4, 2, 32, 0, 30.0), (1, 256, 6, 3, 16, 0, 0.0)]
+               (1, 512, 4, 2, 32, 0, 30.0), (1, 256, 6, 3, 16, 0, 0.0),
+               (1, 256, 4, 2, 256, 64, 50.0)]   # gemma2's head dim
 
 
 @pytest.mark.parametrize("b,t,h,kh,dh,win,cap", FLASH_CASES)
