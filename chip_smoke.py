@@ -30,9 +30,17 @@ printing one JSON line:
              (T 1, 15-17, 63, 65, 127, 129), windows ending inside an mma
              tile, soft-caps with G = 4, a different pos per sequence with
              0, S - 1, inside a decode chunk and on its boundary, B * KH =
-             1, a cache of one row, FL 2-4, odd C, strided input), fp32 and
-             bf16.  Every decode case runs twice and must give the same
-             bits (the combine's fixed order, the ticket counters' reset).
+             1, a cache of one row, decode with soft-caps, windows over a
+             linear cache (inside a tile, across tiles and splits) and
+             rings (pos before the ring fills, on its last slot, wrapped;
+             the kernel given min(pos, W - 1)), FL 2-4, odd C, strided
+             input), and at the other LM paths' main-path shapes: mixtral's
+             prefill flash (T 5120 past its window of 4096), decode at the
+             mixtral, scheduler (B 4, a position per row) and gemma2
+             serving shapes, rwkv6's token shifts in prefill and decode
+             (FL 2, C 2048); fp32 and bf16.  Every case runs twice and must
+             give the same bits (for decode: the combine's fixed order, the
+             ticket counters' reset).
              Tolerance:
              attention fp32 1e-4 (unit-normal inputs, as
              tests/test_kernels.py); bf16 per output element 2^-6 x
@@ -71,7 +79,13 @@ printing one JSON line:
              (decode twice, the same bits); the DH 256 instances' ptxas
              registers and spills (none may spill); bf16 times at the full
              shapes beside the bound, the plain version and SDPA (causal or
-             window-masked; SDPA has no soft-cap).
+             window-masked; SDPA has no soft-cap); and decode at the
+             mixtral, scheduler and gemma2 serving shapes (mixtral's ring
+             before and after it wraps, B 4 with a position per row,
+             gemma2's local ring and global linear cache
+             with soft-cap 50, a window over the linear cache), bf16, cold
+             L2, beside the bound (the rows the mask lets in), the plain
+             version and SDPA with the same position mask.
 6. resnet50, resnet50_sparse, vgg16 — the full-width batch-1 224x224 fp32
              forwards through ``models.cnn``; launch counts per forward,
              logits against the same forward with ``impl="ref"`` (tolerance
@@ -112,15 +126,39 @@ printing one JSON line:
              argument.  Three planted faults (patched in for one run each:
              the decode kernel skips the newest key; one decode
              application per step takes pos + 1; one prefill flash call
-             sees half the keys) are measured in both; the fp32 check must
-             catch all three.
-   gemma2  — gemma2-9b prefill at full width (d_model 3584, 16 heads of
-             256, vocab 256000), 4 of its 42 layers (two local, two global),
-             one 6144-token prompt, bf16, through ``models.lm.prefill``:
-             exactly 4 flash launches, the last position's logits against
-             the plain engine in bf16 and fp32 as zamba2's (a planted
-             half-window fault must fail the fp32 check), host-clock
-             prefill median and device busy time.
+             sees half the keys) must each fail the fp32 check.
+   gemma2, mixtral, rwkv6 — served at full width through
+             ``launch.serve`` as zamba2 (``serve_path``): exact launches per
+             prefill, per step and per run, the prefill's and 7 decode
+             steps' logits against the plain engine in bf16 and fp32 (same
+             tolerances), planted faults caught by the fp32 check, host-clock
+             medians, peak memory, device busy time and idle share.  For
+             mixtral the two bf16 engines take the plain fp32 engine's
+             expert choices (bf16 top-k routing is discontinuous); the fp32
+             kernel engine routes on its own and must choose as the plain
+             fp32 engine did.  gemma2-9b: d_model 3584, 16 heads of 256, vocab 256000, 4 of
+             42 layers (two local on rings of 4096, two global on linear
+             caches; soft-cap 50), one 6144-token prompt, 16 tokens; 4
+             flash per prefill, 4 decode per step; faults: half the window
+             in the first of every two flash calls, the decode kernel
+             without its soft-cap.  mixtral-8x7b: d_model 4096, 32 heads
+             over 8 of 128, d_ff 14336, 8 experts top-2, window 4096, vocab
+             32000, 4 of 32 layers, batch 2 x 5120-token prompts (prefill
+             rolls the rings, decode wraps them), 16 tokens; 4 flash per
+             prefill, 4 decode per step; faults: the ring decoded as a
+             linear cache at the slot (slot taken for position), the
+             prefill's ring not rolled.  rwkv6-1.6b: full width and depth
+             (24 layers, 32 heads of 64, d_ff 7168, vocab 65536), batch 4 x
+             2048-token prompts (the chunked WKV form), 32 tokens; 48
+             conv1d (the token shifts) per prefill and per step; fault:
+             the decode token shift without its carried row.
+   scheduler — ``serving.ContinuousBatcher`` on mixtral's weights: 4
+             slots, 8 requests (prompts of 512-6144 tokens, budgets of 4-16,
+             drawn from the seed); exact launches, each request admitted
+             and completed once with its budget, counters and events in
+             agreement, slot occupancy; the same run in fp32 must give the
+             tokens of ``impl="ref"`` (a difference prints its request,
+             step and top-2 logit margins).
 7. the ``kernels`` line, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -161,10 +199,23 @@ KERNEL_REPS = 10
 PROFILE_REPS = 5
 SLEEP_CYCLES = 1_000_000     # ~0.5 ms of device time at H100 clocks
 # zamba2-2.7b serving: batch 4 x 2048-token prompts, 32 generated tokens
-Z_BATCH, Z_PROMPT, Z_GEN, Z_COMPARE, Z_TIMED = 4, 2048, 32, 8, 3
-# gemma2-9b prefill at full width: 4 of its 42 layers (two local, two
-# global), one 6144-token prompt
-G_LAYERS, G_PROMPT, G_TIMED = 4, 6144, 3
+Z_BATCH, Z_PROMPT, Z_GEN = 4, 2048, 32
+# gemma2-9b serving at full width: 4 of its 42 layers (two local, two
+# global), one 6144-token prompt, 16 tokens out
+G_LAYERS, G_PROMPT, G_GEN = 4, 6144, 16
+# mixtral-8x7b serving at full width: 4 of its 32 layers, batch 2 x
+# 5120-token prompts (past the 4096 window: prefill rolls the rings and
+# decode wraps them), 16 tokens out
+M_LAYERS, M_BATCH, M_PROMPT, M_GEN = 4, 2, 5120, 16
+# rwkv6-1.6b serving at full width and depth: batch 4 x 2048-token prompts
+# (the chunked WKV form), 32 tokens out
+R_BATCH, R_PROMPT, R_GEN = 4, 2048, 32
+# the continuous-batching scheduler on mixtral's weights: 4 slots, 8
+# requests, prompt lengths and budgets drawn from the seed
+S_SLOTS, S_REQUESTS, S_PROMPT_RANGE, S_BUDGET_RANGE = 4, 8, (512, 6144), (4, 16)
+# LM paths: positions compared with the plain engine (the prefill's last
+# and the first decode steps'), host-clock runs timed
+LM_COMPARE, LM_TIMED = 8, 3
 # Faults planted in the bf16 flash kernel (flash_mma_kernel), name -> (text
 # of csrc/flash_attention.cu, its replacement); the bf16 flash cases must
 # catch each.  The first two touch only rows from 1024 on, which only the
@@ -659,15 +710,28 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
 
 
 # --------------------------------------------------------- LM kernels ------
+def flash_case(b, t, h, kh, dh, window=0, softcap=0.0) -> dict:
+    return dict(kernel="flash_attention", b=b, t=t, h=h, kh=kh, dh=dh,
+                window=window, softcap=softcap)
+
+
+def decode_case(b, s, h, kh, dh, pos, window=0, softcap=0.0, ring=0) -> dict:
+    """pos: the model's position per sequence; a ring of ``ring`` slots
+    hands the kernel min(pos, ring - 1) (``kernel_pos``)."""
+    return dict(kernel="decode_attention", b=b, s=s, h=h, kh=kh, dh=dh,
+                pos=pos, window=window, softcap=softcap, ring=ring)
+
+
+def conv1d_case(b, t, c, fl, row=None, col0=0) -> dict:
+    """x is columns [col0, col0 + c) of a (b, t, row) tensor."""
+    return dict(kernel="conv1d_causal", b=b, t=t, c=c, fl=fl, row=row or c,
+                col0=col0)
+
+
 def lm_kernel_cases() -> list[dict]:
-    """zamba2's main-path shapes first (one per kernel), then ragged ones."""
-    fa = lambda b, t, h, kh, dh, window=0, softcap=0.0: dict(
-        kernel="flash_attention", b=b, t=t, h=h, kh=kh, dh=dh, window=window,
-        softcap=softcap)
-    da = lambda b, s, h, kh, dh, pos: dict(
-        kernel="decode_attention", b=b, s=s, h=h, kh=kh, dh=dh, pos=pos)
-    c1 = lambda b, t, c, fl, row=None, col0=0: dict(
-        kernel="conv1d_causal", b=b, t=t, c=c, fl=fl, row=row or c, col0=col0)
+    """zamba2's main-path shapes first (one per kernel), then ragged ones,
+    then the other LM paths' main-path shapes."""
+    fa, da, c1 = flash_case, decode_case, conv1d_case
     return [
         # zamba2: 32 heads of 80, T = 2048; the cache holds 2080 rows; the
         # conv reads the xBC column slice [5120, 10368) of in_proj's output
@@ -696,10 +760,66 @@ def lm_kernel_cases() -> list[dict]:
         da(2, 129, 4, 4, 128, (127, 128)), da(1, 200, 4, 1, 64, (150,)),
         da(1, 65, 1, 1, 80, (64,)), da(2, 1, 4, 2, 16, (0, 0)),
         da(1, 1, 8, 1, 128, (0,)),
+        # windows over a linear cache: inside one tile, across tiles and
+        # splits (the splits before the window read nothing), with caps
+        da(3, 300, 8, 2, 64, (299, 0, 130), window=100, softcap=20.0),
+        da(2, 1000, 6, 3, 80, (999, 64), window=64),
+        da(2, 129, 4, 4, 128, (128, 63), window=1, softcap=5.0),
+        # rings (pos is the model's; the kernel sees min(pos, W - 1)):
+        # before the ring fills, on its last slot, wrapped
+        da(3, 200, 8, 2, 64, (37, 199, 1000), ring=200),
+        da(2, 64, 4, 1, 16, (63, 64), softcap=30.0, ring=64),
         # FL 2-4, odd C (one channel a thread), contiguous and strided x
         c1(Z_BATCH, Z_PROMPT, 5248, 4), c1(2, 33, 131, 3), c1(1, 17, 96, 2),
         c1(3, 100, 1000, 4), c1(2, 40, 64, 2, row=80, col0=8),
+        # mixtral's prefill (window 4096, T past it); its and the
+        # scheduler's decode (decode_path_cases); rwkv6's token shifts
+        # (FL 2, C 2048) in prefill and in decode, where the carried row
+        # is prepended to the step's
+        fa(M_BATCH, M_PROMPT, 32, 8, 128, 4096),
+        *decode_path_cases(),
+        c1(R_BATCH, R_PROMPT, 2048, 2), c1(R_BATCH, 2, 2048, 2),
     ]
+
+
+DECODE_PATH_NAMES = ("mixtral ring, pos < W and W - 1",
+                     "mixtral ring, wrapped",
+                     "scheduler ring, B 4, a position per row",
+                     "gemma2 local ring, cap 50", "gemma2 global linear, cap 50",
+                     "gemma2 linear, window 4096, cap 50")
+
+
+def decode_path_cases() -> list[dict]:
+    """Decode at the new paths' shapes (``DECODE_PATH_NAMES``): mixtral's
+    ring (B 2, W 4096, 32 heads over 8 of 128) with pos before the ring
+    fills, on its last slot and wrapped; the scheduler's step on the same
+    ring (B S_SLOTS, each slot at its own position, up to its max_seq - 1);
+    gemma2-9b's local layer (ring 4096, cap 50, dh 256) and global layer (a
+    linear cache of 6160 rows, cap 50); and a window over gemma2's linear
+    cache, whose first splits read nothing."""
+    da, w = decode_case, 4096
+    s_last = S_PROMPT_RANGE[1] + S_BUDGET_RANGE[1] - 1
+    return [da(M_BATCH, w, 32, 8, 128, (1000, w - 1), ring=w),
+            da(M_BATCH, w, 32, 8, 128, (w, M_PROMPT + M_GEN - 1), ring=w),
+            da(S_SLOTS, w, 32, 8, 128, (600, w - 1, w + 3, s_last), ring=w),
+            da(2, w, 16, 8, 256, (G_PROMPT, 3000), softcap=50.0, ring=w),
+            da(2, G_PROMPT + G_GEN, 16, 8, 256, (G_PROMPT + G_GEN - 1, 100),
+               softcap=50.0),
+            da(2, G_PROMPT + G_GEN, 16, 8, 256, (G_PROMPT + G_GEN - 1, 5000),
+               window=w, softcap=50.0)]
+
+
+def kernel_pos(case: dict, pos) -> tuple:
+    """The positions the decode kernel is given: a ring of W slots maps
+    pos to min(pos, W - 1), as models.attention.attention_decode does."""
+    ring = case.get("ring", 0)
+    return tuple(min(p, ring - 1) for p in pos) if ring else tuple(pos)
+
+
+def visible_rows(case: dict, pos) -> list[int]:
+    """Keys each sequence's mask lets in at these (model) positions."""
+    w = case.get("window", 0)
+    return [min(p + 1, w) if w > 0 else p + 1 for p in kernel_pos(case, pos)]
 
 
 def lm_operands(case: dict, dtype, gen, pos=None):
@@ -713,8 +833,10 @@ def lm_operands(case: dict, dtype, gen, pos=None):
     if case["kernel"] == "decode_attention":
         b, s, h, kh, dh = (case[k] for k in ("b", "s", "h", "kh", "dh"))
         args = (rn(b, h, dh), rn(b, s, kh, dh), rn(b, s, kh, dh))
-        p = torch.tensor(pos or case["pos"], dtype=torch.int32, device=DEVICE)
-        return tuple(a.to(dtype) for a in args) + (p,), {}
+        p = torch.tensor(kernel_pos(case, pos or case["pos"]),
+                         dtype=torch.int32, device=DEVICE)
+        return (tuple(a.to(dtype) for a in args) + (p,),
+                {"window": case["window"], "softcap": case["softcap"]})
     b, t, c, fl = (case[k] for k in ("b", "t", "c", "fl"))
     full = rn(b, t, case["row"]).to(dtype)
     return (full[..., case["col0"]:case["col0"] + c], rn(fl, c)), {}
@@ -731,7 +853,7 @@ def lm_cost(case: dict, dtype, pos) -> tuple[float, float]:
         nbytes = 2 * case["b"] * t * (case["h"] + case["kh"]) * case["dh"] * es
         return flops, nbytes
     if case["kernel"] == "decode_attention":
-        rows = sum(p + 1 for p in pos)
+        rows = sum(visible_rows(case, pos))
         flops = 4 * case["h"] * case["dh"] * rows
         nbytes = (2 * case["b"] * case["h"] * case["dh"]
                   + 2 * rows * case["kh"] * case["dh"]) * es + 4 * case["b"]
@@ -750,8 +872,11 @@ def lm_library(case: dict, args):
         q, ck, cv, pos = args
         q4 = q[:, :, None, :]
         kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
-        mask = (torch.arange(ck.shape[1], device=DEVICE)[None, :]
-                <= pos[:, None])[:, None, None, :]
+        j = torch.arange(ck.shape[1], device=DEVICE)[None, :]
+        mask = j <= pos[:, None]
+        if case.get("window", 0) > 0:
+            mask = mask & (j > pos[:, None] - case["window"])
+        mask = mask[:, None, None, :]
         return lambda: F.scaled_dot_product_attention(q4, kt, vt,
                                                       attn_mask=mask,
                                                       enable_gqa=True)
@@ -882,7 +1007,8 @@ def lm_reduction(case: dict) -> int:
 
 
 def check_lm_kernels(chk: Checker, lm_kernels: dict, gen) -> dict:
-    """Every LM case, fp32 and bf16, against the plain version."""
+    """Every LM case, fp32 and bf16, against the plain version, and run
+    twice for the same bits."""
     for case in lm_kernel_cases():
         wrapper, plain = lm_kernels[case["kernel"]]
         for dtype in (torch.float32, torch.bfloat16):
@@ -892,18 +1018,17 @@ def check_lm_kernels(chk: Checker, lm_kernels: dict, gen) -> dict:
                    else _attn_tol(want, plain, args, kw))
             chk.add(case["kernel"], {**case, "dtype": str(dtype)[6:]}, got,
                     want, lm_reduction(case), tol)
-            if case["kernel"] == "decode_attention":
-                same = torch.equal(got, wrapper(*args, **kw))
-                rec = chk.cases[-1]
-                rec.update(repeat_identical=same, ok=rec["ok"] and same)
+            same = torch.equal(got, wrapper(*args, **kw))
+            rec = chk.cases[-1]
+            rec.update(repeat_identical=same, ok=rec["ok"] and same)
+            del args, got, want
     torch.cuda.synchronize()
     summary = {}
     for kname in lm_kernels:
         cs = [c for c in chk.cases if c["kernel"] == kname]
         summary[kname] = {
             "cases": len(cs), "failed": sum(not c["ok"] for c in cs),
-            **({"repeats_identical": all(c["repeat_identical"] for c in cs)}
-               if kname == "decode_attention" else {}),
+            "repeats_identical": all(c["repeat_identical"] for c in cs),
             "max_err_over_tol": max(c["err_over_tol"] for c in cs),
             **{f"max_abs_err_{d}": max(c["max_abs_err"] for c in cs
                                        if c["dtype"] == d)
@@ -944,15 +1069,41 @@ def time_lm_kernels(lm_kernels: dict, peaks: dict, flush, gen) -> dict:
     return rows
 
 
+def time_decode_paths(lm_kernels: dict, peaks: dict, flush, gen) -> dict:
+    """Decode at the new paths' shapes (``decode_path_cases``), bf16, cold
+    L2, at each case's positions, beside its bound (the rows its mask lets
+    in), its plain version and SDPA with the same position mask (SDPA has
+    no soft-cap: a yardstick of the shape)."""
+    wrapper, plain = lm_kernels["decode_attention"]
+    rows = {}
+    for name, case in zip(DECODE_PATH_NAMES, decode_path_cases(),
+                          strict=True):
+        args, kw = lm_operands(case, torch.bfloat16, gen)
+        flops, nbytes = lm_cost(case, torch.bfloat16, case["pos"])
+        t_ops, t_bytes = flops / peaks["bf16"], nbytes / peaks["bw"]
+        rows[name] = {
+            "case": case, "kernel_pos": list(kernel_pos(case, case["pos"])),
+            "max_abs_err": (wrapper(*args, **kw).float()
+                            - plain(*args, **kw).float()).abs().max().item(),
+            "ms": cold_time_ms(lambda: wrapper(*args, **kw), flush),
+            "plain_ms": cold_time_ms(lambda: plain(*args, **kw), flush),
+            "library_ms": cold_time_ms(lm_library(case, args), flush),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+    return rows
+
+
 # ------------------------------------------------------------- zamba2 ------
-def forced_logits(lm, cfg, params, prompts, tokens, *, impl="auto",
-                  dtype=None) -> list:
+def forced_logits(lm, cfg, params, prompts, tokens, gen: int, *,
+                  impl="auto", dtype=None) -> list:
     """fp32 logits (B, V) of the prefill's last position and of one decode
     step per column of ``tokens`` (B, n), each step fed that column (teacher
-    forcing), so two engines meet the same inputs whatever their argmax."""
+    forcing), so two engines meet the same inputs whatever their argmax;
+    the cache is sized for ``gen`` tokens, as the served run's."""
     dtype = dtype or lm.COMPUTE_DTYPE
     b, t = tokens.shape[0], prompts["tokens"].shape[1]
-    logits, cache = lm.prefill(cfg, params, prompts, t + Z_GEN, impl=impl,
+    logits, cache = lm.prefill(cfg, params, prompts, t + gen, impl=impl,
                                dtype=dtype)
     out = [logits[:, -1].float()]
     for i in range(tokens.shape[1]):
@@ -993,8 +1144,8 @@ def planted_faults(attn_mod, fa_mod, da_mod, n_groups: int) -> dict:
         # the decode kernel leaves out the newest key (this token's own)
         "decode_skips_newest_key": (
             attn_mod, "_decode",
-            ns(decode_attention=lambda q, ck, cv, pos: real_da(q, ck, cv,
-                                                               pos - 1),
+            ns(decode_attention=lambda q, ck, cv, pos, **kw: real_da(
+                q, ck, cv, pos - 1, **kw),
                decode_attention_plain=da_mod.decode_attention_plain)),
         # one shared-attention application per decode step (the first)
         # takes pos + 1: RoPE one step on and the k/v one slot late
@@ -1010,115 +1161,18 @@ def planted_faults(attn_mod, fa_mod, da_mod, n_groups: int) -> dict:
 
 
 def run_zamba2(serve, lm, attn_mod, fa_mod, da_mod, counters: dict) -> dict:
-    """Serve zamba2-2.7b at full width: counted launches, parity against
-    the plain engine, planted faults, host-clock times, device busy share."""
-    t0 = time.perf_counter()
+    """zamba2-2.7b served at full width and depth, Z_BATCH x Z_PROMPT-token
+    prompts, Z_GEN tokens out, bf16 (``serve_path``): per prefill a conv1d
+    launch per layer and a flash launch per group, per decode step a decode
+    launch per group; the three planted faults of ``planted_faults``."""
     cfg, params = serve.load_model("zamba2-2.7b", device=DEVICE, seed=SEED)
     prompts = serve.make_prompts(cfg, Z_BATCH, Z_PROMPT, device=DEVICE,
                                  seed=SEED)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    max_seq = Z_PROMPT + Z_GEN
-
-    def counted(fn):
-        for f in counters.values():
-            f.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        return out, {k: f.launches for k, f in counters.items()}
-
-    n_groups = cfg.n_groups
-    zero = {k: 0 for k in counters}
-    want_prefill = {**zero, "conv1d_causal": cfg.n_layers,
-                    "flash_attention": n_groups}
-    want_step = {**zero, "decode_attention": n_groups}
-    want_run = {k: want_prefill[k] + (Z_GEN - 1) * want_step[k]
-                for k in counters}
-
-    # the main path, as a user runs it: prompts in, Z_GEN tokens out
-    out, launches = counted(lambda: serve.generate(cfg, params, prompts,
-                                                   Z_GEN))
-    (logits, cache), per_prefill = counted(
-        lambda: lm.prefill(cfg, params, prompts, max_seq=max_seq))
-    step_batch = {"token": torch.argmax(logits[:, -1], dim=-1)[:, None],
-                  "pos": torch.full((Z_BATCH,), Z_PROMPT, dtype=torch.int32,
-                                    device=DEVICE)}
-    _, per_step = counted(lambda: lm.decode_step(cfg, params, step_batch,
-                                                 cache))
-    runs = [serve.generate(cfg, params, prompts, Z_GEN)
-            for _ in range(Z_TIMED)]
-
-    # parity: every engine fed the main run's own tokens (teacher forcing)
-    forced = out["tokens"][:, :Z_COMPARE]
-    run = lambda **kw: forced_logits(lm, cfg, params, prompts, forced, **kw)
-    bf16, fp32 = lm.COMPUTE_DTYPE, torch.float32
-    got, ref = run(), run(impl="ref")
-    got32, ref32 = run(dtype=fp32), run(impl="ref", dtype=fp32)
-    dist = lambda a, b: [(x - y).abs().max().item() for x, y in zip(a, b)]
-    errs, noise, errs32 = dist(got, ref), dist(ref, ref32), dist(got32, ref32)
-    tols = {bf16: [2 ** 0.5 * n for n in noise],
-            fp32: [1e-3 * max(1.0, r.abs().max().item()) for r in ref32]}
-    refs = {bf16: ref, fp32: ref32}
-    over = lambda es, ts: max(e / t for e, t in zip(es, ts))
-    agree = [(g.argmax(-1) == r.argmax(-1)).float().mean().item()
-             for g, r in zip(got, ref)]
-    finite = all(bool(torch.isfinite(g).all()) for g in got + got32)
-    faults = {}
-    for dtype in (bf16, fp32):
-        for fname, (mod, attr, fn) in planted_faults(
-                attn_mod, fa_mod, da_mod, n_groups).items():
-            with mock.patch.object(mod, attr, fn):
-                fe = dist(run(dtype=dtype), refs[dtype])
-            faults.setdefault(fname, {})[str(dtype)[6:]] = {
-                "max_abs_err": fe, "max_err_over_tol": over(fe, tols[dtype])}
-
-    rec = {"phase": "zamba2", "arch": cfg.name, "params": cfg.param_count(),
-           "batch": Z_BATCH, "prompt_len": Z_PROMPT, "gen": Z_GEN,
-           "setup_s": setup_s, "tokens_shape": list(out["tokens"].shape),
-           "launches": launches, "expected_launches": want_run,
-           "launches_per_prefill": per_prefill,
-           "launches_per_decode_step": per_step,
-           "prefill_ms_median": statistics.median(r["prefill_ms"]
-                                                  for r in runs),
-           "prefill_ms_all": [r["prefill_ms"] for r in runs],
-           "decode_ms_per_token_median": statistics.median(
-               t for r in runs for t in r["step_ms"]),
-           "decode_ms_per_token_min": min(t for r in runs
-                                          for t in r["step_ms"]),
-           "logits_max_abs_err": errs, "logits_tol": tols[bf16],
-           "max_err_over_tol": over(errs, tols[bf16]),
-           "logits_max_abs_ref": [r.abs().max().item() for r in ref],
-           "plain_bf16_vs_fp32": noise,
-           "kernels_bf16_vs_fp32": dist(got, ref32),
-           "fp32_logits_max_abs_err": errs32, "fp32_logits_tol": tols[fp32],
-           "fp32_max_err_over_tol": over(errs32, tols[fp32]),
-           "planted_faults": faults,
-           "argmax_agreement": agree, "finite": finite,
-           "sample": out["tokens"][0, :12].tolist(),
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "decode_step_device": profile_busy(
-               lambda: lm.decode_step(cfg, params, step_batch, cache)),
-           "decode_step_host": host_profile(
-               lambda: lm.decode_step(cfg, params, step_batch, cache), 3),
-           "prefill_device": profile_busy(
-               lambda: lm.prefill(cfg, params, prompts, max_seq=max_seq),
-               reps=1)}
-    emit(rec)
-    for name, got_n, want_n in (("per prefill", per_prefill, want_prefill),
-                                ("per decode step", per_step, want_step),
-                                ("per run", launches, want_run)):
-        if got_n != want_n:
-            raise SystemExit(f"zamba2: launches {name} {got_n} != {want_n}")
-    if not finite or rec["max_err_over_tol"] > 1.0 or \
-            rec["fp32_max_err_over_tol"] > 1.0:
-        raise SystemExit(f"zamba2: logits off the plain engine by {errs} "
-                         f"in bf16, {errs32} in fp32 (tol {tols})")
-    missed = [f for f, r in faults.items()
-              if r["float32"]["max_err_over_tol"] <= 1.0]
-    if missed:
-        raise SystemExit(f"zamba2: the fp32 logit check misses planted "
-                         f"faults {missed}")
-    return rec
+    return serve_path("zamba2", serve, lm, cfg, params, prompts, Z_GEN,
+                      counters, {"conv1d_causal": cfg.n_layers,
+                                 "flash_attention": cfg.n_groups},
+                      {"decode_attention": cfg.n_groups},
+                      planted_faults(attn_mod, fa_mod, da_mod, cfg.n_groups))
 
 
 # ------------------------------------------------------- head dim 256 ------
@@ -1132,7 +1186,8 @@ def dh256_cases() -> list[dict]:
     return [fa(G_PROMPT, 4096), fa(G_PROMPT, 0), fa(G_PROMPT - 37, 4096),
             fa(G_PROMPT - 37, 0),
             dict(kernel="decode_attention", b=4, s=G_PROMPT, h=16, kh=8,
-                 dh=256, pos=(G_PROMPT - 1, 0, 3000, 4095))]
+                 dh=256, pos=(G_PROMPT - 1, 0, 3000, 4095), window=0,
+                 softcap=0.0, ring=0)]
 
 
 def ptxas_instances(log: str, tag: str) -> dict:
@@ -1227,83 +1282,423 @@ def check_dh256(_build, lm_kernels: dict, peaks: dict, flush, gen) -> dict:
     return rec
 
 
-# ------------------------------------------------------------- gemma2 ------
-def run_gemma2(lm, attn_mod, fa_mod, da_mod, counters: dict) -> dict:
-    """gemma2-9b prefill at full width (d_model 3584, 16 heads of 256,
-    vocab 256000), G_LAYERS layers, one G_PROMPT-token prompt, bf16:
-    counted launches, last-position logits against the plain engine (as
-    zamba2's: bf16 within sqrt(2) x the plain bf16 engine's distance from
-    the plain fp32 one; fp32, the wiring, within 1e-3 x max(1, max|ref|),
-    where a planted fault, half the window in the first of every two flash
-    calls, must be caught), host-clock times and device busy share."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.launch import serve
-    from repro_torch.models.layers import with_compute_copies
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("gemma2-9b"), n_layers=G_LAYERS)
-    params = with_compute_copies(lm.init_params(
-        cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
-        device=DEVICE))
-    prompts = serve.make_prompts(cfg, 1, G_PROMPT, device=DEVICE, seed=SEED)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    for f in counters.values():
-        f.launches = 0
-    logits, _ = lm.prefill(cfg, params, prompts, max_seq=G_PROMPT)
-    torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counters.items()}
-    want = {k: 0 for k in counters}
-    want["flash_attention"] = cfg.n_layers
+# ----------------------------------------------------- LM serving paths ------
+def decode_faults(attn_mod, da_mod) -> dict:
+    """The decode kernel called without its soft-cap (gemma2's decode)."""
+    real_da = da_mod.decode_attention
+    return {"decode_drops_softcap": (
+        attn_mod, "_decode", types.SimpleNamespace(
+            decode_attention=lambda q, ck, cv, pos, window=0, softcap=0.0:
+                real_da(q, ck, cv, pos, window=window),
+            decode_attention_plain=da_mod.decode_attention_plain))}
 
-    def run(**kw):
-        out, _ = lm.prefill(cfg, params, prompts, max_seq=G_PROMPT, **kw)
-        return out[:, -1].float()
-    got, ref = logits[:, -1].float(), run(impl="ref")
-    got32, ref32 = run(dtype=torch.float32), run(impl="ref",
-                                                dtype=torch.float32)
-    err = (got - ref).abs().max().item()
-    noise = (ref - ref32).abs().max().item()
-    err32 = (got32 - ref32).abs().max().item()
-    tol, tol32 = 2 ** 0.5 * noise, 1e-3 * max(1.0, ref32.abs().max().item())
-    _, attr, fault = planted_faults(attn_mod, fa_mod, da_mod, 2)[
-        "one_prefill_flash_half_window"]
-    with mock.patch.object(attn_mod, attr, fault):
-        fault_err = (run(dtype=torch.float32) - ref32).abs().max().item()
-    times = []
-    for _ in range(G_TIMED):
+
+def ring_faults(lm, attn_mod) -> dict:
+    """Wrong rolling-cache paths (mixtral), each a patch of a name the model
+    looks up at call time: name -> (module, attribute, replacement).  (The
+    kernel given the unclamped position is no fault: it bounds the position
+    by S - 1 itself, which on a ring is W - 1.)"""
+    real_ad, real_place = attn_mod.attention_decode, lm._place_kv
+
+    def slot_as_position(params, x, ck, cv, pos, rolling_window=0, **kw):
+        # a ring layer decoded as a linear cache at the slot: RoPE at
+        # pos % W, and the window mask over slot indices
+        if not rolling_window:
+            return real_ad(params, x, ck, cv, pos, **kw)
+        return real_ad(params, x, ck, cv, pos % rolling_window, **kw)
+
+    def not_rolled(buf, kv):
+        # the prompt's last W tokens in order, not at slot pos % W
+        w, t = buf.shape[1], kv.shape[1]
+        if t <= w:
+            return real_place(buf, kv)
+        buf.copy_(kv[:, t - w:])
+
+    return {"ring_slot_as_position": (attn_mod, "attention_decode",
+                                      slot_as_position),
+            "ring_prefill_not_rolled": (lm, "_place_kv", not_rolled)}
+
+
+def rwkv_faults(ssm_mod) -> dict:
+    """RWKV-6's decode token shift without the carried row."""
+    real = ssm_mod._token_shift
+    return {"decode_token_shift_drops_carry": (
+        ssm_mod, "_token_shift",
+        lambda x, prev, mu, impl="auto": real(x, None, mu, impl))}
+
+
+def weights_gb(params) -> float:
+    """Bytes of every tensor in a nested dict (fp32 masters and copies)."""
+    if isinstance(params, dict):
+        return sum(weights_gb(v) for v in params.values())
+    return params.numel() * params.element_size() / 2 ** 30
+
+
+class RoutingReplay:
+    """MoE routing held fixed across the bf16 engines of a logit check.
+
+    Top-k routing is discontinuous: two correct engines whose bf16
+    activations differ in the last bit can pick different experts for a
+    token whose k-th and (k+1)-th router probabilities nearly tie, and that
+    token's logits then move by O(1).  ``record()`` keeps the expert choices
+    (``models.moe._top_k``) of one run, the plain fp32 engine's, and
+    ``replay()`` hands them to another run call by call (the gates are that
+    run's own probabilities at those experts), counting the choices that
+    run would have made otherwise; ``replay(force=False)`` only counts, and
+    the run routes on its own."""
+
+    def __init__(self, moe_mod):
+        self.moe, self.real = moe_mod, moe_mod._top_k
+        self.choices: list = []
+        self.flips = self.decisions = 0
+
+    def record(self):
+        self.choices = []
+
+        def top_k(probs, k):
+            vals, idx = self.real(probs, k)
+            self.choices.append(idx)
+            return vals, idx
+        return mock.patch.object(self.moe, "_top_k", top_k)
+
+    def replay(self, force: bool = True):
+        it = iter(self.choices)
+        self.flips = self.decisions = 0
+
+        def top_k(probs, k):
+            idx, (vals, own) = next(it), self.real(probs, k)
+            self.flips += int((own.sort(-1).values != idx.sort(-1).values)
+                              .any(-1).sum())
+            self.decisions += idx[..., 0].numel()
+            return (probs.gather(-1, idx), idx) if force else (vals, own)
+        return mock.patch.object(self.moe, "_top_k", top_k)
+
+
+def serve_path(name: str, serve, lm, cfg, params, prompts: dict, gen: int,
+               counters: dict, want_prefill: dict, want_step: dict,
+               faults: dict) -> dict:
+    """One LM served at full width through ``launch.serve``, as phase zamba2
+    (module docstring): exact launches per prefill, per decode step and per
+    run; the prefill's and the first LM_COMPARE - 1 decode steps' logits,
+    teacher-forced, against the plain engine in bf16 (sqrt(2) x the plain
+    bf16 engine's distance from plain fp32) and in fp32 (1e-3 x max(1,
+    max|ref|)), where each planted fault must fail the fp32 check;
+    host-clock medians, peak memory, and the device's busy time and idle
+    share of a prefill and a decode step.  For an MoE arch the two bf16
+    engines take the plain fp32 engine's expert choices (``RoutingReplay``),
+    counting the tokens each would have routed otherwise; the fp32 kernel
+    engine and the fault runs route on their own, and the fp32 kernel
+    engine must choose as the plain fp32 engine did, token for token."""
+    import contextlib
+    from repro_torch.models import moe as moe_mod
+    b, t = prompts["tokens"].shape
+    max_seq = t + gen
+
+    def counted(fn):
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        lm.prefill(cfg, params, prompts, max_seq=G_PROMPT)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t1) * 1e3)
-    finite = bool(torch.isfinite(got).all() and torch.isfinite(got32).all())
-    rec = {"phase": "gemma2", "arch": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
-           "d_head": cfg.d_head, "vocab": cfg.vocab, "prompt_len": G_PROMPT,
-           "setup_s": setup_s, "launches": launches,
-           "expected_launches": want, "logits_shape": list(logits.shape),
-           "finite": finite, "max_abs_err": err, "tol": tol,
-           "plain_bf16_vs_fp32": noise, "fp32_max_abs_err": err32,
-           "fp32_tol": tol32, "max_abs_ref": ref.abs().max().item(),
-           "planted_fault_fp32_err": fault_err,
-           "argmax_agree": bool((got.argmax(-1) == ref.argmax(-1)).all()),
-           "prefill_ms_median": statistics.median(times),
-           "prefill_ms_all": times,
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        return out, {k: f.launches for k, f in counters.items()}
+
+    zero = {k: 0 for k in counters}
+    want_prefill, want_step = {**zero, **want_prefill}, {**zero, **want_step}
+    want_run = {k: want_prefill[k] + (gen - 1) * want_step[k]
+                for k in counters}
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, as a user runs it: prompts in, gen tokens out
+    out, launches = counted(lambda: serve.generate(cfg, params, prompts,
+                                                   gen))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    (logits, cache), per_prefill = counted(
+        lambda: lm.prefill(cfg, params, prompts, max_seq=max_seq))
+    step_batch = {"token": torch.argmax(logits[:, -1], dim=-1)[:, None],
+                  "pos": torch.full((b,), t, dtype=torch.int32,
+                                    device=DEVICE)}
+    _, per_step = counted(lambda: lm.decode_step(cfg, params, step_batch,
+                                                 cache))
+    runs = [serve.generate(cfg, params, prompts, gen)
+            for _ in range(LM_TIMED)]
+
+    # parity: every engine fed the main run's own tokens
+    forced = out["tokens"][:, :LM_COMPARE]
+    run = lambda **kw: forced_logits(lm, cfg, params, prompts, forced, gen,
+                                     **kw)
+    fp32 = torch.float32
+    replay = RoutingReplay(moe_mod) if cfg.is_moe else None
+    flips = {}
+    with replay.record() if replay else contextlib.nullcontext():
+        ref32 = run(impl="ref", dtype=fp32)
+    engines = {}
+    for key, kw in (("kernels_bf16", {}), ("plain_bf16", {"impl": "ref"}),
+                    ("kernels_fp32", {"dtype": fp32})):
+        with (replay.replay(force=key != "kernels_fp32") if replay
+              else contextlib.nullcontext()):
+            engines[key] = run(**kw)
+        flips[key] = (replay.flips, replay.decisions) if replay else None
+    got, ref, got32 = (engines[k] for k in ("kernels_bf16", "plain_bf16",
+                                            "kernels_fp32"))
+    dist = lambda a, b_: [(x - y).abs().max().item() for x, y in zip(a, b_)]
+    errs, noise, errs32 = dist(got, ref), dist(ref, ref32), dist(got32, ref32)
+    tols = [2 ** 0.5 * n for n in noise]
+    tols32 = [1e-3 * max(1.0, r.abs().max().item()) for r in ref32]
+    over = lambda es, ts: max(e / t_ for e, t_ in zip(es, ts))
+    finite = all(bool(torch.isfinite(g).all()) for g in got + got32)
+    fault_recs = {}
+    for fname, (mod, attr, fn) in faults.items():
+        with mock.patch.object(mod, attr, fn):
+            fe = dist(run(dtype=fp32), ref32)
+        fault_recs[fname] = {"fp32_max_abs_err": fe,
+                             "fp32_max_err_over_tol": over(fe, tols32)}
+    rec = {"phase": name, "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "weights_gb": weights_gb(params), "batch": b, "prompt_len": t,
+           "gen": gen, "tokens_shape": list(out["tokens"].shape),
+           "launches": launches, "expected_launches": want_run,
+           "launches_per_prefill": per_prefill,
+           "launches_per_decode_step": per_step,
+           "prefill_ms_median": statistics.median(r["prefill_ms"]
+                                                  for r in runs),
+           "prefill_ms_all": [r["prefill_ms"] for r in runs],
+           "decode_ms_per_token_median": statistics.median(
+               x for r in runs for x in r["step_ms"]),
+           "decode_ms_per_token_min": min(x for r in runs
+                                          for x in r["step_ms"]),
+           "logits_max_abs_err": errs, "logits_tol": tols,
+           "max_err_over_tol": over(errs, tols),
+           "plain_bf16_vs_fp32": noise,
+           "kernels_bf16_vs_fp32": dist(got, ref32),
+           "fp32_logits_max_abs_err": errs32, "fp32_logits_tol": tols32,
+           "fp32_max_err_over_tol": over(errs32, tols32),
+           "logits_max_abs_ref": [r.abs().max().item() for r in ref],
+           "planted_faults": fault_recs, "finite": finite,
+           "routing_replayed_in_bf16": bool(replay),
+           "routing_flips_of_decisions": flips,
+           "argmax_agreement": [(g.argmax(-1) == r.argmax(-1)).float()
+                                .mean().item() for g, r in zip(got, ref)],
+           "sample": out["tokens"][0, :12].tolist(),
+           "peak_memory_gb": peak_gb,
+           "decode_step_device": profile_busy(
+               lambda: lm.decode_step(cfg, params, step_batch, cache)),
+           "decode_step_host": host_profile(
+               lambda: lm.decode_step(cfg, params, step_batch, cache), 3),
            "prefill_device": profile_busy(
-               lambda: lm.prefill(cfg, params, prompts, max_seq=G_PROMPT),
+               lambda: lm.prefill(cfg, params, prompts, max_seq=max_seq),
                reps=1)}
     emit(rec)
+    for what, got_n, want_n in (("per prefill", per_prefill, want_prefill),
+                                ("per decode step", per_step, want_step),
+                                ("per run", launches, want_run)):
+        if got_n != want_n:
+            raise SystemExit(f"{name}: launches {what} {got_n} != {want_n}")
+    if not finite or rec["max_err_over_tol"] > 1.0 or \
+            rec["fp32_max_err_over_tol"] > 1.0:
+        raise SystemExit(f"{name}: logits off the plain engine by {errs} "
+                         f"in bf16, {errs32} in fp32 (tol {tols}, {tols32})")
+    if replay and flips["kernels_fp32"][0]:
+        raise SystemExit(f"{name}: the fp32 kernel engine routed "
+                         f"{flips['kernels_fp32']} (flips, decisions) "
+                         f"otherwise than the plain fp32 engine")
+    missed = [f for f, r in fault_recs.items()
+              if r["fp32_max_err_over_tol"] <= 1.0]
+    if missed:
+        raise SystemExit(f"{name}: the fp32 logit check misses planted "
+                         f"faults {missed}")
+    return rec
+
+
+def cut_model(lm, arch: str, n_layers: int):
+    """(config, parameters) of ``arch`` at full width with its depth cut to
+    n_layers: random fp32 weights from SEED on the card, with their bf16
+    compute copies."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import with_compute_copies
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    return cfg, with_compute_copies(lm.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
+        device=DEVICE))
+
+
+def run_gemma2(serve, lm, attn_mod, fa_mod, da_mod, counters: dict) -> dict:
+    """gemma2-9b served at full width (d_model 3584, 16 heads of 256, vocab
+    256000), G_LAYERS layers (two local on rings of 4096 slots, two global
+    on linear caches; soft-cap 50), one G_PROMPT-token prompt, G_GEN tokens
+    out, bf16 (``serve_path``): G_LAYERS flash launches per prefill and
+    G_LAYERS decode launches per step; planted faults, half the window in
+    the first of every two flash calls, and the decode kernel without its
+    soft-cap."""
+    cfg, params = cut_model(lm, "gemma2-9b", G_LAYERS)
+    prompts = serve.make_prompts(cfg, 1, G_PROMPT, device=DEVICE, seed=SEED)
+    faults = {k: v for k, v in planted_faults(attn_mod, fa_mod, da_mod,
+                                              2).items()
+              if k == "one_prefill_flash_half_window"}
+    faults.update(decode_faults(attn_mod, da_mod))
+    return serve_path("gemma2", serve, lm, cfg, params, prompts, G_GEN,
+                      counters, {"flash_attention": cfg.n_layers},
+                      {"decode_attention": cfg.n_layers}, faults)
+
+
+def run_mixtral(serve, lm, attn_mod, counters: dict):
+    """mixtral-8x7b served at full width (d_model 4096, 32 heads over 8 of
+    128, d_ff 14336, 8 experts top-2, window 4096, vocab 32000), M_LAYERS
+    layers, M_BATCH x M_PROMPT-token prompts (rings rolled at prefill and
+    wrapped in decode), M_GEN tokens out, bf16 (``serve_path``): M_LAYERS
+    flash launches per prefill and M_LAYERS decode launches per step;
+    planted ring faults.  Returns the record, the config and the weights
+    (the scheduler phase serves them too)."""
+    cfg, params = cut_model(lm, "mixtral-8x7b", M_LAYERS)
+    prompts = serve.make_prompts(cfg, M_BATCH, M_PROMPT, device=DEVICE,
+                                 seed=SEED)
+    rec = serve_path("mixtral", serve, lm, cfg, params, prompts, M_GEN,
+                     counters, {"flash_attention": cfg.n_layers},
+                     {"decode_attention": cfg.n_layers},
+                     ring_faults(lm, attn_mod))
+    return rec, cfg, params
+
+
+def run_rwkv6(serve, lm, counters: dict) -> dict:
+    """rwkv6-1.6b served at full width and depth (24 layers, 32 heads of 64,
+    d_ff 7168, vocab 65536), R_BATCH x R_PROMPT-token prompts, R_GEN tokens
+    out, bf16 (``serve_path``): two conv1d launches (the token shifts) per
+    layer per prefill and per decode step; a planted fault, the decode
+    token shift without its carried row."""
+    from repro_torch.models import ssm as ssm_mod
+    cfg, params = serve.load_model("rwkv6-1.6b", device=DEVICE, seed=SEED)
+    prompts = serve.make_prompts(cfg, R_BATCH, R_PROMPT, device=DEVICE,
+                                 seed=SEED)
+    shifts = {"conv1d_causal": 2 * cfg.n_layers}
+    return serve_path("rwkv6", serve, lm, cfg, params, prompts, R_GEN,
+                      counters, shifts, shifts, rwkv_faults(ssm_mod))
+
+
+def run_scheduler(lm, cfg, params, counters: dict) -> dict:
+    """Phase scheduler: ``serving.ContinuousBatcher`` on mixtral's weights,
+    S_SLOTS slots, S_REQUESTS requests whose prompt lengths and budgets are
+    drawn from SEED (slots reused; rings rolled at admission or not, and
+    wrapped at different positions per row).  The bf16 run (the main
+    path): exact launches (M_LAYERS flash per admission, M_LAYERS decode per
+    step), every request admitted once and completed once with its budget,
+    the counters and the events agreeing, slot occupancy.  Then the same
+    run in fp32 with the kernels and with ``impl="ref"``: every token
+    equal; where one differs, its request, step and both runs' top-2 logit
+    margins there are printed, and the phase fails."""
+    from repro_torch.observability import events
+    from repro_torch.serving import ContinuousBatcher, Request
+    g = torch.Generator().manual_seed(SEED)
+    lens = torch.randint(S_PROMPT_RANGE[0], S_PROMPT_RANGE[1] + 1,
+                         (S_REQUESTS,), generator=g).tolist()
+    budgets = torch.randint(S_BUDGET_RANGE[0], S_BUDGET_RANGE[1] + 1,
+                            (S_REQUESTS,), generator=g).tolist()
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=g).to(DEVICE)
+               for n in lens]
+    max_seq = S_PROMPT_RANGE[1] + S_BUDGET_RANGE[1]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sched_"))
+    atexit.register(shutil.rmtree, tmp, True)
+
+    def serve_all(tag, **kw):
+        """(batcher, events, top-2 margins by (rid, token index), s)."""
+        batcher = ContinuousBatcher(cfg, params, batch_slots=S_SLOTS,
+                                    max_seq=max_seq, **kw)
+        margins, real_pf, real_ds = {}, lm.prefill, lm.decode_step
+
+        def margin(logits):
+            top = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+            return (top[:, 0] - top[:, 1]).tolist()
+
+        admitted = [0]
+
+        def prefill(*a, **k):
+            # admission is FIFO: the n-th prefill is request n's first token
+            out = real_pf(*a, **k)
+            margins[(admitted[0], 0)] = margin(out[0])[0]
+            admitted[0] += 1
+            return out
+
+        def decode_step(*a, **k):
+            out = real_ds(*a, **k)
+            for slot, m in enumerate(margin(out[0])):
+                r = batcher.slot_req[slot]
+                if r is not None:
+                    margins[(r.rid, len(r.generated))] = m
+            return out
+
+        path = tmp / f"{tag}.jsonl"
+        events.install(str(path))
+        try:
+            for i, (p, n) in enumerate(zip(prompts, budgets)):
+                batcher.submit(Request(rid=i, prompt=p, max_new_tokens=n))
+            t0 = time.perf_counter()
+            with mock.patch.object(lm, "prefill", prefill), \
+                    mock.patch.object(lm, "decode_step", decode_step):
+                batcher.run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            events.uninstall()
+        evs = [json.loads(line) for line in path.read_text().splitlines()]
+        return batcher, evs, margins, secs
+
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    main_b, evs, _, secs = serve_all("bf16")
+    launches = {k: f.launches for k, f in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats = main_b.stats()
+    c = stats["counters"]
+    want = {k: 0 for k in counters}
+    want["flash_attention"] = cfg.n_layers * S_REQUESTS
+    want["decode_attention"] = cfg.n_layers * int(c["decode_steps"])
+    kinds = lambda k: sorted(e["rid"] for e in evs if e["kind"] == k)
+    done = {r.rid: r for r in main_b.completed}
+    problems = []
     if launches != want:
-        raise SystemExit(f"gemma2: launches {launches} != {want}")
-    if not finite or err > tol or err32 > tol32:
-        raise SystemExit(f"gemma2: logits off the plain engine by {err} "
-                         f"(tol {tol}) in bf16, {err32} (tol {tol32}) in "
-                         "fp32")
-    if fault_err <= tol32:
-        raise SystemExit("gemma2: the fp32 logit check misses the planted "
-                         "half-window fault")
+        problems.append(f"launches {launches} != {want}")
+    for k in ("scheduler.admit", "scheduler.complete", "scheduler.evict"):
+        if kinds(k) != list(range(S_REQUESTS)):
+            problems.append(f"{k} for requests {kinds(k)}")
+    if sorted(done) != list(range(S_REQUESTS)) or any(
+            len(done[i].generated) != budgets[i] for i in done):
+        problems.append("requests not completed once each with their "
+                        "budgets")
+    emitted = sum(len(r.generated) for r in done.values())
+    if (c["requests_admitted"], c["requests_completed"],
+            c["tokens_generated"] + c["prefill_tokens_emitted"],
+            c["prompt_tokens"]) != (S_REQUESTS, S_REQUESTS, emitted,
+                                    sum(lens)):
+        problems.append(f"counters {c} disagree with the requests")
+
+    # fp32: the kernels against the plain engine, token for token
+    b32, _, m32, _ = serve_all("fp32", dtype=torch.float32)
+    bref, _, mref, _ = serve_all("fp32_ref", dtype=torch.float32,
+                                 impl="ref")
+    toks = lambda b_: {r.rid: r.generated for r in b_.completed}
+    t32, tref = toks(b32), toks(bref)
+    differ = []
+    for rid in sorted(tref):
+        k = next((i for i, (x, y) in enumerate(zip(t32[rid], tref[rid]))
+                  if x != y), None)
+        if k is not None:
+            differ.append({"rid": rid, "token": k,
+                           "margin_kernels": m32.get((rid, k)),
+                           "margin_ref": mref.get((rid, k))})
+    if differ:
+        problems.append(f"fp32 tokens differ from impl='ref': {differ}")
+    rec = {"phase": "scheduler", "arch": cfg.name, "slots": S_SLOTS,
+           "prompt_lens": lens, "budgets": budgets, "max_seq": max_seq,
+           "rings_rolled_at_admission": [n > cfg.window for n in lens],
+           "launches": launches, "expected_launches": want,
+           "counters": c, "slot_occupancy": stats["slot_occupancy"],
+           "tokens_per_s": stats.get("tokens_per_s"),
+           "latencies": stats["latencies"], "wall_s": secs,
+           "completion_order": [r.rid for r in main_b.completed],
+           "events": len(evs), "peak_memory_gb": peak_gb,
+           "fp32_tokens_equal_ref": not differ, "fp32_differences": differ,
+           "min_top2_margin_fp32_ref": min(mref.values())}
+    emit(rec)
+    if problems:
+        raise SystemExit(f"scheduler: {problems}")
     return rec
 
 
@@ -1470,6 +1865,13 @@ def run_report(cnn, params, x, peaks: dict) -> dict:
         raise SystemExit(f"report: {n_complete} complete events for "
                          f"{n_spans} spans, {len(rows)} rows")
     return {**rec, "table": table}
+
+
+def free() -> None:
+    """Hand a finished phase's memory back before the next."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1678,6 +2080,13 @@ def main() -> int:
                                     "cache_copy_ms") if f in r}
              for k, r in lm_times.items()}})
     dh256 = check_dh256(_build, lm_kernels, peaks, flush, dgen)
+    decode_paths = time_decode_paths(lm_kernels, peaks, flush, dgen)
+    emit({"phase": "times", "path": "decode at the mixtral and gemma2 "
+                                    "shapes, bf16, one call each",
+          **{k: {f: r[f] for f in ("kernel_pos", "ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by",
+                                    "max_abs_err")}
+             for k, r in decode_paths.items()}})
 
     # 6. the main path, through the entry points a user calls
     counters = {"conv2d": conv_mod.conv2d,
@@ -1712,12 +2121,22 @@ def main() -> int:
     tuned = run_tune(kern, calls, paths, x, counters, dgen)
     table2 = run_report(cnn, r50, x, peaks)
     zamba2 = run_zamba2(serve, lm, attn_mod, fa_mod, da_mod, counters)
-    gemma2 = run_gemma2(lm, attn_mod, fa_mod, da_mod, counters)
+    free()
+    gemma2 = run_gemma2(serve, lm, attn_mod, fa_mod, da_mod, counters)
+    free()
+    mixtral, m_cfg, m_params = run_mixtral(serve, lm, attn_mod, counters)
+    sched = run_scheduler(lm, m_cfg, m_params, counters)
+    del m_params
+    free()
+    rwkv6 = run_rwkv6(serve, lm, counters)
+    free()
 
     dump({**details, "times": per_path, "lm_times": lm_times,
           "launch_floor_ms": launch_floor_ms,
           "models": models, "zamba2": zamba2, "attn_dh256": dh256,
-          "gemma2": gemma2, "tune": tuned, "report": table2})
+          "decode_paths": decode_paths, "gemma2": gemma2,
+          "mixtral": mixtral, "scheduler": sched, "rwkv6": rwkv6,
+          "tune": tuned, "report": table2})
 
     # 7. kernels line (dense ResNet-50 main path), the card, the last line
     sources = {"conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
@@ -1730,7 +2149,11 @@ def main() -> int:
     by_path = {p: m["launches"] for p, m in models.items()}
     by_path["zamba2_prefill"] = zamba2["launches_per_prefill"]
     by_path["zamba2_decode"] = zamba2["launches_per_decode_step"]
-    by_path["gemma2_prefill"] = gemma2["launches"]
+    for p, r in (("gemma2", gemma2), ("mixtral", mixtral),
+                 ("rwkv6", rwkv6)):
+        by_path[f"{p}_prefill"] = r["launches_per_prefill"]
+        by_path[f"{p}_decode"] = r["launches_per_decode_step"]
+    by_path["scheduler"] = sched["launches"]
     by_path.update({f"{p}_tuned": r["launches"]
                     for p, r in tuned["per_net"].items()})
     line = []
@@ -1774,7 +2197,11 @@ def main() -> int:
                                     if k != "kernel"}),
             **({"gemma2_dh256": {f: dh256_rows[kname][f] for f in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err")}} if kname in dh256_rows else {})})
+                "max_abs_err")}} if kname in dh256_rows else {}),
+            **({"paths": {n: {f: r_[f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")} for n, r_ in decode_paths.items()}}
+               if kname == "decode_attention" else {})})
     emit({"kernels": line})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

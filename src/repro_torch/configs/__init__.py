@@ -1,14 +1,14 @@
 """Architecture config registry: ``--arch <id>`` resolves here.
 
-The ten LM architectures of ``repro.configs``, copied as they are written
-there (pure data).  ``get_shape`` and the shape tables wait for the port of
-the benchmark and dry-run drivers.
+The ten LM architectures of ``repro.configs`` and its shape tables, copied
+as they are written there (pure data).
 """
 from __future__ import annotations
 
 import importlib
 
 from ..models.config import ModelConfig
+from .shapes import SHAPES, SMOKE_SHAPES, ShapeSpec
 
 _ARCH_MODULES = {
     "musicgen-large": "musicgen_large",
@@ -35,4 +35,9 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["ARCHS", "CNN_ARCHS", "get_config"]
+def get_shape(name: str, smoke: bool = False) -> ShapeSpec:
+    return (SMOKE_SHAPES if smoke else SHAPES)[name]
+
+
+__all__ = ["ARCHS", "CNN_ARCHS", "SHAPES", "SMOKE_SHAPES", "ShapeSpec",
+           "get_config", "get_shape"]

@@ -22,8 +22,8 @@ space):
     (``table`` = committed, ``cache`` = user cache dir, ``runtime`` =
     injected in-process).
   * **Invalidation**: every table records ``kernel_signature_hash()``, the
-    hash of every CUDA source and the compiler flags
-    (``kernels._build.source_hash``).  Entries whose hash no longer matches
+    hash of the tunable kernels' sources and headers (``TUNED_SOURCES``)
+    and the compiler flags.  Entries whose hash no longer matches
     are ignored, and committed tables that went stale are reported by
     :func:`stale_tables`.  A table whose header names another backend or
     device is skipped.
@@ -135,10 +135,17 @@ _TUNED_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "kernels", "tuned")
 
 
+# What a tuned plan depends on: the tunable CNN kernels' sources and the
+# headers they include (``gemm_pipe.cuh`` includes ``numeric.cuh`` and
+# ``ptx.cuh``), as ``repro`` hashes only ``conv2d.py`` and ``matmul.py``.
+TUNED_SOURCES = ("conv2d.cu", "matmul.cu", "gemm_pipe.cuh", "numeric.cuh",
+                 "ptx.cuh")
+
+
 def kernel_signature_hash() -> str:
-    """Hash of the CUDA sources and flags; tables carry it, loaders check
-    it."""
-    return _build.source_hash()
+    """Hash of the tunable kernels' sources and the nvcc flags; tables carry
+    it, loaders check it.  An edit of another kernel leaves it as it is."""
+    return _build.source_hash(TUNED_SOURCES)
 
 
 def backend() -> str:

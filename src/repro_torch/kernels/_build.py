@@ -50,9 +50,13 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def source_hash() -> str:
+def source_hash(names=None) -> str:
+    """Hash of the nvcc flags and the named ``csrc/`` files (default: every
+    source and header, the build directory's hash)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    paths = (sorted(CSRC.glob("*.cu*")) if names is None
+             else [CSRC / n for n in sorted(names)])
+    for p in paths:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

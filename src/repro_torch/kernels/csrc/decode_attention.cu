@@ -2,14 +2,30 @@
 //
 // Replaces: src/repro/kernels/decode_attention.py:_decode_attn_kernel, the
 // Pallas TPU kernel for one query token per sequence against its KV cache
-// (zamba2's shared attention block in every decode step, 9 per step).
+// (zamba2's shared attention block in every decode step, 9 per step; every
+// attention layer of the attention archs, gemma2's and mixtral's windowed
+// and soft-capped layers included).
 //
 // What it computes, for q (B, H, DH), cache k and v (B, S, KH, DH) and
 // pos (B,) int32, head h reading kv head h / G (G = H / KH):
-//   s[j] = (q . k[j]) * scale, masked to NEG_INF unless j <= pos[b];
+//   s[j] = (q . k[j]) * scale, then softcap * tanh(s / softcap) when
+//   softcap > 0; masked to NEG_INF unless j <= pos[b] and (window <= 0 or
+//   j > pos[b] - window);
 //   out = sum_j p[j] v[j] / max(l, 1e-30), p = exp(s - m) summed into l in
 //   fp32 and rounded to v's type before the product (`p.astype(v.dtype)` in
 //   the Pallas kernel), stored once in q's type. pos must lie in [0, S).
+// The Pallas kernel takes only the causal mask; the reference applies the
+// soft-cap and the window in jnp around it (repro/models/attention.py,
+// attention_decode), and this kernel takes both.
+//
+// Rolling caches (a sliding-window layer keeps a ring of W = min(window,
+// max_seq) slots, the token at position p in slot p % W): slot j then holds
+// position pos - ((pos - j) mod W), which is a real token exactly when
+// j <= min(pos, W - 1). That is this kernel's causal mask at the position
+// min(pos, W - 1), with no window, and softmax does not depend on the order
+// of its keys. So the ring needs nothing here: the wrapper
+// (models/attention.py, attention_decode) writes the new k/v at pos % W and
+// passes min(pos, W - 1) as pos.
 //
 // Why not the Pallas grid: there the S axis is the sequential innermost grid
 // dimension, carrying the online softmax in scratch. At zamba2's decode shape
@@ -27,8 +43,9 @@
 //   kv head. The wrapper asks CUDA how many blocks an SM holds
 //   (carla_decode_occupancy) and takes as many splits per (b, kh) as one
 //   wave of them holds, so no small last wave trails: 4 splits of 9 tiles,
-//   512 blocks at 4 per SM, at zamba2's shape. Splits past pos[b] exit
-//   before reading, and a split reads only the rows up to pos[b].
+//   512 blocks at 4 per SM, at zamba2's shape. Splits past pos[b], and
+//   with a window the splits wholly before its first key, exit before
+//   reading; a split reads only the tiles from that key's to pos[b]'s.
 // * A block walks its tiles through a two-stage shared-memory ring filled
 //   by 16-byte cp.async copies: while one tile's K and V are computed on,
 //   the next tile's are in flight. No row is held in registers. A row of
@@ -70,8 +87,8 @@ constexpr int DA_SLOTS = 4;      // V-pass items a thread may own
 constexpr float DA_NEG_INF = -2.3819763e38f;
 
 struct DecodeShape {
-  int B, S, H, KH, G, n_splits, split_tiles;
-  float scale;
+  int B, S, H, KH, G, n_splits, split_tiles, window;
+  float scale, softcap;
 };
 
 // Workspace index of (b, kh, split, g).
@@ -131,11 +148,17 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int kmax = min(pos[b], s.S - 1);
+  // the window's first visible key (0 without a window)
+  const int kmin = s.window > 0 ? min(max(0, pos[b] - s.window + 1), kmax)
+                                : 0;
   const int split_rows = s.split_tiles * DA_CH;
-  const int n_run = max(1, kmax / split_rows + 1);  // splits that hold a key
-  if (split >= n_run) return;
-  const int r_begin = split * split_rows;
-  const int r_end = min(r_begin + split_rows, kmax + 1);
+  // splits that hold a key: [first_run, n_run); the others read nothing
+  const int first_run = kmin / split_rows;
+  const int n_run = max(1, kmax / split_rows + 1);
+  if (split >= n_run || split < first_run) return;
+  // from the tile that holds kmin on
+  const int r_begin = max(split * split_rows, kmin - kmin % DA_CH);
+  const int r_end = min(split * split_rows + split_rows, kmax + 1);
   const int n_tiles = max(0, r_end - r_begin + DA_CH - 1) / DA_CH;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t row_stride = (int64_t)s.KH * DH;
@@ -193,13 +216,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     const T* ks = ring + (it % STAGES) * SM::STAGE;
     const T* vs = ks + DA_CH * LD;
-    const int nrows = min(DA_CH, r_end - (r_begin + it * DA_CH));
+    const int r0 = r_begin + it * DA_CH;
+    const int nrows = min(DA_CH, r_end - r0);
 
-    // scores: one (head, row) dot product a thread
+    // scores: one (head, row) dot product a thread; rows before the
+    // window's first key stay masked
     for (int i = tid; i < s.G * DA_CH; i += DA_THREADS) {
       const int r = i % DA_CH, g = i / DA_CH;
       float x = DA_NEG_INF;
-      if (r < nrows) {
+      if (r < nrows && r0 + r >= kmin) {
         float dot = 0.f;
 #pragma unroll
         for (int c = 0; c < PIECES; ++c) {
@@ -217,6 +242,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
         }
         x = dot * s.scale;
+        if (s.softcap > 0.f) x = s.softcap * tanhf(x / s.softcap);
       }
       ps[g * DA_CH + r] = x;
     }
@@ -304,17 +330,17 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __threadfence();
   __syncthreads();
   int* ticket = tickets + (int64_t)b * s.KH + kh;
-  if (tid == 0) last = atomicAdd(ticket, 1) == n_run - 1;
+  if (tid == 0) last = atomicAdd(ticket, 1) == n_run - first_run - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
   for (int o = tid; o < s.G * DH; o += DA_THREADS) {
     const int g = o / DH;
     float M = DA_NEG_INF;
-    for (int i = 0; i < n_run; ++i)
+    for (int i = first_run; i < n_run; ++i)
       M = fmaxf(M, __ldcg(ws_m + ws_index(s, b, kh, i, g)));
     float L = 0.f, A = 0.f;
-    for (int i = 0; i < n_run; ++i) {
+    for (int i = first_run; i < n_run; ++i) {
       const int64_t w = ws_index(s, b, kh, i, g);
       const float scale = expf(__ldcg(ws_m + w) - M);
       L += __ldcg(ws_l + w) * scale;
@@ -374,9 +400,10 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out, contiguous and 16-byte
 // aligned). q and out are (B, H, DH); k and v are (B, S, KH, DH) with H a
-// multiple of KH; pos is (B,) int32. The cache is read in n_splits splits
-// of split_tiles tiles of 64 rows, which must cover S with no split left
-// empty. ws: fp32 workspace of B * KH * n_splits * H/KH * (2 + DH) values.
+// multiple of KH; pos is (B,) int32. window <= 0 and softcap <= 0 turn
+// those off. The cache is read in n_splits splits of split_tiles tiles of
+// 64 rows, which must cover S with no split left empty. ws: fp32 workspace
+// of B * KH * n_splits * H/KH * (2 + DH) values.
 // tickets: B * KH int32 counters, all 0 before the call and 0 again after it
 // (calls that share them must be ordered on one stream). Returns
 // cudaGetLastError() (or the error of the shared-memory opt-in).
@@ -385,7 +412,8 @@ extern "C" int carla_decode_attention(int dtype, const void* q, const void* k,
                                       void* out, void* ws, void* tickets,
                                       int B, int S, int H, int KH, int DH,
                                       int n_splits, int split_tiles,
-                                      float scale, void* stream) {
+                                      int window, float scale, float softcap,
+                                      void* stream) {
   if (B == 0 || H == 0) return 0;
   const int64_t split_rows = (int64_t)split_tiles * carla::DA_CH;
   if (S <= 0 || KH <= 0 || H % KH != 0 || n_splits <= 0 ||
@@ -394,7 +422,7 @@ extern "C" int carla_decode_attention(int dtype, const void* q, const void* k,
       (n_splits - 1) * split_rows >= S)
     return (int)cudaErrorInvalidValue;
   const carla::DecodeShape s{B, S, H, KH, H / KH, n_splits, split_tiles,
-                             scale};
+                             window, scale, softcap};
   const int* p = static_cast<const int*>(pos);
   float* w = static_cast<float*>(ws);
   int* t = static_cast<int*>(tickets);

@@ -1,12 +1,17 @@
 """Fused decode attention — the CUDA kernel's wrapper.
 
 ``decode_attention`` runs ``csrc/decode_attention.cu``: one query token per
-sequence against its KV cache, key j visible when ``j <= pos[b]``, the
-softmax in fp32 with p rounded to the cache's dtype before the product.  One
-launch: the cache is cut into splits of whole ``CHUNK``-row tiles, each
-block streams its split's tiles and writes its partial softmax to an fp32
+sequence against its KV cache, key j visible when ``j <= pos[b]`` and, with
+a ``window``, ``j > pos[b] - window``; scores soft-capped (``softcap *
+tanh(s / softcap)``) before the mask when ``softcap`` > 0; the softmax in
+fp32 with p rounded to the cache's dtype before the product.  One launch:
+the cache is cut into splits of whole ``CHUNK``-row tiles, each block
+streams its split's tiles and writes its partial softmax to an fp32
 workspace, and the last split of each (b, kh) to finish combines them in a
-fixed order; splits past ``pos[b]`` read nothing.  ``pos`` must lie in
+fixed order; splits past ``pos[b]``, and splits wholly before the window,
+read nothing.  A rolling cache (a ring of W slots) is the caller's mapping:
+``models.attention.attention_decode`` passes ``min(pos, W - 1)``, under
+which this causal mask is the ring's.  ``pos`` must lie in
 [0, S), and (H / Kh) * dh may be at most 2048.  ``launch_plan`` sizes the
 grid, the workspace and the ticket counters.  The source's header note says
 which Pallas kernel it replaces, what bounds it on the H100 and how its
@@ -31,16 +36,18 @@ CHUNK = 64          # DA_CH of csrc/decode_attention.cu: rows of a tile
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"carla_decode_attention":
-               [_I] + [_P] * 7 + [_I] * 7 + [_F, _P],
+               [_I] + [_P] * 7 + [_I] * 8 + [_F, _F, _P],
                "carla_decode_occupancy": [_I] * 4 + [_P]}
 
 # (device, dtype code, heads per kv head, dh) -> blocks the card holds at once
 _slots: dict[tuple, int] = {}
 
 
-def decode_attention_plain(q, cache_k, cache_v, pos) -> torch.Tensor:
+def decode_attention_plain(q, cache_k, cache_v, pos, *, window: int = 0,
+                           softcap: float = 0.0) -> torch.Tensor:
     """The kernel's function in plain PyTorch (fp32 math, q's dtype)."""
-    return decode_attention_ref(q, cache_k, cache_v, pos).to(q.dtype)
+    return decode_attention_ref(q, cache_k, cache_v, pos, window=window,
+                                softcap=softcap).to(q.dtype)
 
 
 class DecodePlan(NamedTuple):
@@ -78,7 +85,8 @@ def _resident_blocks(lib, device, code: int, h: int, kh: int, dh: int) -> int:
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+                     cache_v: torch.Tensor, pos: torch.Tensor, *,
+                     window: int = 0, softcap: float = 0.0) -> torch.Tensor:
     """q: (B, H, dh); cache: (B, S, Kh, dh); pos: (B,) int -> (B, H, dh)."""
     b, h, dh = q.shape
     b2, s, kh, dh2 = cache_k.shape
@@ -88,7 +96,8 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                          f"{tuple(cache_k.shape)}/{tuple(cache_v.shape)}, "
                          f"pos {tuple(pos.shape)} do not agree")
     if q.device.type == "cpu":
-        return decode_attention_plain(q, cache_k, cache_v, pos)
+        return decode_attention_plain(q, cache_k, cache_v, pos,
+                                      window=window, softcap=softcap)
     if dh not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {dh} not in "
                          f"{HEAD_DIMS}")
@@ -108,7 +117,8 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         err = lib.carla_decode_attention(
             code, q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
             pos.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
-            b, s, h, kh, dh, plan.splits, plan.split_tiles, dh ** -0.5,
+            b, s, h, kh, dh, plan.splits, plan.split_tiles, int(window),
+            dh ** -0.5, float(softcap),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1

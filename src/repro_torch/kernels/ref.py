@@ -106,11 +106,29 @@ def _softmax_out(sc: torch.Tensor, v: torch.Tensor, spec: str):
     return acc, l
 
 
+FLASH_REF_ROWS = 2048   # query rows the plain flash scores at once
+
+
 def flash_attention_ref(q, k, v, *, window: int = 0,
                         softcap: float = 0.0) -> torch.Tensor:
     """Causal GQA attention.  q: (B, T, H, dh); k/v: (B, S, Kh, dh) -> fp32
     (B, T, H, dh).  Key j is visible to query t when j <= t and, with a
-    window, j > t - window; scores are soft-capped before the mask."""
+    window, j > t - window; scores are soft-capped before the mask.  Each
+    row's softmax is its own, so a long T is scored ``FLASH_REF_ROWS`` query
+    rows at a time (the same math, a bounded (T, S) score block)."""
+    t = q.shape[1]
+    if t > FLASH_REF_ROWS:
+        # keys past a block's last row are masked: leave them out
+        return torch.cat([
+            _flash_rows(q[:, t0:t0 + FLASH_REF_ROWS],
+                        k[:, :t0 + FLASH_REF_ROWS], v[:, :t0 + FLASH_REF_ROWS],
+                        t0, window, softcap)
+            for t0 in range(0, t, FLASH_REF_ROWS)], dim=1)
+    return _flash_rows(q, k, v, 0, window, softcap)
+
+
+def _flash_rows(q, k, v, t0: int, window: int, softcap: float):
+    """Query rows t0 .. t0 + T - 1 of flash_attention_ref."""
     b, t, h, dh = q.shape
     s, kh = k.shape[1], k.shape[2]
     qg = q.reshape(b, t, kh, h // kh, dh)
@@ -119,7 +137,7 @@ def flash_attention_ref(q, k, v, *, window: int = 0,
     sc = sc * dh ** -0.5
     if softcap and softcap > 0:
         sc = softcap * torch.tanh(sc / softcap)
-    qpos = torch.arange(t, device=q.device)[:, None]
+    qpos = t0 + torch.arange(t, device=q.device)[:, None]
     kpos = torch.arange(s, device=q.device)[None, :]
     ok = kpos <= qpos
     if window and window > 0:
@@ -130,18 +148,25 @@ def flash_attention_ref(q, k, v, *, window: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, dh)
 
 
-def decode_attention_ref(q, cache_k, cache_v, pos) -> torch.Tensor:
+def decode_attention_ref(q, cache_k, cache_v, pos, *, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
     """One query per sequence against its cache.  q: (B, H, dh); cache:
     (B, S, Kh, dh); pos: (B,) int -> fp32 (B, H, dh); key j is visible to
-    sequence b when j <= pos[b]."""
+    sequence b when j <= pos[b] and, with a window, j > pos[b] - window;
+    scores are soft-capped before the mask."""
     b, h, dh = q.shape
     s, kh = cache_k.shape[1], cache_k.shape[2]
     qg = q.reshape(b, kh, h // kh, dh)
     with _exact_fp32(q):
         sc = torch.einsum("bkgd,bskd->bkgs", qg.float(), cache_k.float())
     sc = sc * dh ** -0.5
-    kpos = torch.arange(s, device=q.device)
-    ok = kpos[None, :] <= pos.to(q.device).long()[:, None]           # (B, S)
+    if softcap and softcap > 0:
+        sc = softcap * torch.tanh(sc / softcap)
+    kpos = torch.arange(s, device=q.device)[None, :]
+    p = pos.to(q.device).long()[:, None]
+    ok = kpos <= p                                                   # (B, S)
+    if window and window > 0:
+        ok = ok & (kpos > p - window)
     sc = torch.where(ok[:, None, None, :], sc, NEG_INF)
     acc, l = _softmax_out(sc, cache_v, "bkgs,bskd->bkgd")
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).reshape(b, h, dh)

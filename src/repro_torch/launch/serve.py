@@ -6,8 +6,9 @@
 The port of ``repro.launch.serve``: random weights from seed 0, random
 prompts, one prefill, then ``gen - 1`` decode steps that update the cache
 in place; it prints the prefill time, the decode time per token and a
-sample.  On CUDA (the default device) the attention and Mamba2 conv run
-through the hand-written kernels.  ``--metrics-port`` serves the loop's
+sample; every arch of ``configs.ARCHS`` is served.  On CUDA (the default
+device) the attention (prefill and decode) and the depthwise convs (Mamba2's
+short conv, RWKV-6's token shift) run through the hand-written kernels.  ``--metrics-port`` serves the loop's
 Prometheus metrics (prefill and per-token latencies, prompt and generated
 token counts) and ``--event-log`` appends ``serve.prefill`` and
 ``serve.complete`` events, as ``repro.launch.serve``'s flags do.  ``--mesh``

@@ -10,11 +10,10 @@ kernel (``kernels.flash_attention``): both reference paths compute the same
 function, and the kernel's plain version runs on the CPU or with
 ``impl="ref"``.  ``attention_decode`` writes the new token's k/v into the
 cache in place (the reference returns a new cache) and calls the decode
-kernel, which, like the Pallas one, takes only the causal mask ``kpos <=
-pos``: windowed and soft-capped decode raise NotImplementedError.  The
+kernel, which takes the soft-cap, a window over a linear cache, and, through
+the position it is given, a rolling cache (``rolling_window``).  The
 attention operands go to the kernels in the activations' dtype (``repro``'s
-default ``bf16_attn_io``); caches are never rolling windows, since every
-layer that would need one raises in decode.
+default ``bf16_attn_io``).
 """
 from __future__ import annotations
 
@@ -110,17 +109,25 @@ def attention(params, x, *, n_heads: int, n_kv_heads: int, d_head: int,
 def attention_decode(params, x, cache_k, cache_v, pos, *, n_heads: int,
                      n_kv_heads: int, d_head: int, rope_theta: float = 1e4,
                      window: int = 0, attn_softcap: float = 0.0,
-                     mrope_sections=None, impl: str = "auto"):
+                     mrope_sections=None, rolling_window: int = 0,
+                     impl: str = "auto"):
     """One-token decode.  x: (B, 1, d); cache_{k,v}: (B, S, Kh, dh); pos: (B,).
 
-    Writes this token's k/v at slot ``pos`` of the cache in place and returns
-    (out, cache_k, cache_v) — the same cache tensors, updated.
+    Writes this token's k/v into the cache in place and returns (out,
+    cache_k, cache_v) — the same cache tensors, updated.
+
+    A linear cache (``rolling_window`` 0) holds position j in slot j: the
+    new k/v go to slot ``pos`` (which must be < S), and the kernel masks
+    keys past ``pos`` and, with a ``window``, keys at or before ``pos -
+    window``.  With ``rolling_window`` W > 0 the cache is a ring of W slots
+    (a sliding-window layer's, ``W = min(window, max_seq)``): the new k/v go
+    to slot ``pos % W``, and slot s holds the token at position ``pos -
+    ((pos - s) mod W)``, a real token exactly when ``s <= min(pos, W -
+    1)`` (before the ring fills, the slots past ``pos`` are empty; after,
+    all W slots hold the window).  So the kernel is given ``min(pos, W -
+    1)`` as the position and no window: its causal mask is then the ring's,
+    and softmax does not depend on the keys' order.
     """
-    if (window and window > 0) or (attn_softcap and attn_softcap > 0):
-        raise NotImplementedError(
-            "attention_decode: windowed and soft-capped decode (gemma2, "
-            "mixtral) are not ported; the decode kernel, like the Pallas one, "
-            "takes only the causal mask (ROADMAP.md, Queue 1)")
     b = x.shape[0]
     q, k, v = _qkv(params, x, n_heads, n_kv_heads, d_head)
     posb = pos[:, None]                                    # (B, 1)
@@ -132,11 +139,17 @@ def attention_decode(params, x, cache_k, cache_v, pos, *, n_heads: int,
         q = apply_rope(q, posb, rope_theta)
         k = apply_rope(k, posb, rope_theta)
 
+    if rolling_window:
+        slot = (pos % rolling_window).long()
+        kpos, window = torch.clamp(pos, max=rolling_window - 1), 0
+    else:
+        slot, kpos = pos.long(), pos
     rows = torch.arange(b, device=x.device)
-    cache_k[rows, pos.long()] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, pos.long()] = v[:, 0].to(cache_v.dtype)
+    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
 
     fn = (_decode.decode_attention if resolve(impl, x) == "cuda"
           else _decode.decode_attention_plain)
-    out = fn(q[:, 0], cache_k, cache_v, pos.to(torch.int32)).to(x.dtype)
+    out = fn(q[:, 0], cache_k, cache_v, kpos.to(torch.int32),
+             window=int(window), softcap=attn_softcap).to(x.dtype)
     return dense(params["wo"], out.reshape(b, 1, -1), x.dtype), cache_k, cache_v

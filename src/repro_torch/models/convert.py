@@ -55,9 +55,11 @@ def lm_params_from_numpy(tree, *, device="cuda"):
     parameters on ``device``.
 
     The structure is kept as it is: ``blocks/p<i>`` leaves keep their
-    leading group axis, ``shared_attn`` and ``embed`` their own shapes.
-    Leaves stay fp32 (the master dtype), and every dense weight and the
-    embedding table gain a bf16 copy (``layers.with_compute_copies``).
+    leading group axis (MoE experts their expert axis after it; RWKV-6's
+    ``mix`` dict its raw ``wA``/``wB``/``u`` tensors), ``shared_attn`` and
+    ``embed`` their own shapes.  Leaves stay fp32 (the master dtype), and
+    every dense weight, the embedding table and the stacked expert weights
+    gain a bf16 copy (``layers.with_compute_copies``).
     """
     missing = {"embed", "final_norm", "blocks"} - set(tree)
     if missing:

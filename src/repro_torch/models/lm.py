@@ -1,13 +1,14 @@
-"""Decoder LM: prefill and decode for the attention and Mamba2 stacks
-(port of ``repro.models.lm``).
+"""Decoder LM: prefill and decode for all ten architectures (port of
+``repro.models.lm``): attention blocks (dense FFN, MoE, MoE with a shared
+expert), Mamba2 blocks with zamba2's shared attention, and RWKV-6 blocks.
 
 A network is a stack of *groups*, each a short static sequence of block
-templates (gemma2's local/global alternation, zamba2's shared-attention
-period).  Parameters keep ``repro``'s pytree as nested dicts: every
-``params["blocks"]["p<i>"]`` leaf carries a leading group axis, and where
-``repro`` scans over groups (``lax.scan``) this module loops over that axis
-in Python.  The cache has the same layout, and ``decode_step`` updates it in
-place (``repro`` returns a new one).
+templates (gemma2's local/global alternation, llama4's interleaved MoE,
+zamba2's shared-attention period).  Parameters keep ``repro``'s pytree as
+nested dicts: every ``params["blocks"]["p<i>"]`` leaf carries a leading
+group axis, and where ``repro`` scans over groups (``lax.scan``) this
+module loops over that axis in Python.  The cache has the same layout, and
+``decode_step`` updates it in place (``repro`` returns a new one).
 
 zamba2's shared attention block: ONE set of attention+FFN weights applied
 after every group of Mamba2 blocks, with a per-group KV cache.
@@ -18,11 +19,13 @@ Entry points: ``init_params`` (random weights drawn on the target device;
 kernels (``"cuda"``), their plain versions (``"ref"``) or by device
 (``"auto"``), as ``kernels.ops`` does.  ``dtype`` is the activations' and
 caches' dtype, ``COMPUTE_DTYPE`` (bf16) as in ``repro``; an fp32 run of the
-plain engine is the reference the bf16 engines are measured against.  Every
-attention cache holds ``max_seq`` rows (``repro``'s ``windowed_local_cache``
-shortens windowed layers' caches, whose decode is not ported).  Not ported
-yet (ROADMAP.md): MoE blocks, RWKV-6 blocks, ``forward_train`` and
-``loss_fn``, sharding hints.
+plain engine is the reference the bf16 engines are measured against.  As in
+``repro`` (its default ``windowed_local_cache``), a sliding-window layer's
+cache is a ring of ``min(window, max_seq)`` slots holding position p in slot
+p % W (``_attn_cache_len``, ``_place_kv``); every other attention cache
+holds ``max_seq`` rows.  Serving drops the MoE layers' load-balancing
+loss, as ``repro``'s prefill does.  Not ported yet (ROADMAP.md):
+``forward_train`` and ``loss_fn``, sharding hints.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Any
 import torch
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .convert import resolve_device, tree_map
@@ -49,13 +53,25 @@ from .layers import (
 
 Params = Any
 COMPUTE_DTYPE = torch.bfloat16   # activations and KV caches
-_NOT_PORTED = ("{what} blocks are not ported to repro_torch yet "
-               "(ROADMAP.md, Queue 1)")
+
+
+def _attn_cache_len(cfg: ModelConfig, spec: dict, max_seq: int) -> int:
+    """Sliding-window layers keep a rolling window-sized cache (never store
+    or read keys the window mask cannot use); the others ``max_seq``."""
+    w = _attn_kwargs(cfg, spec)["window"]
+    return min(w, max_seq) if w and w > 0 else max_seq
 
 
 def _place_kv(buf, kv) -> None:
-    """Write prefill KV (B, T, Kh, dh) into one group's (B, S, Kh, dh) cache."""
-    buf[:, :kv.shape[1]] = kv
+    """Write prefill KV (B, T, Kh, dh) into one group's (B, W, Kh, dh) cache.
+
+    With T <= W the tokens take slots 0..T-1; a rolling buffer (W < T) gets
+    the last W tokens at slots pos % W, the tail rolled by (T - W) % W."""
+    w, t = buf.shape[1], kv.shape[1]
+    if t <= w:
+        buf[:, :t] = kv
+    else:
+        buf.copy_(torch.roll(kv[:, t - w:], (t - w) % w, dims=1))
 
 
 # ----------------------------- block templates -------------------------------
@@ -76,13 +92,6 @@ def _group_templates(cfg: ModelConfig) -> list[dict]:
     return out
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(_NOT_PORTED.format(what=f"{cfg.name}: MoE"))
-    if cfg.block_type == "rwkv6":
-        raise NotImplementedError(_NOT_PORTED.format(what=f"{cfg.name}: RWKV-6"))
-
-
 # ------------------------------- init ----------------------------------------
 def _init_block(cfg: ModelConfig, spec: dict, gen, dev) -> Params:
     if spec["kind"] == "attn":
@@ -94,10 +103,22 @@ def _init_block(cfg: ModelConfig, spec: dict, gen, dev) -> Params:
         if cfg.post_norm:
             p["ln1p"] = rmsnorm_init(cfg.d_model, device=dev)
             p["ln2p"] = rmsnorm_init(cfg.d_model, device=dev)
-        p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff,
-                            gated=cfg.ffn_type in ("swiglu", "geglu"),
-                            device=dev)
+        if spec["is_moe"]:
+            p["moe"] = moe_mod.moe_init(gen, cfg.n_experts, cfg.d_model,
+                                        cfg.d_ff, device=dev)
+            if cfg.n_shared_experts:
+                p["shared_ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff,
+                                           gated=True, device=dev)
+        else:
+            p["ffn"] = ffn_init(gen, cfg.d_model, cfg.d_ff,
+                                gated=cfg.ffn_type in ("swiglu", "geglu"),
+                                device=dev)
         return p
+    if spec["kind"] == "rwkv6":
+        return {"ln1": rmsnorm_init(cfg.d_model, device=dev),
+                "ln2": rmsnorm_init(cfg.d_model, device=dev),
+                "mix": ssm_mod.rwkv6_init(gen, cfg.d_model, cfg.n_heads,
+                                          d_ff=cfg.d_ff, device=dev)}
     return {"ln1": rmsnorm_init(cfg.d_model, device=dev),
             "mamba": ssm_mod.mamba2_init(gen, cfg.d_model, cfg.ssm_state,
                                          head_dim=cfg.ssm_head_dim,
@@ -119,7 +140,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None, *,
     0 on ``device``), so a CUDA generator makes full-width weights on the
     card.  The default CUDA device raises without a card.
     """
-    _check_ported(cfg)
     dev = resolve_device(device)
     gen = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
@@ -156,18 +176,45 @@ def _attn_kwargs(cfg: ModelConfig, spec: dict) -> dict:
                 mrope_sections=cfg.mrope_sections)
 
 
-def _apply_ffn_part(cfg, bp, x):
-    """FFN half of an attn block (dense FFN; MoE is not ported)."""
+def _apply_ffn_part(cfg, spec, bp, x):
+    """FFN / MoE half of an attn block (serving drops the MoE's aux loss)."""
     h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    y = ffn(bp["ffn"], h, activation="gelu" if cfg.ffn_type == "geglu"
-            else "silu")
+    if spec["is_moe"]:
+        y, _ = moe_mod.moe_ffn(bp["moe"], h, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor)
+        if cfg.n_shared_experts:
+            y = y + ffn(bp["shared_ffn"], h, activation="silu")
+    else:
+        y = ffn(bp["ffn"], h, activation="gelu" if cfg.ffn_type == "geglu"
+                else "silu")
     if cfg.post_norm:
         y = rmsnorm(bp["ln2p"], y, cfg.norm_eps)
     return y
 
 
+def _rwkv6_block(cfg, bp, x, c, impl):
+    """An RWKV-6 block over x (B, T, d) from the carried state c (None:
+    zeros, as in prefill).  Returns (x, cache entry)."""
+    b = x.shape[0]
+    if c is None:
+        dh = cfg.d_model // cfg.n_heads
+        c = {"wkv": torch.zeros((b, cfg.n_heads, dh, dh), device=x.device),
+             "sx_t": None, "sx_c": None}
+    h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    y, last_t, s = ssm_mod.rwkv6_time_mix(bp["mix"], h, c["sx_t"], c["wkv"],
+                                          n_heads=cfg.n_heads, impl=impl)
+    x = x + y
+    h2 = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    y2, last_c = ssm_mod.rwkv6_channel_mix(bp["mix"], h2, c["sx_c"],
+                                           impl=impl)
+    return x + y2, {"wkv": s, "sx_t": last_t.float(),
+                    "sx_c": last_c.float()}
+
+
 def _apply_block_full(cfg, spec, bp, x, impl):
     """Full-sequence block.  Returns (x, cache entry)."""
+    if spec["kind"] == "rwkv6":
+        return _rwkv6_block(cfg, bp, x, None, impl)
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if spec["kind"] == "attn":
         y, (k, v) = attn_mod.attention(bp["attn"], h, impl=impl,
@@ -175,7 +222,7 @@ def _apply_block_full(cfg, spec, bp, x, impl):
         if cfg.post_norm:
             y = rmsnorm(bp["ln1p"], y, cfg.norm_eps)
         x = x + y
-        return x + _apply_ffn_part(cfg, bp, x), {"k": k, "v": v}
+        return x + _apply_ffn_part(cfg, spec, bp, x), {"k": k, "v": v}
     y, (s, cs) = ssm_mod.mamba2(bp["mamba"], h, d_state=cfg.ssm_state,
                                 head_dim=cfg.ssm_head_dim, return_state=True,
                                 impl=impl)
@@ -217,7 +264,6 @@ def _group(tree, g: int):
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
                device="cuda", dtype=COMPUTE_DTYPE) -> Params:
     """Zeroed decode cache matching the group/block structure."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     g, b, dh = cfg.n_groups, batch_size, cfg.d_head
 
@@ -227,8 +273,14 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
     cache = {}
     for p, spec in enumerate(_group_templates(cfg)):
         if spec["kind"] == "attn":
-            c = {n: zeros(g, b, max_seq, cfg.n_kv_heads, dh, dtype=dtype)
+            s_p = _attn_cache_len(cfg, spec, max_seq)
+            c = {n: zeros(g, b, s_p, cfg.n_kv_heads, dh, dtype=dtype)
                  for n in ("k", "v")}
+        elif spec["kind"] == "rwkv6":
+            hd = cfg.d_model // cfg.n_heads
+            c = {"wkv": zeros(g, b, cfg.n_heads, hd, hd),
+                 "sx_t": zeros(g, b, 1, cfg.d_model),
+                 "sx_c": zeros(g, b, 1, cfg.d_model)}
         else:
             d_inner = 2 * cfg.d_model
             n_h = d_inner // cfg.ssm_head_dim
@@ -257,8 +309,8 @@ def prefill(cfg: ModelConfig, params: Params, batch, max_seq: int, *,
                 for n in ("k", "v"):
                     _place_kv(cache[key][n][g], c[n])
             else:
-                for n in ("ssm", "conv"):
-                    cache[key][n][g].copy_(c[n])
+                for n, t in c.items():
+                    cache[key][n][g].copy_(t)
         if cfg.hybrid_attn_period:
             x, cs = _apply_shared_attn_full(cfg, params["shared_attn"], x,
                                             impl)
@@ -271,15 +323,22 @@ def prefill(cfg: ModelConfig, params: Params, batch, max_seq: int, *,
 # ------------------------------ decode step ----------------------------------
 def _apply_block_decode(cfg, spec, bp, x, c, pos, impl):
     """One-token block step; updates c (this block's cache slice) in place."""
+    if spec["kind"] == "rwkv6":
+        x, nc = _rwkv6_block(cfg, bp, x, c, impl)
+        for n, t in nc.items():
+            c[n].copy_(t)
+        return x
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if spec["kind"] == "attn":
+        kw = _attn_kwargs(cfg, spec)
+        rolling = c["k"].shape[1] if kw["window"] > 0 else 0
         y, _, _ = attn_mod.attention_decode(
-            bp["attn"], h, c["k"], c["v"], pos, impl=impl,
-            **_attn_kwargs(cfg, spec))
+            bp["attn"], h, c["k"], c["v"], pos, rolling_window=rolling,
+            impl=impl, **kw)
         if cfg.post_norm:
             y = rmsnorm(bp["ln1p"], y, cfg.norm_eps)
         x = x + y
-        return x + _apply_ffn_part(cfg, bp, x)
+        return x + _apply_ffn_part(cfg, spec, bp, x)
     y, s, cs = ssm_mod.mamba2_decode(bp["mamba"], h, c["ssm"], c["conv"],
                                      d_state=cfg.ssm_state,
                                      head_dim=cfg.ssm_head_dim)

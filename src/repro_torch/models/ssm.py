@@ -1,12 +1,19 @@
-"""Mamba2 (SSD), the attention-free mixer of zamba2 (port of the Mamba2 half
-of ``repro.models.ssm``; the RWKV-6 half waits, see ROADMAP.md).
+"""Attention-free mixers (port of ``repro.models.ssm``):
 
-O(T) in sequence length: prefill uses the chunked SSD form, decode one
-recurrent step against an O(1) state.  The short causal conv (d_conv = 4) is
-a depthwise causal conv, which runs through ``kernels.ops.conv1d_causal``
-(the CUDA kernel on CUDA tensors; the reference calls its ``jnp`` oracle).
-Casts follow ``repro``: projections in the activation dtype (bf16), silu,
-softplus and the gated RMSNorm in fp32.
+* Mamba2 (SSD), zamba2's mixer.  O(T) in sequence length: prefill uses the
+  chunked SSD form, decode one recurrent step against an O(1) state.  The
+  short causal conv (d_conv = 4) is a depthwise causal conv, which runs
+  through ``kernels.ops.conv1d_causal`` (the CUDA kernel on CUDA tensors;
+  the reference calls its ``jnp`` oracle).  Casts follow ``repro``:
+  projections in the activation dtype (bf16), silu, softplus and the gated
+  RMSNorm in fp32.
+* RWKV-6 (Finch), rwkv6-1.6b's mixer: the WKV recurrence with
+  data-dependent decay, chunked (``_wkv_chunked``, chunks of
+  ``RWKV_CHUNK`` tokens) where ``repro`` takes its chunked form (T > 1 and
+  a multiple of the chunk, or T <= the chunk) and per token otherwise
+  (decode).  The token shift ``lerp(x_{t-1}, x_t, mu)`` is a depthwise
+  causal conv with taps ``(1 - mu, mu)``, so it runs through the conv1d
+  kernel at FL 2.
 """
 from __future__ import annotations
 
@@ -164,3 +171,158 @@ def mamba2_decode(params, x, state, conv_state, *, d_state: int,
     y = y + params["D"][None, :, None] * xh
     y = _gated_norm(y.reshape(b, 1, d_inner), z, params["norm_g"], x.dtype)
     return dense(params["out_proj"], y, x.dtype), state, new_conv_state
+
+
+# ------------------------------- RWKV-6 --------------------------------------
+RWKV_CHUNK = 512                 # repro's perf rwkv_chunk
+# repro's bf16_attn_io: the chunked form's einsum operands are rounded to
+# bf16 and multiplied with fp32 accumulation, whatever the activations' dtype
+WKV_IO_DTYPE = torch.bfloat16
+
+
+def rwkv6_init(gen, d_model: int, n_heads: int, *, d_ff: int | None = None,
+               decay_rank: int = 64, device="cpu"):
+    d_ff = d_ff if d_ff is not None else 4 * d_model
+    dh = d_model // n_heads
+    s = d_model ** -0.5
+    lin = lambda d_in, d_out: dense_init(gen, d_in, d_out, device=device)
+    return {
+        "mu_x": torch.full((d_model,), 0.5, device=device),  # time-mix lerp
+        "wr": lin(d_model, d_model),
+        "wk": lin(d_model, d_model),
+        "wv": lin(d_model, d_model),
+        "wg": lin(d_model, d_model),
+        "wo": lin(d_model, d_model),
+        # data-dependent decay (Finch): w_t = w0 + tanh(x A) B
+        "w0": torch.full((d_model,), -6.0, device=device),
+        "wA": normal(gen, (d_model, decay_rank), s, device),
+        "wB": normal(gen, (decay_rank, d_model), decay_rank ** -0.5, device),
+        "u": normal(gen, (n_heads, dh), 0.1, device),
+        "ln_g": torch.ones(d_model, device=device),
+        # channel mix
+        "mu_c": torch.full((d_model,), 0.5, device=device),
+        "ck": lin(d_model, d_ff),
+        "cv": lin(d_ff, d_model),
+        "cr": lin(d_model, d_model),
+    }
+
+
+def _token_shift(x, prev, mu, impl: str = "auto"):
+    """lerp(x_{t-1}, x_t, mu) with x_{-1} = prev (b, 1, d), or 0 when prev
+    is None: a depthwise causal conv with taps (1 - mu, mu), mu rounded to
+    x's dtype as ``repro`` rounds it.  A carried prev is prepended and its
+    own row dropped from the output."""
+    m = mu.to(x.dtype).float()
+    w = torch.stack([1.0 - m, m])                              # (2, d)
+    if prev is None:
+        return ops.conv1d_causal(x, w, impl=impl)
+    xp = torch.cat([prev.to(x.dtype), x], dim=1)
+    return ops.conv1d_causal(xp, w, impl=impl)[:, 1:]
+
+
+def _io(z):
+    """A chunked einsum operand: rounded to WKV_IO_DTYPE, used in fp32."""
+    return z.to(WKV_IO_DTYPE).float()
+
+
+def _wkv_chunked(r, k, v, log_decay, u, state, chunk: int):
+    """Chunked-parallel WKV6 (GLA-style).
+
+    r/k/v/log_decay: (b, T, H, D) fp32; u: (H, D); state: (b, H, D, E) fp32.
+    Per chunk, with C the inclusive cumsum of log_decay (<= 0) and E the
+    exclusive one, the intra-chunk weights are
+    ``A[t, i] = (r e^E)(k e^-C)^T`` for i < t; ``e^-C`` is clipped at
+    ``e^30`` (error only where the true weight underflows to zero anyway).
+    ``repro`` multiplies bf16 operands with fp32 accumulation
+    (``preferred_element_type``): here the operands are rounded to bf16 and
+    multiplied in fp32, where a bf16 matmul would round its output.
+    Returns ((b, T, H, E), final state).
+    """
+    b, t, h, d = r.shape
+    e_dim = v.shape[-1]
+    nc = t // chunk
+    rc, kc, wc = (z.reshape(b, nc, chunk, h, d) for z in (r, k, log_decay))
+    vc = v.reshape(b, nc, chunk, h, e_dim)
+
+    C = torch.cumsum(wc, dim=2)                      # inclusive (b,nc,L,H,D)
+    E = C - wc                                       # exclusive
+    r_tilde = rc * torch.exp(E)
+    k_tilde = kc * torch.exp(torch.clamp(-C, max=30.0))
+    k_hat = kc * torch.exp(C[:, :, -1:] - C)         # <= 1, safe
+    v_io = _io(vc)
+
+    # intra-chunk: strict-lower-triangular attention + diagonal u bonus
+    A = torch.einsum("bcthd,bcihd->bchti", _io(r_tilde), _io(k_tilde))
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    A = torch.where(tri, A, 0.0)
+    y = torch.einsum("bchti,bcihe->bcthe", _io(A), v_io)
+    diag = torch.einsum("bcthd,hd->bcth", rc * kc, u)
+    y = y + diag[..., None] * vc
+
+    # inter-chunk: a loop over the chunks carrying the state
+    decay_chunk = torch.exp(C[:, :, -1])             # (b,nc,H,D)
+    states = torch.einsum("bcihd,bcihe->bchde", _io(k_hat), v_io)
+    y_inter = []
+    for c in range(nc):
+        y_inter.append(torch.einsum("bthd,bhde->bthe", r_tilde[:, c], state))
+        state = state * decay_chunk[:, c][..., None] + states[:, c]
+    y = y + torch.stack(y_inter, dim=1)
+    return y.reshape(b, t, h, e_dim), state
+
+
+def _wkv_recurrent(r, k, v, log_decay, u, state):
+    """The per-token WKV6 recurrence (decode, and T off the chunk), fp32.
+    Returns ((b, T, H, E), final state)."""
+    outs = []
+    for i in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, i], v[:, i])   # (b,H,dk,dv)
+        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, i],
+                                 state + u[None, :, :, None] * kv))
+        state = state * torch.exp(log_decay[:, i])[..., None] + kv
+    return torch.stack(outs, dim=1), state
+
+
+def rwkv6_time_mix(params, x, prev_x, state, *, n_heads: int,
+                   impl: str = "auto"):
+    """WKV6 recurrence.  x: (b, T, d); prev_x: (b, 1, d) or None (zeros);
+    state: (b, H, dk, dv) fp32.  Returns (out, last_x, new_state)."""
+    b, t, d = x.shape
+    dh = d // n_heads
+    xs = _token_shift(x, prev_x, params["mu_x"], impl)
+
+    r = dense(params["wr"], xs, x.dtype).reshape(b, t, n_heads, dh)
+    k = dense(params["wk"], xs, x.dtype).reshape(b, t, n_heads, dh)
+    v = dense(params["wv"], xs, x.dtype).reshape(b, t, n_heads, dh)
+    g = dense(params["wg"], xs, x.dtype)
+
+    # data-dependent decay (the Finch contribution)
+    wlow = torch.tanh(xs.float() @ params["wA"]) @ params["wB"]
+    w = params["w0"] + wlow                                    # (b,T,d)
+    log_decay = -torch.exp(w.reshape(b, t, n_heads, dh))       # <= 0
+
+    rf, kf, vf = r.float(), k.float(), v.float()
+    c = min(RWKV_CHUNK, t)
+    if t > 1 and t % c == 0:
+        out, state = _wkv_chunked(rf, kf, vf, log_decay, params["u"], state,
+                                  c)
+    else:
+        out, state = _wkv_recurrent(rf, kf, vf, log_decay, params["u"],
+                                    state)
+    out = out.reshape(b, t, d)
+
+    # group-norm-ish over d + silu(g) gate, in fp32
+    rms = torch.rsqrt(torch.mean(out * out, dim=-1, keepdim=True) + 1e-6)
+    out = out * rms * params["ln_g"]
+    out = (out * F.silu(g.float())).to(x.dtype)
+    return dense(params["wo"], out, x.dtype), x[:, -1:], state
+
+
+def rwkv6_channel_mix(params, x, prev_x, *, impl: str = "auto"):
+    """x: (b, T, d); prev_x: (b, 1, d) or None.  Returns (out, last_x)."""
+    xs = _token_shift(x, prev_x, params["mu_c"], impl)
+    k = dense(params["ck"], xs, x.dtype)
+    k = torch.square(F.relu(k.float())).to(x.dtype)
+    r = torch.sigmoid(dense(params["cr"], xs, x.dtype).float())
+    return ((r * dense(params["cv"], k, x.dtype).float()).to(x.dtype),
+            x[:, -1:])

@@ -11,6 +11,7 @@ so a tuned plan changes the spans and the plan, never the numbers: outputs
 are compared to the plain result exactly (tolerance 0).
 """
 import json
+import shutil
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -126,7 +127,31 @@ def test_tileconfig_roundtrip_and_labels():
 
 
 def test_kernel_signature_hash_is_the_sources_hash():
-    assert autotune.kernel_signature_hash() == _build.source_hash()
+    """A table's hash covers what its plans depend on: the tunable CNN
+    kernels' sources and headers and the nvcc flags, not every source."""
+    assert set(autotune.TUNED_SOURCES) == {
+        "conv2d.cu", "matmul.cu", "gemm_pipe.cuh", "numeric.cuh", "ptx.cuh"}
+    assert autotune.kernel_signature_hash() == _build.source_hash(
+        autotune.TUNED_SOURCES)
+    assert autotune.kernel_signature_hash() != _build.source_hash()
+
+
+def test_kernel_signature_hash_ignores_other_kernels(tmp_path, monkeypatch):
+    """On copies of csrc/: an edit of the decode kernel leaves the tables'
+    hash as it is, an edit of the CNN loop changes it; the build
+    directory's hash follows both."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    table0, build0 = autotune.kernel_signature_hash(), _build.source_hash()
+    with open(csrc / "decode_attention.cu", "a") as f:
+        f.write("\n// edited\n")
+    table1, build1 = autotune.kernel_signature_hash(), _build.source_hash()
+    assert table1 == table0 and build1 != build0
+    with open(csrc / "gemm_pipe.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert autotune.kernel_signature_hash() != table0
+    assert _build.source_hash() != build1
 
 
 # ------------------------------ candidates -----------------------------------
@@ -236,7 +261,7 @@ def test_stale_table_rejected_and_reported(iso):
     assert autotune.lookup(key) is None
     (stale,) = autotune.stale_tables()
     assert stale["table_hash"] == "deadbeef00000000"
-    assert stale["current_hash"] == _build.source_hash()
+    assert stale["current_hash"] == autotune.kernel_signature_hash()
     assert stale["path"].endswith("old.json")
 
 
@@ -261,7 +286,8 @@ def test_save_user_cache_merges(iso):
     assert autotune.lookup(k2).config == TileConfig(2, 1)
     doc = json.loads(open(path).read())
     assert (doc["backend"], doc["device"], doc["kernel_hash"]) == (
-        autotune.backend(), autotune.device_name(), _build.source_hash())
+        autotune.backend(), autotune.device_name(),
+        autotune.kernel_signature_hash())
     assert set(doc) >= {"power_limit", "entries", "version"}
 
 
@@ -269,7 +295,8 @@ def test_committed_tables_carry_the_current_hash():
     """A table under kernels/tuned/ was measured with today's sources."""
     for path in sorted(Path(autotune.tables_dir()).glob("*.json")):
         doc = json.loads(path.read_text())
-        assert doc["kernel_hash"] == _build.source_hash(), path.name
+        assert doc["kernel_hash"] == autotune.kernel_signature_hash(), \
+            path.name
         assert doc["backend"] == "cuda" and "H100" in doc["device"]
 
 

@@ -45,7 +45,8 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.launch.tune, repro_torch.observability.report, "
             "repro_torch.observability.export, "
             "repro_torch.observability.prom, "
-            "repro_torch.observability.events; "
+            "repro_torch.observability.events, repro_torch.models.moe, "
+            "repro_torch.serving.scheduler, repro_torch.configs.shapes; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")

@@ -10,7 +10,8 @@ runs its plain engine on the CPU.  Tolerances, stated per check:
   outputs to bf16, in different summation orders, so single values may land
   on the neighbouring bf16 value and carry into the next layer.
 * whole prefill/decode logits against ``repro`` (bf16 activations through
-  every layer): 2e-2·max(1, max|ref|).  The smoke logits reach about 0.5
+  every layer): 2e-2·max(1, max|ref|); with fp32 activations on both sides
+  (the wiring), logits and every cache entry 1e-4·max(1, max|ref|).  The smoke logits reach about 0.5
   and differ by a few bf16 steps (about 6e-3): the port's attention runs the
   flash kernel's plain version where ``repro`` runs its dense masked softmax
   (T <= 1024), which rounds p to bf16 before normalising, not after.
@@ -183,11 +184,12 @@ def test_mamba2_decode_matches():
 
 
 # ------------------------- whole prefill / decode ----------------------------
-# Every arch whose blocks are ported; decode is ported for all but gemma2
-# (windowed and soft-capped decode wait in ROADMAP.md, Queue 1).
+# All ten archs, prefill and decode.  gemma2's and mixtral's smoke window is
+# 16 = T: decode at pos T wraps their rings to slot 0.
 LM_ARCHS = ["zamba2-2.7b", "smollm-135m", "gemma2-9b", "granite-3-2b",
-            "qwen2-vl-7b", "musicgen-large", "smollm-360m"]
-DECODE_ARCHS = [a for a in LM_ARCHS if a != "gemma2-9b"]
+            "qwen2-vl-7b", "musicgen-large", "smollm-360m", "mixtral-8x7b",
+            "llama4-maverick-400b-a17b", "rwkv6-1.6b"]
+DECODE_ARCHS = LM_ARCHS
 B, T = 2, 16
 
 
@@ -228,10 +230,6 @@ def test_prefill_and_decode_match_repro(arch):
     assert tuple(tl.shape) == jl.shape and tl.dtype == torch.bfloat16
     assert _err(tl, jl) <= 2e-2 * _scale(jl)
     jb, tb = _batch(cfg, inp, T, T + 1, pos=T)
-    if arch not in DECODE_ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_lm.decode_step(cfg, tp, tb, tc)
-        return
     jd, _ = j_lm.decode_step(jcfg, jp, jb, jc)
     td, tc2 = t_lm.decode_step(cfg, tp, tb, tc)
     assert tc2 is tc                      # the cache is updated in place
@@ -268,22 +266,67 @@ def test_kv_cache_holds_the_prefill_keys():
         assert _err(got, want) <= 2e-2 * _scale(want)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "rwkv6-1.6b",
-                                  "llama4-maverick-400b-a17b"])
-def test_unported_blocks_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_lm.init_params(get_config(arch, smoke=True), device="cpu")
+@pytest.mark.parametrize("arch", ["gemma2-9b", "mixtral-8x7b"])
+def test_rolling_caches_match_repro(arch):
+    """Prompts longer than the smoke window (16): the windowed layers'
+    caches are rings of 16 slots holding the last 16 tokens at slot pos %
+    16, ``repro``'s layout, in shape and (2e-2·max(1, max|ref|), the bf16
+    k/v of a few layers) in content; the global layers' caches hold
+    max_seq rows; then two decode steps against ``repro``'s."""
+    jcfg, cfg, jp, tp, _ = _setup(arch)
+    rng = np.random.default_rng(11)
+    t, max_seq = 21, 40
+    toks = rng.integers(0, cfg.vocab, (B, t + 2)).astype(np.int32)
+    jl, jc = j_lm.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :t])},
+                          max_seq=max_seq)
+    tl, tc = t_lm.prefill(cfg, tp, {"tokens": _t(toks[:, :t]).long()},
+                          max_seq=max_seq)
+    assert _err(tl, jl) <= 2e-2 * _scale(jl)
+    lengths = set()
+    for key in jc:
+        for n in ("k", "v"):
+            got, want = tc[key][n], jc[key][n]
+            assert tuple(got.shape) == want.shape, (key, n)
+            assert _err(got, want) <= 2e-2 * _scale(want), (key, n)
+            lengths.add(want.shape[2])
+    assert min(lengths) == cfg.window            # a ring of W slots
+    for i in range(2):
+        jb = {"token": jnp.asarray(toks[:, t + i:t + i + 1]),
+              "pos": jnp.full((B,), t + i, jnp.int32)}
+        tb = {"token": _t(toks[:, t + i:t + i + 1]).long(),
+              "pos": torch.full((B,), t + i, dtype=torch.int32)}
+        jd, jc = j_lm.decode_step(jcfg, jp, jb, jc)
+        td, tc = t_lm.decode_step(cfg, tp, tb, tc)
+        assert _err(td, jd) <= 2e-2 * _scale(jd)
+    for key in jc:
+        for n in ("k", "v"):
+            assert _err(tc[key][n], jc[key][n]) <= 2e-2 * _scale(jc[key][n])
 
 
-def test_windowed_decode_raises():
-    cfg = get_config("gemma2-9b", smoke=True)
-    params = t_lm.init_params(cfg, device="cpu")
-    _, cache = t_lm.prefill(cfg, params, {"tokens": torch.zeros(
-        (1, 4), dtype=torch.long)}, max_seq=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_lm.decode_step(cfg, params, {
-            "token": torch.zeros((1, 1), dtype=torch.long),
-            "pos": torch.full((1,), 4, dtype=torch.int32)}, cache)
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_fp32_prefill_decode_and_caches_match_repro(arch, monkeypatch):
+    """The wiring, with rounding out of the way: both packages run with
+    fp32 activations (``repro``'s ``COMPUTE_DTYPE`` patched to fp32; the
+    port's ``dtype=``), and the prefill logits, every cache entry (KV rings
+    and full caches, Mamba2 and RWKV-6 states) and one decode step's logits
+    agree within 1e-4·max(1, max|ref|) (fp32 sums in other orders; RWKV-6's
+    chunked products round their operands to bf16 on both sides)."""
+    monkeypatch.setattr(j_lm, "COMPUTE_DTYPE", jnp.float32)
+    jcfg, cfg, jp, tp, inp = _setup(arch)
+    jb, tb = _batch(cfg, inp, 0, T)
+    f32 = torch.float32
+    jl, jc = j_lm.prefill(jcfg, jp, jb, max_seq=T + 4)
+    tl, tc = t_lm.prefill(cfg, tp, tb, max_seq=T + 4, dtype=f32)
+    assert tl.dtype == f32 and _err(tl, jl) <= 1e-4 * _scale(jl)
+    for key in jc:
+        for n, want in jc[key].items():
+            got = tc[key][n]
+            assert got.dtype == f32 and tuple(got.shape) == want.shape
+            assert _err(got, want) <= 1e-4 * _scale(want), (key, n)
+    jb, tb = _batch(cfg, inp, T, T + 1, pos=T)
+    jd, _ = j_lm.decode_step(jcfg, jp, jb, jc)
+    td, _ = t_lm.decode_step(cfg, tp, tb, tc, dtype=f32)
+    assert _err(td, jd) <= 1e-4 * _scale(jd)
 
 
 def test_serve_runs_on_the_cpu(capsys):
@@ -292,6 +335,14 @@ def test_serve_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "prefill 8 tokens x2" in out and "decoded 4 tokens/seq" in out
     assert "sample:" in out
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "rwkv6-1.6b"])
+def test_serve_runs_the_moe_and_rwkv_archs_on_the_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--smoke", "--prompt-len", "20", "--gen",
+                "4", "--batch", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "prefill 20 tokens x2" in out and "decoded 4 tokens/seq" in out
 
 
 def test_generate_feeds_back_the_argmax():

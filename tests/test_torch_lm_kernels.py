@@ -31,6 +31,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import conv1d as t_conv1d
 from repro_torch.kernels import decode_attention as t_decode
 from repro_torch.kernels import flash_attention as t_flash
+from repro_torch.kernels import ref as t_ref
 from repro_torch.observability import trace as t_trace
 
 
@@ -145,6 +146,28 @@ def test_flash_attention_matches_pallas(b, t, h, kh, dh, win, cap, dtype):
     got = t_flash.flash_attention(tq, tk, tv, window=win, softcap=cap)
     assert got.dtype == tq.dtype and tuple(got.shape) == want.shape
     assert _err(got, want) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("win,cap", [(0, 0.0), (24, 30.0)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_flash_scored_in_row_blocks_matches_one_block(monkeypatch, win,
+                                                           cap, dtype):
+    """A T past ``FLASH_REF_ROWS`` is scored that many query rows at a time,
+    each block without the keys past its last row.  Cut to 20 rows at T 96
+    (the last block partial, the window spanning blocks), it equals one
+    unblocked score block (1e-6) and repro's Pallas kernel (ATTN_TOL)."""
+    rng = np.random.default_rng(96 + win)
+    q = rng.standard_normal((2, 96, 4, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 96, 2, 32)).astype(np.float32)
+    v = rng.standard_normal((2, 96, 2, 32)).astype(np.float32)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(a, dtype) for a in (q, k, v))
+    whole = t_ref._flash_rows(tq, tk, tv, 0, win, cap)
+    monkeypatch.setattr(t_ref, "FLASH_REF_ROWS", 20)
+    blocked = t_ref.flash_attention_ref(tq, tk, tv, window=win, softcap=cap)
+    assert tuple(blocked.shape) == tuple(whole.shape)
+    torch.testing.assert_close(blocked, whole, rtol=0, atol=1e-6)
+    want = j_flash(jq, jk, jv, window=win, softcap=cap, bq=32, bk=32)
+    assert _err(blocked, want) < ATTN_TOL[dtype]
 
 
 def test_flash_takes_ragged_lengths_the_pallas_wrapper_refuses():
