@@ -159,6 +159,51 @@ printing one JSON line:
              agreement, slot occupancy; the same run in fp32 must give the
              tokens of ``impl="ref"`` (a difference prints its request,
              step and top-2 logit margins).
+   train_kernels — (after flash_bf16_faults) the autograd Functions of
+             the two kernels on the training path, ``FlashAttention`` and
+             ``Conv1dCausal`` (``train_kernel_cases``: flash at smollm's and
+             zamba2's heads, dh 64 and 80, one case windowed and soft-capped;
+             conv1d at FL 4 on a strided slice and FL 2), fp32 and bf16: the
+             forward equal to the kernel's own launch, bit for bit; every
+             input's gradient under a random cotangent against autograd
+             through the plain version in one piece, within fp32 1e-4 x
+             max(1, max|ref|), bf16 2^-6 x max(1, max|ref|) (the Function's
+             backward differentiates the plain version by blocks of query
+             rows, rounding each block's gradient to bf16 before the sum);
+             a planted fault (dv of the last KV head zeroed) must fail
+             every flash case.
+   train_smollm — smollm-360m trained at full width and depth (32 layers,
+             d_model 960, 15 heads over 5 of 64, d_ff 2560, vocab 49152,
+             tied) through ``launch.steps.make_train_step`` and
+             ``runtime.TrainSupervisor``: fp32 masters, bf16 activations,
+             AdamW (lr 3e-4), ``SyntheticTokenDataset`` seed 0 at B 8 x T
+             4096 (train_4k's sequence; its global batch of 256 cut to 8),
+             6 steps with a checkpoint every 3 under deterministic
+             algorithms, then a fresh supervisor restores step 3 and runs
+             steps 4-6 again.  Checks: exact launches per step (64 flash:
+             32 forward + 32 recomputed by the remat; nothing else), every
+             loss finite, step 1's within 0.5 of ln 49152, the mean of
+             steps 5-6 below step 1, the restored state equal to the saved
+             one bit for bit, the cursor 3, the resumed losses equal to the
+             uninterrupted run's bit for bit; the fp32 wiring gate (2
+             layers at full width, B 2 x 1024: the kernel engine's loss and
+             every gradient leaf within 1e-3 x max(1, max|ref|) of
+             ``impl="ref"``, the planted dv fault failing it); the bf16 loss
+             gate on the first batch (|kernels - plain fp32| <= sqrt(2) x
+             |plain bf16 - plain fp32| + 1e-3).  Prints the step time
+             (median of steps 2-6, host clock after the loss is read),
+             tokens/s, peak memory, model TFLOP/s (6 N tokens plus
+             attention) beside the H100 SXM's published dense bf16 peak,
+             one profiled step's device busy time, idle share and top
+             device ops, and the plain attention backward's CUDA-event time
+             per layer.  The checkpoints go to chiprun_out/ and are deleted
+             at the end.
+   train_zamba2 — zamba2-2.7b trained at full width, one group (6 Mamba2
+             blocks and the shared attention block), B 2 x 2048, 3 AdamW
+             steps with the plain SSD scan inside: exact launches per step
+             (12 conv1d, 2 flash), finite losses, and the fp32 wiring gate
+             at B 1 x 512 with a planted conv1d fault (dw of the newest tap
+             zeroed) failing it.
 7. the ``kernels`` line, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -213,6 +258,16 @@ R_BATCH, R_PROMPT, R_GEN = 4, 2048, 32
 # the continuous-batching scheduler on mixtral's weights: 4 slots, 8
 # requests, prompt lengths and budgets drawn from the seed
 S_SLOTS, S_REQUESTS, S_PROMPT_RANGE, S_BUDGET_RANGE = 4, 8, (512, 6144), (4, 16)
+# smollm-360m trained at full width and depth: train_4k's sequence of 4096
+# (its global batch of 256 cut to 8 for one card), AdamW at lr 3e-4, 6 steps
+# through the supervisor with a checkpoint every 3, then steps 4-6 again
+# from the step-3 checkpoint; its fp32 wiring gate at (layers, batch, seq)
+TS_BATCH, TS_SEQ, TS_STEPS, TS_CKPT_EVERY, TS_LR = 8, 4096, 6, 3, 3e-4
+TS_GATE = (2, 2, 1024)
+# zamba2-2.7b trained at full width, depth cut to one group (6 Mamba2 blocks
+# and the shared attention block); its fp32 wiring gate at (batch, seq)
+TZ_LAYERS, TZ_BATCH, TZ_SEQ, TZ_STEPS = 6, 2, 2048, 3
+TZ_GATE = (1, 512)
 # LM paths: positions compared with the plain engine (the prefill's last
 # and the first decode steps'), host-clock runs timed
 LM_COMPARE, LM_TIMED = 8, 3
@@ -589,9 +644,9 @@ def randomize_bn(params: dict, gen: torch.Generator) -> None:
             randomize_bn(v, gen)
 
 
-def profile_busy(fn, reps: int = PROFILE_REPS) -> dict:
+def profile_busy(fn, reps: int = PROFILE_REPS, top: int = 6) -> dict:
     """Device busy time per call of fn under torch.profiler, and the top
-    kernels.
+    ``top`` kernels.
 
     Busy time is the union of the device activity intervals; the idle share
     is the rest of the profiled window (the profiler slows the host, so the
@@ -617,7 +672,7 @@ def profile_busy(fn, reps: int = PROFILE_REPS) -> dict:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
         by_name[n] = by_name.get(n, 0.0) + (e - s) / 1e3 / reps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"device_busy_ms": busy / 1e3 / reps,
             "device_kernels_per_call": len(spans) / reps,
             "profiled_wall_ms": wall_ms / reps,
@@ -779,7 +834,16 @@ def lm_kernel_cases() -> list[dict]:
         fa(M_BATCH, M_PROMPT, 32, 8, 128, 4096),
         *decode_path_cases(),
         c1(R_BATCH, R_PROMPT, 2048, 2), c1(R_BATCH, 2, 2048, 2),
+        # the training paths' flash calls: smollm-360m (15 over 5 heads of
+        # 64) and zamba2's shared attention block (32 over 32 of 80)
+        *train_flash_cases(),
     ]
+
+
+def train_flash_cases() -> list[dict]:
+    """Flash at the shapes train_smollm and train_zamba2 launch it."""
+    return [flash_case(TS_BATCH, TS_SEQ, 15, 5, 64),
+            flash_case(TZ_BATCH, TZ_SEQ, 32, 32, 80)]
 
 
 DECODE_PATH_NAMES = ("mixtral ring, pos < W and W - 1",
@@ -1867,6 +1931,397 @@ def run_report(cnn, params, x, peaks: dict) -> dict:
     return {**rec, "table": table}
 
 
+# ---------------------------------------------------------------- training --
+def train_kernel_cases() -> list[dict]:
+    """The two kernels on the training path at training shapes: flash at
+    smollm-360m's heads (dh 64, 15 over 5) with T past two backward blocks,
+    at zamba2's (dh 80, 32 over 32) with T past FLASH_REF_ROWS, one
+    windowed, soft-capped case, and at the two training paths' own shapes
+    (``train_flash_cases``: smollm's B 8 x T 4096, where the plain
+    gradient, not cut into the backward's row blocks, keeps about 6 GB of
+    fp32 scores a saved tensor, and zamba2's B 2 x T 2048); conv1d at zamba2's Mamba2 conv (FL 4, a column slice of the
+    in_proj output) and RWKV-6's token shift (FL 2)."""
+    return [flash_case(2, 1100, 15, 5, 64), flash_case(1, 2100, 32, 32, 80),
+            flash_case(1, 1500, 8, 2, 64, window=700, softcap=30.0),
+            *train_flash_cases(),
+            conv1d_case(2, 2048, 5248, 4, row=10448, col0=5120),
+            conv1d_case(2, 2048, 2048, 2)]
+
+
+def _train_tol(want: torch.Tensor) -> float:
+    """The stated gradient tolerance (phase train_kernels)."""
+    scale = max(1.0, want.float().abs().max().item())
+    return (1e-4 if want.dtype != torch.bfloat16 else 2.0 ** -6) * scale
+
+
+def _grads(fn, args, kw, g) -> tuple:
+    """(output, the gradient of every input) of fn under the cotangent g."""
+    ins = [a.detach().requires_grad_() for a in args]
+    out = fn(*ins, **kw)
+    return out, torch.autograd.grad(out, ins, g)
+
+
+def drop_last_kv_head_dv(fa_mod):
+    """The planted backward fault: dv of the last KV head zeroed."""
+    real = fa_mod.flash_attention_grads
+
+    def faulty(*a, **kw):
+        dq, dk, dv = real(*a, **kw)
+        dv = dv.clone()
+        dv[:, :, -1] = 0
+        return dq, dk, dv
+    return faulty
+
+
+def drop_last_tap_dw(c1_mod):
+    """A planted conv1d backward fault: dw of the newest tap zeroed."""
+    real = c1_mod.conv1d_causal_grads
+
+    def faulty(*a, **kw):
+        dx, dw = real(*a, **kw)
+        dw = dw.clone()
+        dw[-1] = 0
+        return dx, dw
+    return faulty
+
+
+def check_train_kernels(fa_mod, c1_mod, gen) -> dict:
+    """Phase train_kernels: each autograd Function at ``train_kernel_cases``,
+    fp32 and bf16.  The forward must equal the kernel's own launch bit for
+    bit; the gradients of every input under a random cotangent must match
+    autograd through the plain version, run in one piece (tolerance
+    ``_train_tol``); the planted fault (dv of the last KV head zeroed) must
+    fail the flash cases."""
+    funcs = {"flash_attention": (fa_mod.flash_attention,
+                                 fa_mod.flash_attention_plain,
+                                 lambda a, kw: fa_mod._launch(
+                                     *a, kw["window"], kw["softcap"])),
+             "conv1d_causal": (c1_mod.conv1d_causal,
+                               c1_mod.conv1d_causal_plain,
+                               lambda a, kw: c1_mod._launch(*a))}
+    cases, faults = [], []
+    for case in train_kernel_cases():
+        fn, plain, launch = funcs[case["kernel"]]
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = lm_operands(case, dtype, gen)
+            g = torch.randn(args[0].shape, device=DEVICE,
+                            generator=gen).to(dtype)      # out's shape
+            out, got = _grads(fn, args, kw, g)
+            with torch.no_grad():
+                own = launch(args, kw)
+            ref, want = _grads(plain, args, kw, g)
+            ratio = max(((a.float() - w.float()).abs().max().item()
+                         / _train_tol(w)) for a, w in zip(got, want))
+            rec = {**case, "dtype": str(dtype)[6:],
+                   "forward_equals_launch": torch.equal(out, own),
+                   "forward_max_abs_err_vs_plain":
+                       (out.float() - ref.float()).abs().max().item(),
+                   "grad_max_abs_err": [(a.float() - w.float()).abs().max()
+                                        .item() for a, w in zip(got, want)],
+                   "grad_tol": [_train_tol(w) for w in want],
+                   "grad_err_over_tol": ratio,
+                   "grads_bit_equal": all(torch.equal(a, w)
+                                          for a, w in zip(got, want))}
+            if case["kernel"] == "flash_attention":
+                with mock.patch.object(fa_mod, "flash_attention_grads",
+                                       drop_last_kv_head_dv(fa_mod)):
+                    _, bad = _grads(fn, args, kw, g)
+                rec["fault_err_over_tol"] = max(
+                    ((a.float() - w.float()).abs().max().item()
+                     / _train_tol(w)) for a, w in zip(bad, want))
+                faults.append(rec["fault_err_over_tol"])
+            rec["ok"] = (rec["forward_equals_launch"] and ratio <= 1.0
+                         and rec.get("fault_err_over_tol", 2.0) > 1.0)
+            cases.append(rec)
+            del args, out, got, ref, want, g
+    torch.cuda.synchronize()
+    rec = {"phase": "train_kernels",
+           "tolerance": "gradients fp32 1e-4 x max(1, max|ref|), bf16 2^-6 "
+                        "x max(1, max|ref|); forward equal to the launch",
+           "cases": len(cases), "failed": sum(not c["ok"] for c in cases),
+           "max_grad_err_over_tol": max(c["grad_err_over_tol"]
+                                        for c in cases),
+           "grads_bit_equal": sum(c["grads_bit_equal"] for c in cases),
+           "fault_min_err_over_tol": min(faults), "per_case": cases}
+    emit(rec)
+    if rec["failed"]:
+        raise SystemExit(f"train_kernels: {rec['failed']} cases failed: "
+                         f"{[c for c in cases if not c['ok']][:1]}")
+    return rec
+
+
+def wiring_gate(lm, cfg, batch: dict, faults: dict) -> dict:
+    """The fp32 wiring gate: random weights from SEED, fp32 activations,
+    the kernel engine's loss and every gradient leaf (its autograd
+    Functions) within 1e-3 x max(1, max|ref|) of ``impl="ref"`` (autograd
+    through the plain versions) on the card; each planted fault (name ->
+    (module, attribute, replacement)) must fail it."""
+    from repro_torch.pytree import flatten
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = lm.init_params(cfg, gen, device=DEVICE)
+    leaves = flatten(params)[0]
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def loss_and_grads(impl):
+        loss = lm.loss_fn(cfg, params, batch, impl=impl, dtype=torch.float32)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(leaves, grads)]
+
+    ref_loss, ref_g = loss_and_grads("ref")
+    tols = [1e-3 * max(1.0, g.abs().max().item()) for g in ref_g]
+    loss_tol = 1e-3 * max(1.0, abs(ref_loss.item()))
+
+    def over(loss, grads) -> float:
+        return max([abs(loss.item() - ref_loss.item()) / loss_tol]
+                   + [(g - r).abs().max().item() / t
+                      for g, r, t in zip(grads, ref_g, tols)])
+
+    loss, grads = loss_and_grads("auto")
+    rec = {"loss": loss.item(), "ref_loss": ref_loss.item(),
+           "leaves": len(leaves), "err_over_tol": over(loss, grads),
+           "faults": {}}
+    for name, (mod, attr, fn) in faults.items():
+        with mock.patch.object(mod, attr, fn):
+            rec["faults"][name] = over(*loss_and_grads("auto"))
+    rec["ok"] = (rec["err_over_tol"] <= 1.0
+                 and all(v > 1.0 for v in rec["faults"].values()))
+    del params, leaves, grads, ref_g
+    return rec
+
+
+def train_flops(cfg, params, b: int, t: int) -> float:
+    """Model FLOPs of one training step: 6 x the matmul parameters (every
+    leaf of two or more dims; a tied table counts once, as the head) x the
+    tokens, plus attention, 3 x its forward's 4 x dh FLOPs per causal
+    (query, key) pair per head."""
+    from repro_torch.pytree import flatten
+    n = sum(p.numel() for p in flatten(params)[0] if p.ndim >= 2)
+    n_attn = cfg.n_layers if cfg.block_type == "attn" else \
+        cfg.n_groups * bool(cfg.hybrid_attn_period)
+    pairs = t * (t + 1) // 2
+    return 6.0 * n * b * t + 3 * 4 * cfg.d_head * cfg.n_heads * b * pairs \
+        * n_attn
+
+
+def time_cuda_ms(fn, reps: int = 3) -> float:
+    """Mean CUDA-event time of fn over reps calls, after one warm call."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def counted_step(mk, counters: dict, dev):
+    """(step_fn for the supervisor, its record): each step moves its batch
+    to the card, trains with every launch count set to 0 just before, and
+    waits for the loss; the record keeps each step's launch counts and the
+    newest state."""
+    from repro_torch.data import to_device
+    record = {"launches": [], "state": None}
+
+    def step_fn(state, batch):
+        for f in counters.values():
+            f.launches = 0
+        state, metrics = mk["fn"](state, to_device(batch, dev))
+        metrics = {"loss": metrics["loss"].item(),
+                   "step": int(metrics["step"])}
+        record["launches"].append({k: f.launches
+                                   for k, f in counters.items()})
+        record["state"] = state
+        return state, metrics
+    return step_fn, record
+
+
+def run_train_smollm(lm, fa_mod, counters: dict, peaks: dict) -> dict:
+    """Phase train_smollm: smollm-360m trained at full width and depth
+    (module docstring)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import (PrefetchIterator, SyntheticTokenDataset,
+                                  to_device)
+    from repro_torch.launch import steps
+    from repro_torch.pytree import flatten
+    from repro_torch.runtime import TrainSupervisor
+    cfg = get_config("smollm-360m")
+    ds = SyntheticTokenDataset(cfg.vocab, TS_SEQ, TS_BATCH, seed=SEED)
+    l_gate, b_gate, t_gate = TS_GATE
+    gate_batch = to_device(SyntheticTokenDataset(
+        cfg.vocab, t_gate, b_gate, seed=SEED).batch(0), DEVICE)
+    gate = wiring_gate(lm, dataclasses.replace(cfg, n_layers=l_gate),
+                       gate_batch, {"dv_of_last_kv_head_zeroed": (
+                           fa_mod, "flash_attention_grads",
+                           drop_last_kv_head_dv(fa_mod))})
+    free()
+    mk = steps.make_train_step(cfg, "adamw", TS_LR, device=DEVICE)
+    init = mk["make_init"](SEED)
+    first = to_device(ds.batch(0), DEVICE)
+    with torch.no_grad():                       # the bf16 loss gate
+        p0 = init()["params"]
+        l_kern = lm.loss_fn(cfg, p0, first).item()
+        l_bf16 = lm.loss_fn(cfg, p0, first, impl="ref").item()
+        l_fp32 = lm.loss_fn(cfg, p0, first, impl="ref",
+                            dtype=torch.float32).item()
+        del p0
+    free()
+    bf16_gate = {"kernels_bf16": l_kern, "plain_bf16": l_bf16,
+                 "plain_fp32": l_fp32,
+                 "err": abs(l_kern - l_fp32),
+                 "tol": 2 ** 0.5 * abs(l_bf16 - l_fp32) + 1e-3}
+    ckpt_dir = HERE / "chiprun_out" / "train_smollm_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        sup = TrainSupervisor(str(ckpt_dir), ckpt_every=TS_CKPT_EVERY)
+        state, start, cursor = sup.restore_or_init(init, None)
+        step_fn, record = counted_step(mk, counters, DEVICE)
+        losses, dts, saved = [], [], {}
+
+        def cb(step, metrics, dt):
+            losses.append(metrics["loss"])
+            dts.append(dt)
+            if step + 1 == TS_CKPT_EVERY:        # what the checkpoint holds
+                saved["leaves"] = [x.detach().cpu().clone()
+                                   for x in flatten(record["state"])[0]]
+
+        it = PrefetchIterator(ds, start_index=cursor)
+        t0 = time.perf_counter()
+        state, last, _ = sup.run(state, step_fn, it, start, TS_STEPS, cb)
+        run_s = time.perf_counter() - t0
+        it.close()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        # a fresh supervisor restores step TS_CKPT_EVERY and runs on
+        shutil.rmtree(ckpt_dir / f"step_{TS_STEPS:08d}")
+        t0 = time.perf_counter()
+        sup2 = TrainSupervisor(str(ckpt_dir), ckpt_every=10 ** 9)
+        state2, start2, cursor2 = sup2.restore_or_init(None, state)
+        restore_s = time.perf_counter() - t0
+        restored_equal = all(torch.equal(a.cpu(), b) for a, b in zip(
+            flatten(state2)[0], saved["leaves"]))
+        del saved
+        resumed = []
+        step_fn2, _ = counted_step(mk, counters, DEVICE)
+        it2 = PrefetchIterator(ds, start_index=cursor2)
+        sup2.run(state2, step_fn2, it2, start2, TS_STEPS,
+                 lambda s, m, dt: resumed.append(m["loss"]))
+        it2.close()
+        del state2
+        free()
+        batch = to_device(ds.batch(TS_STEPS), DEVICE)
+        attn_args = [torch.randn((TS_BATCH, TS_SEQ, h, cfg.d_head),
+                                 device=DEVICE).to(torch.bfloat16)
+                     for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+        attn_bwd_ms = time_cuda_ms(lambda: fa_mod.flash_attention_grads(
+            *attn_args, torch.randn_like(attn_args[0])), reps=2)
+        del attn_args
+        prof = profile_busy(lambda: mk["fn"](state, batch), reps=1, top=12)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    step_ms = statistics.median(dts[1:]) * 1e3
+    flops = train_flops(cfg, state["params"], TS_BATCH, TS_SEQ)
+    want = {k: 0 for k in counters}
+    want["flash_attention"] = 2 * cfg.n_layers
+    rec = {"phase": "train_smollm", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab, "batch": TS_BATCH, "seq_len": TS_SEQ,
+           "params_m": sum(p.numel() for p in flatten(state["params"])[0])
+           / 1e6,
+           "wiring_gate_fp32": gate, "bf16_loss_gate": bf16_gate,
+           "losses": losses, "resumed_losses": resumed,
+           "resumed_bit_equal": resumed == losses[TS_CKPT_EVERY:],
+           "restored_bit_equal": restored_equal, "cursor": cursor2,
+           "start": start2, "step_ms_all": [d * 1e3 for d in dts],
+           "step_ms_median_2_to_6": step_ms,
+           "tokens_per_s": TS_BATCH * TS_SEQ / step_ms * 1e3,
+           "run_s": run_s, "restore_s": restore_s,
+           "peak_memory_gb": peak_gb,
+           "launches_per_step": record["launches"],
+           "expected_launches_per_step": want,
+           "model_tflop_per_step": flops / 1e12,
+           "model_tflops": flops / step_ms / 1e9,
+           "h100_sxm_dense_bf16_peak_tflops": peaks["bf16"] / 1e12,
+           "attention_backward_ms_per_layer": attn_bwd_ms,
+           "attention_backward_ms_per_step": attn_bwd_ms * cfg.n_layers,
+           "step_device": prof}
+    emit(rec)
+    lnv = math.log(cfg.vocab)
+    problems = []
+    if any(c != want for c in record["launches"]):
+        problems.append(f"launches per step {record['launches']} != {want}")
+    if not all(math.isfinite(x) for x in losses + resumed):
+        problems.append(f"losses not finite: {losses} {resumed}")
+    if abs(losses[0] - lnv) > 0.5:
+        problems.append(f"step 1's loss {losses[0]} not within 0.5 of "
+                        f"ln V = {lnv}")
+    if not statistics.mean(losses[-2:]) < losses[0]:
+        problems.append(f"the loss did not fall: {losses}")
+    if not (restored_equal and cursor2 == TS_CKPT_EVERY
+            and start2 == TS_CKPT_EVERY and rec["resumed_bit_equal"]):
+        problems.append("the resume check failed")
+    if not gate["ok"]:
+        problems.append(f"fp32 wiring gate: {gate}")
+    if not bf16_gate["err"] <= bf16_gate["tol"]:
+        problems.append(f"bf16 loss gate: {bf16_gate}")
+    if problems:
+        raise SystemExit(f"train_smollm: {problems}")
+    return rec
+
+
+def run_train_zamba2(lm, c1_mod, counters: dict) -> dict:
+    """Phase train_zamba2: zamba2-2.7b at full width, TZ_LAYERS layers (one
+    group: 6 Mamba2 blocks and the shared attention block), TZ_BATCH x
+    TZ_SEQ, TZ_STEPS AdamW steps with the plain SSD scan inside."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset, to_device
+    from repro_torch.launch import steps
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), n_layers=TZ_LAYERS)
+    b_gate, t_gate = TZ_GATE
+    gate = wiring_gate(lm, cfg, to_device(SyntheticTokenDataset(
+        cfg.vocab, t_gate, b_gate, seed=SEED).batch(0), DEVICE),
+        {"dw_of_newest_tap_zeroed": (c1_mod, "conv1d_causal_grads",
+                                     drop_last_tap_dw(c1_mod))})
+    free()
+    ds = SyntheticTokenDataset(cfg.vocab, TZ_SEQ, TZ_BATCH, seed=SEED)
+    mk = steps.make_train_step(cfg, "adamw", TS_LR, device=DEVICE)
+    state = mk["make_init"](SEED)()
+    step_fn, record = counted_step(mk, counters, DEVICE)
+    per_step = record["launches"]
+    losses, dts = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TZ_STEPS):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, ds.batch(i))
+        dts.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    want = {k: 0 for k in counters}
+    want.update(conv1d_causal=2 * cfg.n_layers,
+                flash_attention=2 * cfg.n_groups)
+    rec = {"phase": "train_zamba2", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": TZ_BATCH, "seq_len": TZ_SEQ, "losses": losses,
+           "step_ms_all": dts, "launches_per_step": per_step,
+           "expected_launches_per_step": want,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "wiring_gate_fp32": gate}
+    emit(rec)
+    del state
+    free()
+    if any(c != want for c in per_step) or \
+            not all(math.isfinite(x) for x in losses) or not gate["ok"]:
+        raise SystemExit(f"train_zamba2: launches {per_step} (want {want}),"
+                         f" losses {losses}, wiring gate {gate}")
+    return rec
+
+
 def free() -> None:
     """Hand a finished phase's memory back before the next."""
     import gc
@@ -2015,6 +2470,7 @@ def main() -> int:
     emit({"phase": "flash_bf16_faults",
           **check_flash_faults(_build, fa_mod, fault_libs, dgen),
           "seconds": time.perf_counter() - t0})
+    train_k = check_train_kernels(fa_mod, c1_mod, dgen)
 
     # 5. times at the fp32 main-path shapes, with each call's own epilogue
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -2130,13 +2586,21 @@ def main() -> int:
     free()
     rwkv6 = run_rwkv6(serve, lm, counters)
     free()
+    t0 = time.perf_counter()
+    train_s = run_train_smollm(lm, fa_mod, counters, peaks)
+    free()
+    emit({"phase": "train_smollm", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    train_z = run_train_zamba2(lm, c1_mod, counters)
+    emit({"phase": "train_zamba2", "seconds": time.perf_counter() - t0})
 
     dump({**details, "times": per_path, "lm_times": lm_times,
           "launch_floor_ms": launch_floor_ms,
           "models": models, "zamba2": zamba2, "attn_dh256": dh256,
           "decode_paths": decode_paths, "gemma2": gemma2,
           "mixtral": mixtral, "scheduler": sched, "rwkv6": rwkv6,
-          "tune": tuned, "report": table2})
+          "tune": tuned, "report": table2, "train_kernels": train_k,
+          "train_smollm": train_s, "train_zamba2": train_z})
 
     # 7. kernels line (dense ResNet-50 main path), the card, the last line
     sources = {"conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
@@ -2154,6 +2618,8 @@ def main() -> int:
         by_path[f"{p}_prefill"] = r["launches_per_prefill"]
         by_path[f"{p}_decode"] = r["launches_per_decode_step"]
     by_path["scheduler"] = sched["launches"]
+    by_path["smollm_train_step"] = train_s["launches_per_step"][0]
+    by_path["zamba2_train_step"] = train_z["launches_per_step"][0]
     by_path.update({f"{p}_tuned": r["launches"]
                     for p, r in tuned["per_net"].items()})
     line = []

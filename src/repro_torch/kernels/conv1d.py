@@ -10,6 +10,13 @@ replaces, what bounds it on the H100 and how its design answers that.
 ``conv1d_causal_plain`` is the plain PyTorch version of the same function.  A
 tensor on the CPU takes it; a CUDA tensor launches the kernel or raises.
 ``conv1d_causal.launches`` counts launches.
+
+Gradients: ``conv1d_causal`` is a ``torch.autograd.Function``
+(``Conv1dCausal``), so a loss through the kernel trains Mamba2's
+``in_proj``/``conv_w`` and RWKV-6's token-shift ``mu``.  Its backward is not
+a backward kernel: ``repro`` has none (it trains through its ``jnp`` conv),
+so the backward recomputes the plain version under autograd from the saved
+x and w and differentiates that.  A Hopper backward kernel is later work.
 """
 from __future__ import annotations
 
@@ -39,14 +46,10 @@ def vector_width(x: torch.Tensor) -> int:
     return vec if ok else 1
 
 
-def conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (B, T, C) with a unit channel stride, w: (FL, C) -> (B, T, C)."""
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of csrc/conv1d.cu (counted)."""
     b, t, c = x.shape
-    fl, c2 = w.shape
-    if c != c2:
-        raise ValueError(f"conv1d_causal: x has {c} channels, w {c2}")
-    if x.device.type == "cpu":
-        return conv1d_causal_plain(x, w)
+    fl = w.shape[0]
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"conv1d_causal: the kernel takes CUDA tensors, x is "
                          f"on {x.device}, w on {w.device}")
@@ -70,6 +73,42 @@ def conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check(err, "conv1d_causal")
     conv1d_causal.launches += 1
     return out
+
+
+def conv1d_causal_grads(x, w, g):
+    """(dx, dw) of ``conv1d_causal_plain`` for the cotangent g."""
+    xg = x.detach().requires_grad_()
+    wg = w.detach().requires_grad_()
+    with torch.enable_grad():
+        out = conv1d_causal_plain(xg, wg)
+        return torch.autograd.grad(out, (xg, wg), g)
+
+
+class Conv1dCausal(torch.autograd.Function):
+    """The kernel forward (the plain version on the CPU) with the plain
+    backward of ``conv1d_causal_grads``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cpu":
+            return conv1d_causal_plain(x, w)
+        return _launch(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return conv1d_causal_grads(*ctx.saved_tensors, g)
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, C) with a unit channel stride, w: (FL, C) -> (B, T, C).
+
+    Differentiable in x and w (``Conv1dCausal``)."""
+    c = x.shape[2]
+    if c != w.shape[1]:
+        raise ValueError(f"conv1d_causal: x has {c} channels, w "
+                         f"{w.shape[1]}")
+    return Conv1dCausal.apply(x, w)
 
 
 conv1d_causal.launches = 0

@@ -14,7 +14,8 @@ and how its design answers that.
 
 ``conv2d_plain`` is the plain PyTorch version of the same function.  A
 tensor on the CPU takes it; a CUDA tensor launches the kernel or raises.
-``conv2d.launches`` counts launches.
+``conv2d.launches`` counts launches.  Forward only: no training path
+reaches this kernel (serving runs it), and its output carries no gradient.
 """
 from __future__ import annotations
 

@@ -19,7 +19,8 @@ design answers that.
 
 ``decode_attention_plain`` is the plain PyTorch version of the same function.
 A tensor on the CPU takes it; a CUDA tensor launches the kernel or raises.
-``decode_attention.launches`` counts launches.
+``decode_attention.launches`` counts launches.  Forward only: no training path
+reaches this kernel (serving runs it), and its output carries no gradient.
 """
 from __future__ import annotations
 

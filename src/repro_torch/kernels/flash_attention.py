@@ -13,6 +13,16 @@ design answers that.
 ``flash_attention_plain`` is the plain PyTorch version of the same function.
 A tensor on the CPU takes it; a CUDA tensor launches the kernel or raises.
 ``flash_attention.launches`` counts launches.
+
+Gradients: ``flash_attention`` is a ``torch.autograd.Function``
+(``FlashAttention``), so a loss through the kernel trains ``wq``/``wk``/
+``wv``.  Its backward is not a backward kernel: ``repro`` has none (it trains
+through its ``jnp`` attention), so the backward recomputes the plain version
+under autograd from the saved q, k, v and differentiates that, by blocks of
+``FLASH_BWD_ROWS`` query rows (each block's keys stop at its last row), so no
+whole (T, S) score matrix is held: dq per block, dk and dv summed over the
+blocks, GQA head groups summed by autograd.  A Hopper backward kernel is
+later work.
 """
 from __future__ import annotations
 
@@ -21,7 +31,7 @@ import ctypes
 import torch
 
 from . import _build
-from .ref import flash_attention_ref
+from .ref import _flash_rows, flash_attention_ref
 
 BQ, BK = 64, 64     # FA_BQ, FA_BK of csrc/flash_attention.cu (fp32)
 MMA_BQ, MMA_BK = 128, 64   # FA_MMA_BQ, FA_MMA_BK (bf16): query rows of a
@@ -51,12 +61,12 @@ def flash_attention_plain(q, k, v, *, window: int = 0,
                                softcap=softcap).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, T, H, dh); k/v: (B, S, Kh, dh) -> (B, T, H, dh) in q's dtype."""
+FLASH_BWD_ROWS = 512   # query rows per block of the plain backward
+
+
+def _launch(q, k, v, window: int, softcap: float) -> torch.Tensor:
+    """One launch of csrc/flash_attention.cu (counted)."""
     b, t, s, h, kh, dh = _shapes(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window=window, softcap=softcap)
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
     code = _build.attention_operands("flash_attention", q=q, k=k, v=v)
@@ -70,6 +80,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+def flash_attention_grads(q, k, v, g, *, window: int = 0,
+                          softcap: float = 0.0):
+    """(dq, dk, dv) of ``flash_attention_plain`` for the cotangent g, by
+    blocks of ``FLASH_BWD_ROWS`` query rows: each block recomputes its rows
+    under autograd against the keys up to its last row."""
+    t = q.shape[1]
+    dq = torch.empty_like(q)
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(v, dtype=torch.float32)
+    for t0 in range(0, t, FLASH_BWD_ROWS):
+        t1 = min(t, t0 + FLASH_BWD_ROWS)
+        qb = q[:, t0:t1].detach().requires_grad_()
+        kb = k[:, :t1].detach().requires_grad_()
+        vb = v[:, :t1].detach().requires_grad_()
+        with torch.enable_grad():
+            out = _flash_rows(qb, kb, vb, t0, window, softcap).to(q.dtype)
+            gq, gk, gv = torch.autograd.grad(out, (qb, kb, vb), g[:, t0:t1])
+        dq[:, t0:t1] = gq
+        dk[:, :t1] += gk
+        dv[:, :t1] += gv
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward (the plain version on the CPU) with the blocked
+    plain backward of ``flash_attention_grads``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, softcap: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.softcap = window, softcap
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, window=window,
+                                         softcap=softcap)
+        return _launch(q, k, v, window, softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_grads(q, k, v, g, window=ctx.window,
+                                           softcap=ctx.softcap)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+    """q: (B, T, H, dh); k/v: (B, S, Kh, dh) -> (B, T, H, dh) in q's dtype.
+
+    Differentiable in q, k and v (``FlashAttention``)."""
+    _shapes(q, k, v)
+    return FlashAttention.apply(q, k, v, int(window), float(softcap))
 
 
 flash_attention.launches = 0

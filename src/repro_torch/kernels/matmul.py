@@ -29,6 +29,9 @@ addressing, so a strided 1x1 conv never materialises ``x[:, ::s, ::s]``.
 ``matmul_plain`` is the plain PyTorch version of both.  A tensor on the CPU
 takes it; a CUDA tensor launches the kernel or raises.  Each wrapper's
 ``launches`` attribute counts launches.
+
+Forward only: no training path reaches these kernels (the CNN forwards
+run them), and their outputs carry no gradient.
 """
 from __future__ import annotations
 

@@ -128,7 +128,8 @@ def flash_attention_ref(q, k, v, *, window: int = 0,
 
 
 def _flash_rows(q, k, v, t0: int, window: int, softcap: float):
-    """Query rows t0 .. t0 + T - 1 of flash_attention_ref."""
+    """Query rows t0 .. t0 + T - 1 of flash_attention_ref (q holds those
+    rows, k/v the keys from 0)."""
     b, t, h, dh = q.shape
     s, kh = k.shape[1], k.shape[2]
     qg = q.reshape(b, t, kh, h // kh, dh)

@@ -37,7 +37,8 @@ from ..core.sparsity import (
     prune_conv_weights,
     topk_channel_mask,
 )
-from .convert import resolve_device, tree_map
+from ..pytree import tree_map
+from .convert import resolve_device
 
 
 def _generator(generator: torch.Generator | None) -> torch.Generator:

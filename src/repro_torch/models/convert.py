@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..pytree import tree_map
 from .layers import with_compute_copies
 
 
@@ -26,13 +27,6 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(f"device {device!r} asked for, but no CUDA device "
                            "is available; pass device='cpu' to run on the CPU")
     return dev
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def params_from_numpy(tree, *, device="cuda",
@@ -50,20 +44,32 @@ def params_from_numpy(tree, *, device="cuda",
     return tree_map(leaf, tree)
 
 
-def lm_params_from_numpy(tree, *, device="cuda"):
+def lm_params_from_numpy(tree, *, device="cuda", compute_copies=True):
     """``repro.models.lm.init_params``'s pytree, as numpy -> the port's LM
     parameters on ``device``.
 
     The structure is kept as it is: ``blocks/p<i>`` leaves keep their
     leading group axis (MoE experts their expert axis after it; RWKV-6's
     ``mix`` dict its raw ``wA``/``wB``/``u`` tensors), ``shared_attn`` and
-    ``embed`` their own shapes.  Leaves stay fp32 (the master dtype), and
-    every dense weight, the embedding table and the stacked expert weights
-    gain a bf16 copy (``layers.with_compute_copies``).
+    ``embed`` their own shapes.  Leaves stay fp32 (the master dtype).  For
+    serving, every dense weight, the embedding table and the stacked expert
+    weights gain a bf16 copy (``layers.with_compute_copies``); training takes
+    ``compute_copies=False``, the masters alone.
     """
     missing = {"embed", "final_norm", "blocks"} - set(tree)
     if missing:
         raise ValueError(f"lm_params_from_numpy: not an LM pytree, missing "
                          f"{sorted(missing)}")
-    return with_compute_copies(params_from_numpy(tree, device=device,
-                                                 dtype=torch.float32))
+    params = params_from_numpy(tree, device=device, dtype=torch.float32)
+    return with_compute_copies(params) if compute_copies else params
+
+
+def to_numpy(tree):
+    """Params (a nested dict of tensors) or an optimizer state (a NamedTuple
+    of them) -> the same structure of numpy arrays on the host; bf16 leaves
+    come back as fp32 (numpy has no bf16 of its own; the values are
+    exact)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(leaf, tree)

@@ -102,11 +102,19 @@ def softcap(x, cap: float):
     return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
 
 
+COMPUTE_COPY_KEYS = frozenset({"wc", "ec", "wi_c", "wg_c", "wo_c"})
+
+
 def with_compute_copies(params, dtype=torch.bfloat16):
     """Add a ``dtype`` copy of every dense weight (``"wc"``), of the
     embedding table (``"ec"``) and of an MoE layer's stacked expert weights
     (``"wi_c"``, ``"wg_c"``, ``"wo_c"``; an MoE dict is the one with a
-    ``"router"``), made once.
+    ``"router"``), made once: ``COMPUTE_COPY_KEYS``.
+
+    The copies are for serving only.  ``dense``, ``embed``, ``table`` and
+    ``moe.expert_weight`` prefer a copy over its master, so a gradient would
+    land on the copy and an optimizer step would leave it stale:
+    ``lm.forward_train`` refuses params that hold one.
 
     ``repro`` casts the fp32 weights at every use; the copies hold the same
     values, so the forward's results do not change, only the per-call casts

@@ -1,5 +1,5 @@
-"""Decoder LM: prefill and decode for all ten architectures (port of
-``repro.models.lm``): attention blocks (dense FFN, MoE, MoE with a shared
+"""Decoder LM: training, prefill and decode for all ten architectures (port
+of ``repro.models.lm``): attention blocks (dense FFN, MoE, MoE with a shared
 expert), Mamba2 blocks with zamba2's shared attention, and RWKV-6 blocks.
 
 A network is a stack of *groups*, each a short static sequence of block
@@ -14,8 +14,9 @@ zamba2's shared attention block: ONE set of attention+FFN weights applied
 after every group of Mamba2 blocks, with a per-group KV cache.
 
 Entry points: ``init_params`` (random weights drawn on the target device;
-``layers.with_compute_copies`` adds a bf16 copy of every dense weight),
-``init_cache``, ``prefill`` and ``decode_step``.  ``impl`` selects the
+``layers.with_compute_copies`` adds a bf16 copy of every dense weight, for
+serving), ``forward_train`` and ``loss_fn`` (training), ``init_cache``,
+``prefill`` and ``decode_step``.  ``impl`` selects the
 kernels (``"cuda"``), their plain versions (``"ref"``) or by device
 (``"auto"``), as ``kernels.ops`` does.  ``dtype`` is the activations' and
 caches' dtype, ``COMPUTE_DTYPE`` (bf16) as in ``repro``; an fp32 run of the
@@ -24,21 +25,34 @@ plain engine is the reference the bf16 engines are measured against.  As in
 cache is a ring of ``min(window, max_seq)`` slots holding position p in slot
 p % W (``_attn_cache_len``, ``_place_kv``); every other attention cache
 holds ``max_seq`` rows.  Serving drops the MoE layers' load-balancing
-loss, as ``repro``'s prefill does.  Not ported yet (ROADMAP.md):
-``forward_train`` and ``loss_fn``, sharding hints.
+loss, as ``repro``'s prefill does; training adds it, ``0.01 * aux``.
+
+Training (``forward_train``, ``loss_fn``) differentiates with autograd.  The
+flash and conv1d wrappers are autograd Functions (the kernels forward, the
+plain versions' gradients backward), so ``impl="cuda"``/``"auto"`` on the card
+trains through the kernels.  With ``cfg.remat`` every group runs under
+``torch.utils.checkpoint`` (``repro``'s ``jax.checkpoint`` of the scanned
+group body), so its forward runs again in the backward; the cross-entropy
+goes by ``cfg.loss_chunk`` positions, each chunk checkpointed, its logits in
+fp32.  Training takes the fp32 masters alone: params holding compute copies
+raise, since gradients would land on the copies.  Not ported yet
+(ROADMAP.md): sharding hints.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..pytree import tree_map
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig
-from .convert import resolve_device, tree_map
+from .convert import resolve_device
 from .layers import (
+    COMPUTE_COPY_KEYS,
     dense,
     embed,
     embedding_init,
@@ -177,11 +191,13 @@ def _attn_kwargs(cfg: ModelConfig, spec: dict) -> dict:
 
 
 def _apply_ffn_part(cfg, spec, bp, x):
-    """FFN / MoE half of an attn block (serving drops the MoE's aux loss)."""
+    """FFN / MoE half of an attn block.  Returns (delta, the MoE's aux loss
+    or None); serving drops the aux loss."""
     h = rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    aux = None
     if spec["is_moe"]:
-        y, _ = moe_mod.moe_ffn(bp["moe"], h, top_k=cfg.top_k,
-                               capacity_factor=cfg.capacity_factor)
+        y, aux = moe_mod.moe_ffn(bp["moe"], h, top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor)
         if cfg.n_shared_experts:
             y = y + ffn(bp["shared_ffn"], h, activation="silu")
     else:
@@ -189,7 +205,7 @@ def _apply_ffn_part(cfg, spec, bp, x):
                 else "silu")
     if cfg.post_norm:
         y = rmsnorm(bp["ln2p"], y, cfg.norm_eps)
-    return y
+    return y, aux
 
 
 def _rwkv6_block(cfg, bp, x, c, impl):
@@ -211,10 +227,13 @@ def _rwkv6_block(cfg, bp, x, c, impl):
                     "sx_c": last_c.float()}
 
 
-def _apply_block_full(cfg, spec, bp, x, impl):
-    """Full-sequence block.  Returns (x, cache entry)."""
+def _apply_block_full(cfg, spec, bp, x, impl, want_cache: bool = True):
+    """Full-sequence block.  Returns (x, cache entry or None, the MoE's aux
+    loss or None); training passes ``want_cache=False`` and builds no
+    cache."""
     if spec["kind"] == "rwkv6":
-        return _rwkv6_block(cfg, bp, x, None, impl)
+        x, c = _rwkv6_block(cfg, bp, x, None, impl)
+        return x, (c if want_cache else None), None
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if spec["kind"] == "attn":
         y, (k, v) = attn_mod.attention(bp["attn"], h, impl=impl,
@@ -222,11 +241,13 @@ def _apply_block_full(cfg, spec, bp, x, impl):
         if cfg.post_norm:
             y = rmsnorm(bp["ln1p"], y, cfg.norm_eps)
         x = x + y
-        return x + _apply_ffn_part(cfg, spec, bp, x), {"k": k, "v": v}
-    y, (s, cs) = ssm_mod.mamba2(bp["mamba"], h, d_state=cfg.ssm_state,
-                                head_dim=cfg.ssm_head_dim, return_state=True,
-                                impl=impl)
-    return x + y, {"ssm": s, "conv": cs}
+        y, aux = _apply_ffn_part(cfg, spec, bp, x)
+        return x + y, ({"k": k, "v": v} if want_cache else None), aux
+    kw = dict(d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim, impl=impl)
+    if not want_cache:
+        return x + ssm_mod.mamba2(bp["mamba"], h, **kw), None, None
+    y, (s, cs) = ssm_mod.mamba2(bp["mamba"], h, return_state=True, **kw)
+    return x + y, {"ssm": s, "conv": cs}, None
 
 
 _SHARED_SPEC = {"kind": "attn", "is_local": False, "is_moe": False}
@@ -259,6 +280,85 @@ def _logits(cfg: ModelConfig, params, h):
 def _group(tree, g: int):
     """Group g's slice of a stacked tree (views, no copies)."""
     return tree_map(lambda a: a[g], tree)
+
+
+def _no_compute_copies(params) -> None:
+    """Training differentiates the fp32 masters: a compute copy would take
+    the gradient in their place and go stale after the update."""
+    def walk(tree, path):
+        for k, v in tree.items():
+            if k in COMPUTE_COPY_KEYS:
+                raise ValueError(
+                    f"forward_train: params hold the compute copy "
+                    f"{'/'.join(path + [k])}; train on the fp32 masters "
+                    "alone (lm_params_from_numpy(..., compute_copies=False))")
+            if isinstance(v, dict):
+                walk(v, path + [k])
+    walk(params, [])
+
+
+def forward_train(cfg: ModelConfig, params: Params, batch, *,
+                  impl: str = "auto", dtype=COMPUTE_DTYPE) -> tuple:
+    """Full-sequence training forward.  Returns (hidden (B, T, d), the MoE
+    layers' summed aux loss, an fp32 0-d tensor).
+
+    Under autograd with ``cfg.remat`` each group is checkpointed (its
+    forward runs again in the backward, kernels included)."""
+    _no_compute_copies(params)
+    templates = _group_templates(cfg)
+    x = _embed_in(cfg, params, batch, "tokens", dtype)
+
+    def group_body(x, aux, g):
+        for p, spec in enumerate(templates):
+            x, _, a = _apply_block_full(
+                cfg, spec, _group(params["blocks"][f"p{p}"], g), x, impl,
+                want_cache=False)
+            if a is not None:
+                aux = aux + a
+        if cfg.hybrid_attn_period:
+            x, _ = _apply_shared_attn_full(cfg, params["shared_attn"], x,
+                                           impl)
+        return x, aux
+
+    aux = torch.zeros((), device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for g in range(cfg.n_groups):
+        if remat:
+            x, aux = checkpoint(group_body, x, aux, g, use_reentrant=False)
+        else:
+            x, aux = group_body(x, aux, g)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def _chunk_nll(cfg: ModelConfig, params, hc, lc):
+    """Summed negative log-likelihood of one chunk, from fp32 logits."""
+    logits = _logits(cfg, params, hc).float()                 # (B, c, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch, *, impl: str = "auto",
+            dtype=COMPUTE_DTYPE) -> torch.Tensor:
+    """Mean next-token cross-entropy plus ``0.01 * aux``.  The (B, T, V)
+    logits never exist whole: ``cfg.loss_chunk`` positions at a time, each
+    chunk checkpointed under autograd (a tail short of a chunk is dropped,
+    as in ``repro``)."""
+    h, aux = forward_train(cfg, params, batch, impl=impl, dtype=dtype)
+    labels = batch["labels"]
+    b, t = labels.shape
+    chunk = min(cfg.loss_chunk, t)
+    n_chunks = t // chunk
+    total = torch.zeros((), device=h.device)
+    for i in range(n_chunks):
+        hc = h[:, i * chunk:(i + 1) * chunk]
+        lc = labels[:, i * chunk:(i + 1) * chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_chunk_nll, cfg, params, hc, lc,
+                                       use_reentrant=False)
+        else:
+            total = total + _chunk_nll(cfg, params, hc, lc)
+    return total / (b * n_chunks * chunk) + 0.01 * aux
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
@@ -303,8 +403,8 @@ def prefill(cfg: ModelConfig, params: Params, batch, max_seq: int, *,
     for g in range(cfg.n_groups):
         for p, spec in enumerate(templates):
             key = f"p{p}"
-            x, c = _apply_block_full(cfg, spec, _group(params["blocks"][key], g),
-                                     x, impl)
+            x, c, _ = _apply_block_full(
+                cfg, spec, _group(params["blocks"][key], g), x, impl)
             if spec["kind"] == "attn":
                 for n in ("k", "v"):
                     _place_kv(cache[key][n][g], c[n])
@@ -338,7 +438,7 @@ def _apply_block_decode(cfg, spec, bp, x, c, pos, impl):
         if cfg.post_norm:
             y = rmsnorm(bp["ln1p"], y, cfg.norm_eps)
         x = x + y
-        return x + _apply_ffn_part(cfg, spec, bp, x)
+        return x + _apply_ffn_part(cfg, spec, bp, x)[0]
     y, s, cs = ssm_mod.mamba2_decode(bp["mamba"], h, c["ssm"], c["conv"],
                                      d_state=cfg.ssm_state,
                                      head_dim=cfg.ssm_head_dim)

@@ -46,7 +46,8 @@ def moe_init(gen, n_experts: int, d: int, d_ff: int, *, device="cpu"):
 
 def expert_weight(params, name: str, dtype) -> torch.Tensor:
     """The stacked expert weight ``name`` in ``dtype`` (the held copy when
-    there is one)."""
+    there is one; copies are for serving only, and training refuses them:
+    a gradient would land on the copy, not the fp32 master)."""
     wc = params.get(name + "_c")
     return wc if wc is not None and wc.dtype == dtype else \
         params[name].to(dtype)

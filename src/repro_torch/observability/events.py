@@ -6,10 +6,13 @@ step, an elastic re-mesh.  Each event is one JSON line::
 
     {"ts": <unix seconds>, "kind": "<domain>.<verb>", ...free-form fields}
 
-``kind`` is dot-namespaced by subsystem.  The port emits ``serve.prefill``
-and ``serve.complete`` (``launch/serve.py``); ``repro``'s scheduler,
-training, fault, elastic and data kinds (``scheduler.admit``,
-``train.step``, ...) arrive with the ports of those subsystems.
+``kind`` is dot-namespaced by subsystem; the kinds the port emits:
+
+  serve.prefill / serve.complete
+  scheduler.admit / scheduler.complete / scheduler.evict
+  train.step / fault.straggler / fault.checkpoint / fault.preempt
+  elastic.remesh
+  data.worker_error / data.closed
 
 A copy of ``repro.observability.events``.  Design mirrors ``trace``: one
 module-level sink, disabled by default, and instrumented call sites gate on

@@ -19,8 +19,9 @@ import torch
 from repro.models import cnn as j_cnn
 from repro.observability import trace as j_trace
 from repro_torch.models import cnn as t_cnn
-from repro_torch.models.convert import params_from_numpy, tree_map
+from repro_torch.models.convert import params_from_numpy
 from repro_torch.observability import trace as t_trace
+from repro_torch.pytree import tree_map
 
 
 def _randomize_bn(tree, rng):

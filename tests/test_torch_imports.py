@@ -46,7 +46,11 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.observability.export, "
             "repro_torch.observability.prom, "
             "repro_torch.observability.events, repro_torch.models.moe, "
-            "repro_torch.serving.scheduler, repro_torch.configs.shapes; "
+            "repro_torch.serving.scheduler, repro_torch.configs.shapes, "
+            "repro_torch.pytree, repro_torch.optim, "
+            "repro_torch.optim.compression, repro_torch.data, "
+            "repro_torch.checkpoint, repro_torch.runtime, "
+            "repro_torch.launch.steps, repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
@@ -58,12 +62,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import cnn, lm
     from repro_torch.models.convert import (
         lm_params_from_numpy,
         params_from_numpy,
     )
+    from repro_torch.optim import AdamState, opt_state_from_numpy
     cfg = get_config("zamba2-2.7b", smoke=True)
     lm_tree = {"embed": {}, "final_norm": {}, "blocks": {}}
     for call in (cnn.resnet50_init, cnn.vgg16_init,
@@ -73,7 +78,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: lm_params_from_numpy(lm_tree),
                  lambda: serve.load_model("zamba2-2.7b", smoke=True),
                  lambda: serve.make_prompts(cfg, 1, 8),
-                 lambda: serve.main(["--arch", "zamba2-2.7b", "--smoke"])):
+                 lambda: serve.main(["--arch", "zamba2-2.7b", "--smoke"]),
+                 lambda: steps.make_train_step(cfg)["make_init"](0)(),
+                 lambda: opt_state_from_numpy(AdamState(0, {}, {})),
+                 lambda: train.main(["--arch", "zamba2-2.7b", "--smoke"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
