@@ -204,6 +204,45 @@ printing one JSON line:
              (12 conv1d, 2 flash), finite losses, and the fp32 wiring gate
              at B 1 x 512 with a planted conv1d fault (dw of the newest tap
              zeroed) failing it.
+   shard_splits — (after the times phase) flash and decode at the offsets
+             a shard of a sharded sequence or cache sees, on this one card
+             (``shard_split_cases``): flash at zamba2's heads over T 4096
+             and gemma2's dh 256 at T 6144 (global, and window 4096 with
+             soft-cap 50) cut into 2, 4 and 8 query shards, each launched
+             with its ``q_offset`` and its key prefix and the outputs
+             concatenated; decode over zamba2's linear cache (a position 0
+             that leaves all shards but the first with no visible row), a
+             window over it (shards wholly before it), and a ring of 1024
+             before and after it wraps, the cache cut into 2, 4 and 8
+             shards, each launched with its ``k_offset`` and log-sum-exp
+             and combined (``decode_attention.combine_shards``); fp32 and
+             bf16.  Each split against the plain unsplit version at the
+             lm_checks tolerance, the plain version split the same way too,
+             and whether its bits equal the unsplit launch (printed, not
+             required); a planted fault, every offset but the first one row
+             off, must fail each (case, split) in fp32 or bf16.  Beside
+             them the times phase's offset-0 flash and decode times at
+             zamba2's shapes and those kernels' times before they took
+             offsets (0.3628 and 0.0503 ms, PERF.md).
+   sharded — (last) the sharded steps of ``launch.steps`` on a (1, 1)
+             ('data', 'model') mesh over a one-process NCCL group (a
+             ``FileStore`` in a temporary directory): zamba2-2.7b served at
+             full width and depth as phase zamba2 (same weights and
+             prompts, 4 x 2048, 32 tokens) through ``make_prefill`` and
+             ``make_decode_step`` (``serve.generate_sharded``): exact
+             launches (54 conv1d and 9 flash per prefill, 9 decode per
+             step), the prefill's and LM_COMPARE - 1 teacher-forced decode
+             steps' logits against the unsharded kernel path within phase
+             zamba2's strictest bf16 tolerance (the max difference and bit
+             equality printed); smollm-360m trained at full width and depth
+             (B 8 x 4096, AdamW, train_smollm's seed and batches, under
+             deterministic algorithms) for SH_TRAIN_STEPS steps of the
+             sharded ``make_train_step``: exact launches, the losses within
+             1e-4 x |loss| of train_smollm's first ones (bit equality
+             printed).  Host-clock medians, the device's busy time and idle
+             share of a decode step, a prefill and a train step, beside the
+             unsharded phases', and where the decode step's host time goes
+             (the DTensor dispatch cost).
 7. the ``kernels`` line, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -268,6 +307,13 @@ TS_GATE = (2, 2, 1024)
 # and the shared attention block); its fp32 wiring gate at (batch, seq)
 TZ_LAYERS, TZ_BATCH, TZ_SEQ, TZ_STEPS = 6, 2, 2048, 3
 TZ_GATE = (1, 512)
+# shard_splits: shards a sequence or a cache is cut into, and the cold-L2
+# bf16 times of flash and decode at zamba2's serving shapes before the
+# kernels took shard offsets (PERF.md §6)
+SHARD_SPLITS = (2, 4, 8)
+BEFORE_OFFSETS_MS = {"flash_attention": 0.3628, "decode_attention": 0.0503}
+# phase sharded: smollm-360m's sharded train steps (train_smollm's first)
+SH_TRAIN_STEPS = 3
 # LM paths: positions compared with the plain engine (the prefill's last
 # and the first decode steps'), host-clock runs timed
 LM_COMPARE, LM_TIMED = 8, 3
@@ -949,6 +995,114 @@ def lm_library(case: dict, args):
     wt = w.t().contiguous()[:, None, :].to(x.dtype)           # (C, 1, FL)
     return lambda: F.conv1d(xt, wt, padding=case["fl"] - 1,
                             groups=case["c"])
+
+
+# ------------------------------------------------------ shard splits ------
+def shard_split_cases() -> list[dict]:
+    """Phase shard_splits: the flash and decode shapes split as a sharded
+    sequence or cache would split them."""
+    fa, da = flash_case, decode_case
+    zs = Z_PROMPT + Z_GEN
+    return [
+        # zamba2's heads over a 4096-token sequence; gemma2's dh 256 at its
+        # prompt, global and windowed, soft-capped
+        fa(2, 2 * Z_PROMPT, 32, 32, 80),
+        fa(1, G_PROMPT, 16, 8, 256, 0, 50.0),
+        fa(1, G_PROMPT, 16, 8, 256, 4096, 50.0),
+        # zamba2's linear cache: pos 0 leaves every shard but the first with
+        # no visible row
+        da(Z_BATCH, zs, 32, 32, 80, (0, zs - 1, 1000, Z_PROMPT - 1)),
+        # a window over the linear cache: shards wholly before it see none
+        da(Z_BATCH, zs, 32, 32, 80, (100, zs - 1, 1000, 1500), window=512),
+        # a ring of 1024 slots before it wraps and after (min(pos, W - 1))
+        da(2, 1024, 32, 8, 128, (300, 700), ring=1024),
+        da(2, 1024, 32, 8, 128, (1500, 5119), ring=1024),
+    ]
+
+
+def split_call(case: dict, args, kw, n: int, wrapper, da_mod, fault=0):
+    """The call of ``case`` cut into n shards: flash by query rows, each
+    shard given its q_offset and its key prefix and the outputs
+    concatenated; decode by cache rows, each shard given its k_offset, the
+    outputs combined by their log-sum-exps.  ``fault`` moves every offset
+    but the first by that many rows (the planted fault)."""
+    if case["kernel"] == "flash_attention":
+        q, k, v = args
+        t = q.shape[1] // n
+        outs = []
+        for i in range(n):
+            q0 = i * t
+            end = q0 + t
+            outs.append(wrapper(q[:, q0:end].contiguous(),
+                                k[:, :end].contiguous(),
+                                v[:, :end].contiguous(), **kw,
+                                q_offset=q0 + (fault if i else 0)))
+        return torch.cat(outs, dim=1)
+    q, ck, cv, pos = args
+    rows = ck.shape[1] // n
+    outs, lses = [], []
+    for i in range(n):
+        s0 = i * rows
+        o, l = wrapper(q, ck[:, s0:s0 + rows].contiguous(),
+                       cv[:, s0:s0 + rows].contiguous(), pos, **kw,
+                       k_offset=s0 + (fault if i else 0), return_lse=True)
+        outs.append(o)
+        lses.append(l)
+    return da_mod.combine_shards(torch.stack(outs), torch.stack(lses))
+
+
+def check_shard_splits(chk: Checker, lm_kernels: dict, da_mod,
+                       lm_times: dict, gen) -> dict:
+    """Phase shard_splits: each case of ``shard_split_cases``, fp32 and bf16,
+    split into 2, 4 and 8 shards through the kernels against the plain
+    unsplit version (the lm_checks tolerance), the plain version split the
+    same way against it too, and whether the bits equal the unsplit launch;
+    every planted offset fault (one row off) must fail the check in fp32 or
+    bf16 (in bf16 one key more or less among thousands can stay inside
+    the tolerance of a long row; fp32's 1e-4 holds it).  Beside them, the
+    times phase's flash and decode at zamba2's serving shapes (offset 0,
+    bf16, cold L2) and their times before the offsets."""
+    recs, caught = [], {}
+    for ci, case in enumerate(shard_split_cases()):
+        wrapper, plain = lm_kernels[case["kernel"]]
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = lm_operands(case, dtype, gen)
+            whole = wrapper(*args, **kw)
+            want = plain(*args, **kw)
+            tol = _attn_tol(want, plain, args, kw)
+            for n in SHARD_SPLITS:
+                got = split_call(case, args, kw, n, wrapper, da_mod)
+                chk.add(case["kernel"], {**case, "dtype": str(dtype)[6:],
+                                         "shards": n}, got, want, 0, tol)
+                rec = chk.cases[-1]
+                plain_split = split_call(case, args, kw, n, plain, da_mod)
+                perr = ((plain_split.float() - want.float()).abs()
+                        / tol).max().item()
+                rec.update(bits_equal_unsplit_launch=torch.equal(got, whole),
+                           plain_split_err_over_tol=perr,
+                           ok=rec["ok"] and perr <= 1.0)
+                bad = split_call(case, args, kw, n, wrapper, da_mod, fault=1)
+                ratio = ((bad.float() - want.float()).abs() / tol).max().item()
+                rec["offset_fault_err_over_tol"] = ratio
+                caught[ci, n] = caught.get((ci, n), False) or ratio > 1.0
+                recs.append(rec)
+            del args, whole, want
+    torch.cuda.synchronize()
+    timed = {k: {"ms": lm_times[k]["ms"], "before_offsets_ms": ms,
+                 "ratio": lm_times[k]["ms"] / ms}
+             for k, ms in BEFORE_OFFSETS_MS.items()}
+    out = {"cases": len(recs), "failed": sum(not r["ok"] for r in recs),
+           "bits_equal_unsplit_launch": sum(r["bits_equal_unsplit_launch"]
+                                            for r in recs),
+           "max_err_over_tol": max(r["err_over_tol"] for r in recs),
+           "max_plain_split_err_over_tol": max(r["plain_split_err_over_tol"]
+                                               for r in recs),
+           "offset_faults": len(caught),
+           "offset_faults_caught": sum(caught.values()),
+           "offset0_bf16": timed}
+    if out["failed"] or not all(caught.values()):
+        raise SystemExit(f"shard_splits failed: {out}")
+    return out
 
 
 def build_with_faults(_build) -> tuple[float, dict]:
@@ -2322,6 +2476,180 @@ def run_train_zamba2(lm, c1_mod, counters: dict) -> dict:
     return rec
 
 
+# ------------------------------------------------------------ sharded ------
+def sharded_forced_logits(pre, dec, placed, prompts, tokens, gen: int) -> list:
+    """``forced_logits`` through the sharded prefill and decode steps."""
+    b, t = tokens.shape[0], prompts["tokens"].shape[1]
+    logits, cache = pre["fn"](placed, prompts)
+    out = [logits.full_tensor()[:, -1].float()]
+    for i in range(tokens.shape[1]):
+        step = {"token": tokens[:, i:i + 1],
+                "pos": torch.full((b,), t + i, dtype=torch.int32,
+                                  device=DEVICE)}
+        logits, cache = dec["fn"](placed, cache, step)
+        out.append(logits.full_tensor()[:, -1].float())
+    return out
+
+
+def run_sharded(serve, lm, counters: dict, zamba2: dict,
+                train_s: dict) -> dict:
+    """Phase sharded (module docstring): the sharded steps on a (1, 1) mesh
+    over a one-process NCCL group, zamba2 served and smollm-360m trained at
+    full width and depth, beside the unsharded phases."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset, to_device
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.layers import COMPUTE_COPY_KEYS
+
+    def masters(tree):
+        return {k: masters(v) if isinstance(v, dict) else v
+                for k, v in tree.items() if k not in COMPUTE_COPY_KEYS}
+
+    def counted(fn):
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: f.launches for k, f in counters.items()}
+
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    cuda = torch.device(DEVICE).type == "cuda"
+    dist.init_process_group(
+        "nccl" if cuda else "gloo", store=dist.FileStore(
+            os.path.join(store_dir, "store"), 1), rank=0, world_size=1,
+        **({"device_id": torch.device(DEVICE, 0)} if cuda else {}))
+    try:
+        mesh = make_smoke_mesh(device_type=torch.device(DEVICE).type)
+        # zamba2-2.7b served: the same weights and prompts as phase zamba2
+        t0 = time.perf_counter()
+        cfg, params = serve.load_model("zamba2-2.7b", device=DEVICE,
+                                       seed=SEED)
+        prompts = serve.make_prompts(cfg, Z_BATCH, Z_PROMPT, device=DEVICE,
+                                     seed=SEED)
+        max_seq = Z_PROMPT + Z_GEN
+        pre = steps.make_prefill(cfg, mesh, max_seq)
+        dec = steps.make_decode_step(cfg, mesh, max_seq, Z_BATCH)
+        placed = sharding.distribute(masters(params), mesh,
+                                     dec["param_spec"])
+        zero = {k: 0 for k in counters}
+        want_pre = {**zero, "conv1d_causal": cfg.n_layers,
+                    "flash_attention": cfg.n_groups}
+        want_step = {**zero, "decode_attention": cfg.n_groups}
+        (logits, cache), per_prefill = counted(
+            lambda: pre["fn"](placed, prompts))
+        step_batch = {"token": torch.argmax(logits.full_tensor()[:, -1],
+                                            dim=-1)[:, None],
+                      "pos": torch.full((Z_BATCH,), Z_PROMPT,
+                                        dtype=torch.int32, device=DEVICE)}
+        _, per_step = counted(lambda: dec["fn"](placed, cache, step_batch))
+        out, per_run = counted(lambda: serve.generate_sharded(
+            cfg, masters(params), prompts, Z_GEN, mesh))
+        want_run = {k: want_pre[k] + (Z_GEN - 1) * want_step[k]
+                    for k in counters}
+        runs = [serve.generate_sharded(cfg, masters(params), prompts, Z_GEN,
+                                       mesh) for _ in range(2)]
+        forced = out["tokens"][:, :LM_COMPARE]
+        got = sharded_forced_logits(pre, dec, placed, prompts, forced, Z_GEN)
+        ref = forced_logits(lm, cfg, params, prompts, forced, Z_GEN)
+        diffs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+        tol = min(zamba2["logits_tol"])
+        _, cache = pre["fn"](placed, prompts)
+        serve_rec = {
+            "launches_per_prefill": per_prefill,
+            "launches_per_decode_step": per_step, "launches_per_run": per_run,
+            "logits_max_abs_diff": diffs, "logits_tol": tol,
+            "logits_bit_equal": all(torch.equal(g, r)
+                                    for g, r in zip(got, ref)),
+            "tokens_equal_unsharded_sample":
+                out["tokens"][0, :12].tolist() == zamba2["sample"],
+            "prefill_ms_median": statistics.median(r["prefill_ms"]
+                                                   for r in runs),
+            "decode_ms_per_token_median": statistics.median(
+                x for r in runs for x in r["step_ms"]),
+            "unsharded_prefill_ms_median": zamba2["prefill_ms_median"],
+            "unsharded_decode_ms_per_token_median":
+                zamba2["decode_ms_per_token_median"],
+            "decode_step_device": profile_busy(
+                lambda: dec["fn"](placed, cache, step_batch)),
+            "unsharded_decode_step_device": zamba2["decode_step_device"],
+            "decode_step_host": host_profile(
+                lambda: dec["fn"](placed, cache, step_batch), 3),
+            "prefill_device": profile_busy(
+                lambda: pre["fn"](placed, prompts), reps=1),
+            "unsharded_prefill_device": zamba2["prefill_device"]}
+        del params, placed, cache, logits, pre, dec, out, runs, got, ref
+        free()
+        serve_s = time.perf_counter() - t0
+
+        # smollm-360m trained: the batches and initial state of train_smollm
+        t0 = time.perf_counter()
+        tcfg = get_config("smollm-360m")
+        ds = SyntheticTokenDataset(tcfg.vocab, TS_SEQ, TS_BATCH, seed=SEED)
+        mk = steps.make_train_step(tcfg, "adamw", TS_LR, mesh=mesh,
+                                   device=DEVICE)
+        state = mk["make_init"](SEED)()
+        losses, launches, dts = [], [], []
+        was_deterministic = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for i in range(SH_TRAIN_STEPS):
+                batch = to_device(ds.batch(i), DEVICE)
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                (state, m), n = counted(lambda: mk["fn"](state, batch))
+                losses.append(m["loss"].item())
+                dts.append(time.perf_counter() - ts)
+                launches.append(n)
+            step_device = profile_busy(lambda: mk["fn"](state, batch),
+                                       reps=1, top=8)
+        finally:
+            torch.use_deterministic_algorithms(was_deterministic)
+        del state, mk
+        free()
+        want_train = {**zero, "flash_attention": 2 * tcfg.n_layers}
+        ref_losses = train_s["losses"][:SH_TRAIN_STEPS]
+        train_rec = {
+            "losses": losses, "unsharded_losses": ref_losses,
+            "loss_max_abs_diff": max(abs(a - b)
+                                     for a, b in zip(losses, ref_losses)),
+            "losses_bit_equal": losses == ref_losses,
+            "launches_per_step": launches,
+            "step_ms_all": [d * 1e3 for d in dts],
+            "step_ms_median_2_on": statistics.median(dts[1:]) * 1e3,
+            "unsharded_step_ms_median_2_to_6":
+                train_s["step_ms_median_2_to_6"],
+            "step_device": step_device,
+            "unsharded_step_device": train_s["step_device"]}
+        train_s_ = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    rec = {"phase": "sharded", "mesh": "(1, 1) data x model, NCCL, world 1",
+           "zamba2_serve": serve_rec, "smollm_train": train_rec,
+           "serve_seconds": serve_s, "train_seconds": train_s_}
+    emit(rec)
+    problems = []
+    for what, got_n, want_n in (
+            ("per prefill", per_prefill, want_pre),
+            ("per decode step", per_step, want_step),
+            ("per run", per_run, want_run)):
+        if got_n != want_n:
+            problems.append(f"zamba2 launches {what} {got_n} != {want_n}")
+    if max(diffs) > tol:
+        problems.append(f"zamba2 logits off the unsharded path by {diffs} "
+                        f"(tol {tol})")
+    if any(n != want_train for n in launches):
+        problems.append(f"smollm launches per step {launches}")
+    if not all(math.isfinite(x) for x in losses) or \
+            train_rec["loss_max_abs_diff"] > 1e-4 * max(map(abs, ref_losses)):
+        problems.append(f"smollm losses {losses} vs {ref_losses}")
+    if problems:
+        raise SystemExit(f"sharded: {problems}")
+    return rec
+
+
 def free() -> None:
     """Hand a finished phase's memory back before the next."""
     import gc
@@ -2535,6 +2863,10 @@ def main() -> int:
                                     "bound_ms", "bound_by", "max_abs_err",
                                     "cache_copy_ms") if f in r}
              for k, r in lm_times.items()}})
+    t0 = time.perf_counter()
+    splits = check_shard_splits(Checker(), lm_kernels, da_mod, lm_times, dgen)
+    emit({"phase": "shard_splits", **splits,
+          "seconds": time.perf_counter() - t0})
     dh256 = check_dh256(_build, lm_kernels, peaks, flush, dgen)
     decode_paths = time_decode_paths(lm_kernels, peaks, flush, dgen)
     emit({"phase": "times", "path": "decode at the mixtral and gemma2 "
@@ -2593,6 +2925,10 @@ def main() -> int:
     t0 = time.perf_counter()
     train_z = run_train_zamba2(lm, c1_mod, counters)
     emit({"phase": "train_zamba2", "seconds": time.perf_counter() - t0})
+    free()
+    t0 = time.perf_counter()
+    sharded = run_sharded(serve, lm, counters, zamba2, train_s)
+    emit({"phase": "sharded", "seconds": time.perf_counter() - t0})
 
     dump({**details, "times": per_path, "lm_times": lm_times,
           "launch_floor_ms": launch_floor_ms,
@@ -2600,7 +2936,8 @@ def main() -> int:
           "decode_paths": decode_paths, "gemma2": gemma2,
           "mixtral": mixtral, "scheduler": sched, "rwkv6": rwkv6,
           "tune": tuned, "report": table2, "train_kernels": train_k,
-          "train_smollm": train_s, "train_zamba2": train_z})
+          "train_smollm": train_s, "train_zamba2": train_z,
+          "shard_splits": splits, "sharded": sharded})
 
     # 7. kernels line (dense ResNet-50 main path), the card, the last line
     sources = {"conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
@@ -2620,6 +2957,11 @@ def main() -> int:
     by_path["scheduler"] = sched["launches"]
     by_path["smollm_train_step"] = train_s["launches_per_step"][0]
     by_path["zamba2_train_step"] = train_z["launches_per_step"][0]
+    zs = sharded["zamba2_serve"]
+    by_path["sharded_zamba2_prefill"] = zs["launches_per_prefill"]
+    by_path["sharded_zamba2_decode"] = zs["launches_per_decode_step"]
+    by_path["sharded_smollm_train_step"] = \
+        sharded["smollm_train"]["launches_per_step"][0]
     by_path.update({f"{p}_tuned": r["launches"]
                     for p, r in tuned["per_net"].items()})
     line = []

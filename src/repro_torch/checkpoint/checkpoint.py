@@ -38,6 +38,7 @@ from typing import Any
 import msgpack
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..pytree import flatten, unflatten
 
@@ -126,7 +127,10 @@ def _shard_name(host_id: int, codec: str) -> str:
 
 
 def _host_array(x) -> np.ndarray:
-    """A leaf as a numpy array on the host; bf16 viewed as uint16."""
+    """A leaf as a numpy array on the host; bf16 viewed as uint16.  A
+    DTensor is written whole (gathered), as ``repro``'s format holds it."""
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -164,15 +168,20 @@ def _leaf_from_bytes(d: dict, like):
 
 def save(ckpt_dir: str, step: int, tree: Any, metadata: dict | None = None,
          host_id: int = 0, codec: str | None = None) -> str:
-    """Synchronous atomic save.  Returns the final directory."""
+    """Synchronous atomic save.  Returns the final directory.
+
+    DTensor leaves are gathered whole (every process of their mesh must
+    call ``save``), and then only global rank 0 writes."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    codec = codec or _DEFAULT_CODEC
+    leaves, treedef = flatten(tree)
+    sharded = any(isinstance(x, DTensor) for x in leaves)
+    data = [_leaf_to_bytes(x) for x in leaves]
+    if sharded and torch.distributed.get_rank() != 0:
+        return final
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    codec = codec or _DEFAULT_CODEC
-
-    leaves, treedef = flatten(tree)
-    blob, pieces = _compress(msgpack.packb([_leaf_to_bytes(x)
-                                            for x in leaves]), codec)
+    blob, pieces = _compress(msgpack.packb(data), codec)
     with open(os.path.join(tmp, _shard_name(host_id, codec)), "wb") as f:
         f.write(blob)
     manifest = {"step": step, "treedef": repr(treedef),
@@ -195,13 +204,18 @@ _pending_lock = threading.Lock()
 
 def save_async(ckpt_dir: str, step: int, tree: Any,
                metadata: dict | None = None) -> threading.Thread:
-    """Copy the leaves to host memory now; write them in the background."""
+    """Copy the leaves to host memory now (DTensors gathered whole);
+    write them in the background."""
     leaves, treedef = flatten(tree)
+    sharded = any(isinstance(x, DTensor) for x in leaves)
     snapshot = unflatten(treedef, [
-        x.detach().to("cpu", copy=True) if isinstance(x, torch.Tensor)
+        (x.full_tensor() if isinstance(x, DTensor) else x).detach().to(
+            "cpu", copy=True) if isinstance(x, torch.Tensor)
         else np.array(x) for x in leaves])
-    t = threading.Thread(target=save, args=(ckpt_dir, step, snapshot,
-                                            metadata), daemon=True)
+    write = not sharded or torch.distributed.get_rank() == 0
+    t = threading.Thread(target=save if write else (lambda *a: None),
+                         args=(ckpt_dir, step, snapshot, metadata),
+                         daemon=True)
     t.start()
     with _pending_lock:
         _pending.append(t)
@@ -224,11 +238,15 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like: Any,
-            host_id: int = 0) -> tuple[Any, dict]:
+def restore(ckpt_dir: str, step: int, like: Any, host_id: int = 0,
+            shardings: Any = None) -> tuple[Any, dict]:
     """Restore into the structure of ``like``: tensor leaves of ``like``
     give tensors on their device (shape and dtype checked), other leaves
-    numpy arrays.  Returns (tree, metadata)."""
+    numpy arrays.  ``shardings`` (a tree of ``like``'s structure whose
+    leaves have ``mesh`` and ``placements``, e.g.
+    ``launch.sharding.NamedSharding``) distributes each leaf onto its mesh,
+    as ``repro``'s ``device_put``; a checkpoint written on one mesh (or
+    none) restores onto another.  Returns (tree, metadata)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(final, "manifest.msgpack"), "rb") as f:
         manifest = msgpack.unpackb(f.read())
@@ -241,6 +259,13 @@ def restore(ckpt_dir: str, step: int, like: Any,
         raise ValueError(f"checkpoint holds {len(payload)} leaves "
                          f"(manifest {manifest['n_leaves']}), the tree to "
                          f"restore into {len(like_leaves)}")
-    return unflatten(treedef, [_leaf_from_bytes(d, x) for d, x in
-                               zip(payload, like_leaves)]), \
-        manifest["metadata"]
+    leaves = [_leaf_from_bytes(d, x) for d, x in zip(payload, like_leaves)]
+    if shardings is not None:
+        sh, _ = flatten(shardings)
+        if len(sh) != len(leaves):
+            raise ValueError(f"restore: {len(sh)} shardings for "
+                             f"{len(leaves)} leaves")
+        leaves = [distribute_tensor(x, s.mesh, s.placements,
+                                    src_data_rank=None)
+                  for x, s in zip(leaves, sh)]
+    return unflatten(treedef, leaves), manifest["metadata"]

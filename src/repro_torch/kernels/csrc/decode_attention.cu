@@ -13,7 +13,7 @@
 //   j > pos[b] - window);
 //   out = sum_j p[j] v[j] / max(l, 1e-30), p = exp(s - m) summed into l in
 //   fp32 and rounded to v's type before the product (`p.astype(v.dtype)` in
-//   the Pallas kernel), stored once in q's type. pos must lie in [0, S).
+//   the Pallas kernel), stored once in q's type. pos must be >= 0.
 // The Pallas kernel takes only the causal mask; the reference applies the
 // soft-cap and the window in jnp around it (repro/models/attention.py,
 // attention_decode), and this kernel takes both.
@@ -26,6 +26,18 @@
 // of its keys. So the ring needs nothing here: the wrapper
 // (models/attention.py, attention_decode) writes the new k/v at pos % W and
 // passes min(pos, W - 1) as pos.
+//
+// Cache shards (decode over a cache whose S axis is sharded over a mesh):
+// a shard holds rows k_offset .. k_offset + S - 1 of the cache, so row j
+// is key k_offset + j and the mask above reads j + k_offset for j. A shard
+// may see no key at all (all its rows past pos, or all before the window):
+// then one split runs no tile and the combine writes a zero output and, if
+// asked, a log-sum-exp of -inf, never a NaN. With lse given, the combine
+// also writes each head's log-sum-exp M + log(L) (fp32, natural log, in
+// the units of the soft-capped, scaled scores), from which the caller
+// combines the shards' outputs: out = sum_i out_i e^(lse_i - M*) / sum_i
+// e^(lse_i - M*), M* = max_i lse_i. k_offset 0 and no lse is the unsharded
+// call; the splits, the tickets and the combine are unchanged.
 //
 // Why not the Pallas grid: there the S axis is the sequential innermost grid
 // dimension, carrying the online softmax in scratch. At zamba2's decode shape
@@ -87,7 +99,7 @@ constexpr int DA_SLOTS = 4;      // V-pass items a thread may own
 constexpr float DA_NEG_INF = -2.3819763e38f;
 
 struct DecodeShape {
-  int B, S, H, KH, G, n_splits, split_tiles, window;
+  int B, S, H, KH, G, n_splits, split_tiles, window, k_offset;
   float scale, softcap;
 };
 
@@ -130,7 +142,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(DA_THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ pos,
-              T* __restrict__ out, float* __restrict__ ws_m,
+              T* __restrict__ out, float* __restrict__ lse,
+              float* __restrict__ ws_m,
               float* __restrict__ ws_l, float* __restrict__ ws_acc,
               int* __restrict__ tickets, DecodeShape s) {
   using SM = DecodeSmem<T, DH>;
@@ -147,10 +160,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ int last;
 
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int kmax = min(pos[b], s.S - 1);
+  const int p = pos[b] - s.k_offset;   // pos as a row of this cache
+  int kmax = min(p, s.S - 1);
   // the window's first visible key (0 without a window)
-  const int kmin = s.window > 0 ? min(max(0, pos[b] - s.window + 1), kmax)
-                                : 0;
+  int kmin = s.window > 0 ? max(0, p - s.window + 1) : 0;
+  // no visible row: one split, no tile (kmax / split_rows is 0 at -1)
+  if (kmin > kmax) kmin = 0, kmax = -1;
   const int split_rows = s.split_tiles * DA_CH;
   // splits that hold a key: [first_run, n_run); the others read nothing
   const int first_run = kmin / split_rows;
@@ -348,6 +363,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     out[((int64_t)b * s.H + kh * s.G) * DH + o] =
         from_f32<T>(A / fmaxf(L, 1e-30f));
+    // log(0) is -inf: a cache with no visible row
+    if (lse && o % DH == 0)
+      lse[(int64_t)b * s.H + kh * s.G + g] = M + logf(L);
   }
   if (tid == 0) *ticket = 0;
 }
@@ -356,8 +374,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // writes there how many of its blocks an SM holds at once.
 template <typename T, int DH>
 int launch_dh(const void* q, const void* k, const void* v, const int* pos,
-              void* out, float* ws, int* tickets, const DecodeShape& s,
-              cudaStream_t stream, int* blocks_per_sm) {
+              void* out, float* lse, float* ws, int* tickets,
+              const DecodeShape& s, cudaStream_t stream, int* blocks_per_sm) {
   const size_t bytes = DecodeSmem<T, DH>::bytes(s.G);
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -372,26 +390,28 @@ int launch_dh(const void* q, const void* k, const void* v, const int* pos,
   decode_kernel<T, DH><<<dim3(s.n_splits, s.KH, s.B), DA_THREADS, bytes,
                          stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, static_cast<T*>(out), ws, ws + n_ws,
+      static_cast<const T*>(v), pos, static_cast<T*>(out), lse, ws,
+      ws + n_ws,
       ws + 2 * n_ws, tickets, s);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* pos,
-           void* out, float* ws, int* tickets, const DecodeShape& s, int dh,
-           cudaStream_t stream, int* blocks_per_sm = nullptr) {
+           void* out, float* lse, float* ws, int* tickets,
+           const DecodeShape& s, int dh, cudaStream_t stream,
+           int* blocks_per_sm = nullptr) {
   switch (dh) {
-    case 16: return launch_dh<T, 16>(q, k, v, pos, out, ws, tickets, s,
+    case 16: return launch_dh<T, 16>(q, k, v, pos, out, lse, ws, tickets, s,
                                      stream, blocks_per_sm);
-    case 64: return launch_dh<T, 64>(q, k, v, pos, out, ws, tickets, s,
+    case 64: return launch_dh<T, 64>(q, k, v, pos, out, lse, ws, tickets, s,
                                      stream, blocks_per_sm);
-    case 80: return launch_dh<T, 80>(q, k, v, pos, out, ws, tickets, s,
+    case 80: return launch_dh<T, 80>(q, k, v, pos, out, lse, ws, tickets, s,
                                      stream, blocks_per_sm);
-    case 128: return launch_dh<T, 128>(q, k, v, pos, out, ws, tickets, s,
-                                       stream, blocks_per_sm);
-    case 256: return launch_dh<T, 256>(q, k, v, pos, out, ws, tickets, s,
-                                       stream, blocks_per_sm);
+    case 128: return launch_dh<T, 128>(q, k, v, pos, out, lse, ws, tickets,
+                                       s, stream, blocks_per_sm);
+    case 256: return launch_dh<T, 256>(q, k, v, pos, out, lse, ws, tickets,
+                                       s, stream, blocks_per_sm);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -400,37 +420,43 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out, contiguous and 16-byte
 // aligned). q and out are (B, H, DH); k and v are (B, S, KH, DH) with H a
-// multiple of KH; pos is (B,) int32. window <= 0 and softcap <= 0 turn
-// those off. The cache is read in n_splits splits of split_tiles tiles of
-// 64 rows, which must cover S with no split left empty. ws: fp32 workspace
+// multiple of KH; pos is (B,) int32, >= 0. window <= 0 and softcap <= 0
+// turn those off. k_offset >= 0 is the key of the cache's row 0 (a shard's
+// first row; 0 unsharded). lse: nullptr, or (B, H) fp32 for each head's
+// log-sum-exp (-inf where no row is visible). The cache is read in
+// n_splits splits of split_tiles tiles of 64 rows, which must cover S with
+// no split left empty. ws: fp32 workspace
 // of B * KH * n_splits * H/KH * (2 + DH) values.
 // tickets: B * KH int32 counters, all 0 before the call and 0 again after it
 // (calls that share them must be ordered on one stream). Returns
 // cudaGetLastError() (or the error of the shared-memory opt-in).
 extern "C" int carla_decode_attention(int dtype, const void* q, const void* k,
                                       const void* v, const void* pos,
-                                      void* out, void* ws, void* tickets,
-                                      int B, int S, int H, int KH, int DH,
-                                      int n_splits, int split_tiles,
-                                      int window, float scale, float softcap,
-                                      void* stream) {
+                                      void* out, void* lse, void* ws,
+                                      void* tickets, int B, int S, int H,
+                                      int KH, int DH, int n_splits,
+                                      int split_tiles, int window,
+                                      int k_offset, float scale,
+                                      float softcap, void* stream) {
   if (B == 0 || H == 0) return 0;
   const int64_t split_rows = (int64_t)split_tiles * carla::DA_CH;
   if (S <= 0 || KH <= 0 || H % KH != 0 || n_splits <= 0 ||
       H / KH * DH > carla::DA_SLOTS * carla::DA_THREADS * 4 ||
       split_tiles <= 0 || n_splits * split_rows < S ||
-      (n_splits - 1) * split_rows >= S)
+      (n_splits - 1) * split_rows >= S || k_offset < 0)
     return (int)cudaErrorInvalidValue;
-  const carla::DecodeShape s{B, S, H, KH, H / KH, n_splits, split_tiles,
-                             window, scale, softcap};
+  const carla::DecodeShape s{B,      S,           H,      KH,       H / KH,
+                             n_splits, split_tiles, window, k_offset, scale,
+                             softcap};
   const int* p = static_cast<const int*>(pos);
+  float* l = static_cast<float*>(lse);
   float* w = static_cast<float*>(ws);
   int* t = static_cast<int*>(tickets);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return carla::launch<float>(q, k, v, p, out, w, t, s, DH, st);
+    return carla::launch<float>(q, k, v, p, out, l, w, t, s, DH, st);
   if (dtype == 1)
-    return carla::launch<__nv_bfloat16>(q, k, v, p, out, w, t, s, DH, st);
+    return carla::launch<__nv_bfloat16>(q, k, v, p, out, l, w, t, s, DH, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -445,10 +471,10 @@ extern "C" int carla_decode_occupancy(int dtype, int H, int KH, int DH,
   int* n = static_cast<int*>(blocks_per_sm);
   if (dtype == 0)
     return carla::launch<float>(nullptr, nullptr, nullptr, nullptr, nullptr,
-                                nullptr, nullptr, s, DH, nullptr, n);
+                                nullptr, nullptr, nullptr, s, DH, nullptr, n);
   if (dtype == 1)
     return carla::launch<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr,
-                                        nullptr, nullptr, nullptr, s, DH,
-                                        nullptr, n);
+                                        nullptr, nullptr, nullptr, nullptr, s,
+                                        DH, nullptr, n);
   return (int)cudaErrorInvalidValue;
 }

@@ -63,6 +63,15 @@
 //   (both transposed), V and the rounded P tile sit in shared memory as
 //   fp32. The tensor cores' TF32 would not give fp32's result.
 //
+// Query offset (sequence-parallel prefill and training): with the tokens of a
+// sequence sharded over a mesh axis, a shard holds query rows q_offset ..
+// q_offset + T - 1 of the sequence against keys from 0, so row t of q is
+// position q_offset + t. The mask, the first and last KV tiles a block
+// walks and the skip of tiles past the diagonal all use that position; the
+// loads and stores use t. The caller passes only the keys the shard can
+// see (S = q_offset + T). Offset 0 is the unsharded call, at the cost of
+// one add per position.
+//
 // DH 256 (gemma2-9b prefill: B 1, T 6144, H 16, KH 8, soft-cap 50, windows
 // 4096 and 0): 4 * 256 FLOP per visible pair, 3.1e11 FLOP for a global
 // layer against 151 MB of bf16 q, k, v and out, so bound by operations, 0.31
@@ -89,7 +98,7 @@ constexpr float FA_NEG_INF = -2.3819763e38f;
 constexpr float FA_LOG2E = 1.4426950408889634f;
 
 struct FlashShape {
-  int B, T, S, H, KH, window;
+  int B, T, S, H, KH, window, q_offset;
   float scale, softcap;
 };
 
@@ -148,9 +157,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
 
-  const int q_last = min(q0 + FA_BQ, s.T) - 1;
+  // positions of the tile's rows in the sequence
+  const int q_last = s.q_offset + min(q0 + FA_BQ, s.T) - 1;
   const int k_last = min(q_last, s.S - 1);
-  const int k_first = s.window > 0 ? max(0, q0 - s.window + 1) : 0;
+  const int k_first =
+      s.window > 0 ? max(0, s.q_offset + q0 - s.window + 1) : 0;
   for (int k0 = (k_first / FA_BK) * FA_BK; k0 <= k_last; k0 += FA_BK) {
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < FA_BK * CHUNKS; i += FA_THREADS) {
@@ -193,7 +204,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // online softmax; a row's 64 keys live on the 16 lanes of one half-warp
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int t = q0 + ty * 4 + i;
+      const int t = s.q_offset + q0 + ty * 4 + i;
       float mt = FA_NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -306,9 +317,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                ok);
   }
 
-  const int q_last = min(q0 + FA_MMA_BQ, s.T) - 1;
+  // positions of the block's rows in the sequence
+  const int q_last = s.q_offset + min(q0 + FA_MMA_BQ, s.T) - 1;
   const int k_last = min(q_last, s.S - 1);
-  const int k_first = s.window > 0 ? max(0, q0 - s.window + 1) : 0;
+  const int k_first =
+      s.window > 0 ? max(0, s.q_offset + q0 - s.window + 1) : 0;
   const int tile0 = k_first / FA_MMA_BK;
   const int n_tiles = k_last < 0 ? 0 : max(0, k_last / FA_MMA_BK - tile0 + 1);
 
@@ -339,6 +352,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // w0 + 16 mt + lane / 4 (elements 0, 1 of an accumulator n-tile) and
   // that + 8 (elements 2, 3), at columns col, col + 1 of each n-tile.
   const int w0 = q0 + warp * 16 * MT;
+  const int a0 = s.q_offset + w0;   // the position of row w0
   const int col = 2 * (lane % 4);
   // p = 2^(s c - m c): c folds the scale (without a soft-cap) and log2(e)
   // into one multiply-add; m is kept in the units of s
@@ -364,8 +378,8 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* Vs = Ks + FA_MMA_BK * LD;
     // a tile none of the warp's rows can see: all past the diagonal, or
     // all before the window
-    const int w_last = w0 + 16 * MT - 1;
-    if (k0 > w_last || (s.window > 0 && k0 + FA_MMA_BK - 1 <= w0 - s.window))
+    const int w_last = a0 + 16 * MT - 1;
+    if (k0 > w_last || (s.window > 0 && k0 + FA_MMA_BK - 1 <= a0 - s.window))
       continue;
 
     // The tile's work, compiled twice: with the mask, for tiles that cross
@@ -411,7 +425,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
       if constexpr (decltype(masked)::value) {
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          const int t0 = w0 + mt * 16 + lane / 4;
+          const int t0 = a0 + mt * 16 + lane / 4;
 #pragma unroll
           for (int n = 0; n < NT; ++n) {
 #pragma unroll
@@ -498,7 +512,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
           l[mt][r] += sum;
         }
     };
-    if (k0 + FA_MMA_BK - 1 > w0 || k0 + FA_MMA_BK > s.S ||
+    if (k0 + FA_MMA_BK - 1 > a0 || k0 + FA_MMA_BK > s.S ||
         (s.window > 0 && k0 <= w_last - s.window))
       tile(std::true_type{});
     else
@@ -579,15 +593,18 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out, all contiguous and
 // 16-byte aligned). q and out are (B, T, H, DH); k and v are (B, S, KH, DH)
 // with H a multiple of KH. window <= 0 and softcap <= 0 turn those off.
+// q_offset >= 0 is the position of q's first row (0 unsharded).
 // Returns cudaGetLastError() (or the error of the shared-memory opt-in).
 extern "C" int carla_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* out, int B, int T,
                                      int S, int H, int KH, int DH, int window,
-                                     float scale, float softcap,
+                                     int q_offset, float scale, float softcap,
                                      void* stream) {
   if (B == 0 || T == 0 || H == 0) return 0;
-  if (KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;
-  const carla::FlashShape s{B, T, S, H, KH, window, scale, softcap};
+  if (KH <= 0 || H % KH != 0 || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
+  const carla::FlashShape s{B, T, S, H, KH, window, q_offset, scale,
+                            softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return carla::launch<float>(q, k, v, out, s, DH, st);
   if (dtype == 1)

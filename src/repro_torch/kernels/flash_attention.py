@@ -10,6 +10,12 @@ of ``HEAD_DIMS``, those the configs use.  The source's header note says
 which Pallas kernel it replaces, what bounds it on the H100 and how its
 design answers that.
 
+``q_offset`` is the position of q's first row: a shard of a sequence
+sharded over a mesh axis holds rows ``q_offset .. q_offset + T - 1`` against
+keys from 0 (the caller passes only the ``q_offset + T`` keys it can see).
+The kernel, the plain version and the backward all take it; 0 is the
+unsharded call.
+
 ``flash_attention_plain`` is the plain PyTorch version of the same function.
 A tensor on the CPU takes it; a CUDA tensor launches the kernel or raises.
 ``flash_attention.launches`` counts launches.
@@ -40,7 +46,7 @@ HEAD_DIMS = (16, 64, 80, 128, 256)   # instantiated in csrc/*_attention.cu
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"carla_flash_attention":
-               [_I, _P, _P, _P, _P] + [_I] * 7 + [_F, _F, _P]}
+               [_I, _P, _P, _P, _P] + [_I] * 8 + [_F, _F, _P]}
 
 
 def _shapes(q, k, v):
@@ -54,17 +60,18 @@ def _shapes(q, k, v):
     return b, t, s, h, kh, dh
 
 
-def flash_attention_plain(q, k, v, *, window: int = 0,
-                          softcap: float = 0.0) -> torch.Tensor:
+def flash_attention_plain(q, k, v, *, window: int = 0, softcap: float = 0.0,
+                          q_offset: int = 0) -> torch.Tensor:
     """The kernel's function in plain PyTorch (fp32 math, q's dtype)."""
-    return flash_attention_ref(q, k, v, window=window,
-                               softcap=softcap).to(q.dtype)
+    return flash_attention_ref(q, k, v, window=window, softcap=softcap,
+                               q_offset=q_offset).to(q.dtype)
 
 
 FLASH_BWD_ROWS = 512   # query rows per block of the plain backward
 
 
-def _launch(q, k, v, window: int, softcap: float) -> torch.Tensor:
+def _launch(q, k, v, window: int, softcap: float,
+            q_offset: int = 0) -> torch.Tensor:
     """One launch of csrc/flash_attention.cu (counted)."""
     b, t, s, h, kh, dh = _shapes(q, k, v)
     if dh not in HEAD_DIMS:
@@ -75,7 +82,8 @@ def _launch(q, k, v, window: int, softcap: float) -> torch.Tensor:
     with torch.cuda.device(q.device):
         err = lib.carla_flash_attention(
             code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, s, h, kh, dh, int(window), dh ** -0.5, float(softcap),
+            b, t, s, h, kh, dh, int(window), int(q_offset), dh ** -0.5,
+            float(softcap),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -83,7 +91,7 @@ def _launch(q, k, v, window: int, softcap: float) -> torch.Tensor:
 
 
 def flash_attention_grads(q, k, v, g, *, window: int = 0,
-                          softcap: float = 0.0):
+                          softcap: float = 0.0, q_offset: int = 0):
     """(dq, dk, dv) of ``flash_attention_plain`` for the cotangent g, by
     blocks of ``FLASH_BWD_ROWS`` query rows: each block recomputes its rows
     under autograd against the keys up to its last row."""
@@ -94,14 +102,16 @@ def flash_attention_grads(q, k, v, g, *, window: int = 0,
     for t0 in range(0, t, FLASH_BWD_ROWS):
         t1 = min(t, t0 + FLASH_BWD_ROWS)
         qb = q[:, t0:t1].detach().requires_grad_()
-        kb = k[:, :t1].detach().requires_grad_()
-        vb = v[:, :t1].detach().requires_grad_()
+        k1 = q_offset + t1          # keys up to the block's last row
+        kb = k[:, :k1].detach().requires_grad_()
+        vb = v[:, :k1].detach().requires_grad_()
         with torch.enable_grad():
-            out = _flash_rows(qb, kb, vb, t0, window, softcap).to(q.dtype)
+            out = _flash_rows(qb, kb, vb, q_offset + t0, window,
+                              softcap).to(q.dtype)
             gq, gk, gv = torch.autograd.grad(out, (qb, kb, vb), g[:, t0:t1])
         dq[:, t0:t1] = gq
-        dk[:, :t1] += gk
-        dv[:, :t1] += gv
+        dk[:, :k1] += gk
+        dv[:, :k1] += gv
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -110,29 +120,34 @@ class FlashAttention(torch.autograd.Function):
     plain backward of ``flash_attention_grads``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: int, softcap: float):
+    def forward(ctx, q, k, v, window: int, softcap: float, q_offset: int):
         ctx.save_for_backward(q, k, v)
-        ctx.window, ctx.softcap = window, softcap
+        ctx.window, ctx.softcap, ctx.q_offset = window, softcap, q_offset
         if q.device.type == "cpu":
             return flash_attention_plain(q, k, v, window=window,
-                                         softcap=softcap)
-        return _launch(q, k, v, window, softcap)
+                                         softcap=softcap, q_offset=q_offset)
+        return _launch(q, k, v, window, softcap, q_offset)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = flash_attention_grads(q, k, v, g, window=ctx.window,
-                                           softcap=ctx.softcap)
-        return dq, dk, dv, None, None
+                                           softcap=ctx.softcap,
+                                           q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0, softcap: float = 0.0) -> torch.Tensor:
+                    window: int = 0, softcap: float = 0.0,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: (B, T, H, dh); k/v: (B, S, Kh, dh) -> (B, T, H, dh) in q's dtype.
 
     Differentiable in q, k and v (``FlashAttention``)."""
     _shapes(q, k, v)
-    return FlashAttention.apply(q, k, v, int(window), float(softcap))
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    return FlashAttention.apply(q, k, v, int(window), float(softcap),
+                                int(q_offset))
 
 
 flash_attention.launches = 0

@@ -97,34 +97,38 @@ def conv1d_causal_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _softmax_out(sc: torch.Tensor, v: torch.Tensor, spec: str):
-    """The fused kernels' normalisation on masked fp32 scores (.., S)."""
+    """The fused kernels' normalisation on masked fp32 scores (.., S):
+    (unnormalised output, row sums, row maxima)."""
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.exp(sc - m)
     l = p.sum(dim=-1)
     with _exact_fp32(v):
         acc = torch.einsum(spec, p.to(v.dtype).float(), v.float())
-    return acc, l
+    return acc, l, m[..., 0]
 
 
 FLASH_REF_ROWS = 2048   # query rows the plain flash scores at once
 
 
-def flash_attention_ref(q, k, v, *, window: int = 0,
-                        softcap: float = 0.0) -> torch.Tensor:
+def flash_attention_ref(q, k, v, *, window: int = 0, softcap: float = 0.0,
+                        q_offset: int = 0) -> torch.Tensor:
     """Causal GQA attention.  q: (B, T, H, dh); k/v: (B, S, Kh, dh) -> fp32
-    (B, T, H, dh).  Key j is visible to query t when j <= t and, with a
-    window, j > t - window; scores are soft-capped before the mask.  Each
-    row's softmax is its own, so a long T is scored ``FLASH_REF_ROWS`` query
-    rows at a time (the same math, a bounded (T, S) score block)."""
+    (B, T, H, dh).  Row t of q is position ``q_offset + t`` (a sequence
+    shard's rows; 0 unsharded); key j is visible to it when j <= q_offset +
+    t and, with a window, j > q_offset + t - window; scores are soft-capped
+    before the mask.  Each row's softmax is its own, so a long T is scored
+    ``FLASH_REF_ROWS`` query rows at a time (the same math, a bounded (T, S)
+    score block)."""
     t = q.shape[1]
     if t > FLASH_REF_ROWS:
         # keys past a block's last row are masked: leave them out
         return torch.cat([
             _flash_rows(q[:, t0:t0 + FLASH_REF_ROWS],
-                        k[:, :t0 + FLASH_REF_ROWS], v[:, :t0 + FLASH_REF_ROWS],
-                        t0, window, softcap)
+                        k[:, :q_offset + t0 + FLASH_REF_ROWS],
+                        v[:, :q_offset + t0 + FLASH_REF_ROWS],
+                        q_offset + t0, window, softcap)
             for t0 in range(0, t, FLASH_REF_ROWS)], dim=1)
-    return _flash_rows(q, k, v, 0, window, softcap)
+    return _flash_rows(q, k, v, q_offset, window, softcap)
 
 
 def _flash_rows(q, k, v, t0: int, window: int, softcap: float):
@@ -144,17 +148,22 @@ def _flash_rows(q, k, v, t0: int, window: int, softcap: float):
     if window and window > 0:
         ok = ok & (kpos > qpos - window)
     sc = torch.where(ok, sc, NEG_INF)
-    acc, l = _softmax_out(sc, v, "bkgts,bskd->bkgtd")
+    acc, l, _ = _softmax_out(sc, v, "bkgts,bskd->bkgtd")
     out = acc / torch.clamp_min(l, 1e-30)[..., None]       # (B, Kh, G, T, dh)
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, dh)
 
 
 def decode_attention_ref(q, cache_k, cache_v, pos, *, window: int = 0,
-                         softcap: float = 0.0) -> torch.Tensor:
+                         softcap: float = 0.0, k_offset: int = 0,
+                         return_lse: bool = False):
     """One query per sequence against its cache.  q: (B, H, dh); cache:
-    (B, S, Kh, dh); pos: (B,) int -> fp32 (B, H, dh); key j is visible to
-    sequence b when j <= pos[b] and, with a window, j > pos[b] - window;
-    scores are soft-capped before the mask."""
+    (B, S, Kh, dh); pos: (B,) int -> fp32 (B, H, dh).  Cache row j holds
+    key ``k_offset + j`` (a cache shard's rows; 0 unsharded); key i is
+    visible to sequence b when i <= pos[b] and, with a window, i > pos[b] -
+    window; scores are soft-capped before the mask.  A sequence that sees no
+    row gets a zero output.  With ``return_lse``, also each head's fp32
+    log-sum-exp of its visible scores, (B, H) (-inf where none is
+    visible)."""
     b, h, dh = q.shape
     s, kh = cache_k.shape[1], cache_k.shape[2]
     qg = q.reshape(b, kh, h // kh, dh)
@@ -163,11 +172,18 @@ def decode_attention_ref(q, cache_k, cache_v, pos, *, window: int = 0,
     sc = sc * dh ** -0.5
     if softcap and softcap > 0:
         sc = softcap * torch.tanh(sc / softcap)
-    kpos = torch.arange(s, device=q.device)[None, :]
+    kpos = k_offset + torch.arange(s, device=q.device)[None, :]
     p = pos.to(q.device).long()[:, None]
     ok = kpos <= p                                                   # (B, S)
     if window and window > 0:
         ok = ok & (kpos > p - window)
     sc = torch.where(ok[:, None, None, :], sc, NEG_INF)
-    acc, l = _softmax_out(sc, cache_v, "bkgs,bskd->bkgd")
-    return (acc / torch.clamp_min(l, 1e-30)[..., None]).reshape(b, h, dh)
+    acc, l, m = _softmax_out(sc, cache_v, "bkgs,bskd->bkgd")
+    seen = ok.any(dim=-1)[:, None, None]                         # (B, 1, 1)
+    out = torch.where(seen[..., None],
+                      acc / torch.clamp_min(l, 1e-30)[..., None], 0.0)
+    out = out.reshape(b, h, dh)
+    if not return_lse:
+        return out
+    lse = torch.where(seen, m + torch.log(l), -torch.inf)
+    return out, lse.reshape(b, h)

@@ -11,8 +11,10 @@ device) the attention (prefill and decode) and the depthwise convs (Mamba2's
 short conv, RWKV-6's token shift) run through the hand-written kernels.  ``--metrics-port`` serves the loop's
 Prometheus metrics (prefill and per-token latencies, prompt and generated
 token counts) and ``--event-log`` appends ``serve.prefill`` and
-``serve.complete`` events, as ``repro.launch.serve``'s flags do.  ``--mesh``
-waits for the distribution port (ROADMAP.md).
+``serve.complete`` events, as ``repro.launch.serve``'s flags do.  ``--mesh
+smoke|single|multi`` serves through the sharded prefill and decode steps on
+that device mesh (``launch.mesh.mesh_from_flag``; params placed by
+``launch.sharding``'s specs); without it nothing is sharded.
 """
 from __future__ import annotations
 
@@ -68,14 +70,44 @@ def generate(cfg: ModelConfig, params: dict, prompts: dict, gen: int, *,
     Returns ``tokens`` (B, gen), ``prefill_ms`` and ``step_ms`` (host clock,
     each ending in a device synchronise).
     """
+    return _generate(
+        cfg, prompts, gen,
+        lambda p, max_seq: lm.prefill(cfg, params, p, max_seq=max_seq,
+                                      impl=impl),
+        lambda db, cache: lm.decode_step(cfg, params, db, cache, impl=impl))
+
+
+def generate_sharded(cfg: ModelConfig, params: dict, prompts: dict, gen: int,
+                     mesh, *, impl: str = "auto") -> dict:
+    """``generate`` through ``launch.steps``' sharded prefill and decode
+    steps on ``mesh``; ``params`` are the fp32 masters (no compute copies),
+    placed here.  Returns the same keys, the tokens whole."""
+    from .sharding import distribute
+    from .steps import make_decode_step, make_prefill
+    key = "embeds" if cfg.input_mode == "embeds" else "tokens"
+    b, t = prompts[key].shape[:2]
+    dec = make_decode_step(cfg, mesh, t + gen, b, impl=impl)
+    pre = make_prefill(cfg, mesh, t + gen, impl=impl)
+    params = distribute(params, mesh, dec["param_spec"])
+
+    def whole(out):
+        logits, cache = out
+        return logits.full_tensor(), cache
+    return _generate(cfg, prompts, gen,
+                     lambda p, max_seq: whole(pre["fn"](params, p)),
+                     lambda db, cache: whole(dec["fn"](params, cache, db)))
+
+
+def _generate(cfg: ModelConfig, prompts: dict, gen: int, prefill,
+              decode) -> dict:
+    """The greedy loop of ``generate``: ``prefill(prompts, max_seq)`` and
+    ``decode(batch, cache)`` each give (logits, cache)."""
     key = "embeds" if cfg.input_mode == "embeds" else "tokens"
     b, t = prompts[key].shape[:2]
     dev = prompts[key].device
-    max_seq = t + gen
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = lm.prefill(cfg, params, prompts, max_seq=max_seq,
-                               impl=impl)
+    logits, cache = prefill(prompts, t + gen)
     next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -89,7 +121,7 @@ def generate(cfg: ModelConfig, params: dict, prompts: dict, gen: int, *,
                                        device=dev).to(lm.COMPUTE_DTYPE)
         else:
             db["token"] = next_tok
-        logits, cache = lm.decode_step(cfg, params, db, cache, impl=impl)
+        logits, cache = decode(db, cache)
         next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         _sync(dev)
         step_ms.append((time.perf_counter() - ts) * 1e3)
@@ -105,6 +137,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--mesh", choices=("smoke", "single", "multi"),
+                    default=None, help="serve on this device mesh (default: "
+                    "unsharded)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; the hand-written kernels) or cpu "
                          "(their plain versions)")
@@ -119,7 +154,18 @@ def main(argv=None):
                          "(env REPRO_TORCH_EVENT_LOG)")
     args = ap.parse_args(argv)
 
-    cfg, params = load_model(args.arch, smoke=args.smoke, device=args.device)
+    mesh = None
+    if args.mesh is not None:
+        from .mesh import mesh_from_flag
+        mesh = mesh_from_flag(args.mesh,
+                              device_type=resolve_device(args.device).type)
+        cfg = get_config(args.arch, smoke=args.smoke)
+        dev = resolve_device(args.device)
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(
+            0), device=dev)
+    else:
+        cfg, params = load_model(args.arch, smoke=args.smoke,
+                                 device=args.device)
     prompts = make_prompts(cfg, args.batch, args.prompt_len,
                            device=args.device)
     telemetry = MetricsRegistry()
@@ -131,7 +177,8 @@ def main(argv=None):
             exporter = MetricsExporter({"serve": telemetry},
                                        port=args.metrics_port)
             print(f"metrics: http://127.0.0.1:{exporter.start()}/metrics")
-        out = generate(cfg, params, prompts, args.gen)
+        out = (generate(cfg, params, prompts, args.gen) if mesh is None
+               else generate_sharded(cfg, params, prompts, args.gen, mesh))
         steps = out["step_ms"]
         telemetry.latency("prefill").observe(out["prefill_ms"] / 1e3)
         telemetry.counter("prompt_tokens").inc(args.batch * args.prompt_len)

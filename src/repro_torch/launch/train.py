@@ -11,8 +11,10 @@ SIGTERM/SIGINT save and stop); a run over an existing checkpoint directory
 resumes from its latest step.  It prints the per-step loss and time, the
 step-latency summary and tokens/s.  On CUDA (the default device) attention
 and the depthwise convs train through the hand-written kernels (their
-autograd Functions).  ``--mesh`` waits for the distribution port
-(ROADMAP.md).
+autograd Functions).  ``--mesh smoke|single|multi`` trains through the
+sharded step on that device mesh (``launch.mesh.mesh_from_flag``: smoke is
+(1, 1) in one process; single and multi need ``torchrun`` with 256 or 512
+processes); without it the step is unsharded.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import torch
 from ..configs import get_config
 from ..data import PrefetchIterator, SyntheticTokenDataset, to_device
 from ..launch import steps as steps_mod
+from ..launch.mesh import mesh_from_flag
+from ..launch.sharding import distribute
 from ..models.convert import resolve_device
 from ..observability import events, trace
 from ..observability.export import export_chrome_trace
@@ -45,6 +49,9 @@ def arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--mesh", choices=("smoke", "single", "multi"),
+                    default=None, help="train on this device mesh (default: "
+                    "unsharded)")
     ap.add_argument("--ckpt-dir",
                     default=os.path.join(tempfile.gettempdir(),
                                          "repro_torch_ckpt"),
@@ -84,7 +91,9 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke)
     ds = SyntheticTokenDataset(cfg.vocab, args.seq_len, args.batch,
                                input_mode=cfg.input_mode, d_model=cfg.d_model)
-    mk = steps_mod.make_train_step(cfg, args.optimizer, args.lr,
+    mesh = (None if args.mesh is None
+             else mesh_from_flag(args.mesh, device_type=dev.type))
+    mk = steps_mod.make_train_step(cfg, args.optimizer, args.lr, mesh=mesh,
                                    impl=args.impl, dtype=DTYPES[args.dtype],
                                    device=dev)
     sup = TrainSupervisor(args.ckpt_dir, ckpt_every=args.ckpt_every,
@@ -93,6 +102,8 @@ def main(argv=None):
     like = init()          # the structure and devices a checkpoint fills
     state, start, data_idx = sup.restore_or_init(lambda: like, like)
     if start:
+        if mesh is not None:   # a checkpoint holds whole leaves
+            state = distribute(state, mesh, mk["state_spec"])
         print(f"resumed from step {start} (data cursor {data_idx})")
     it = PrefetchIterator(ds, start_index=data_idx)
 

@@ -14,6 +14,16 @@ kernel, which takes the soft-cap, a window over a linear cache, and, through
 the position it is given, a rolling cache (``rolling_window``).  The
 attention operands go to the kernels in the activations' dtype (``repro``'s
 default ``bf16_attn_io``).
+
+Under a sharded step (``sharding_hints.local_tokens``) the tokens of a
+sequence are sharded: ``attention`` ropes this shard's rows at their own
+positions, gathers K/V over the sequence's shards (``repro``'s anchors at
+``models/attention.py:151-155``) and runs the flash kernel with the
+shard's ``q_offset`` against only the keys up to its last row.
+``attention_decode`` over a cache sharded along S writes the new token
+into the shard that holds its slot, runs the decode kernel on each shard's
+rows with its key offset and log-sum-exp, and combines the shards
+(``decode_attention.combine_shards``).
 """
 from __future__ import annotations
 
@@ -22,6 +32,7 @@ import torch
 from ..kernels import decode_attention as _decode
 from ..kernels import flash_attention as _flash
 from ..kernels.ops import resolve
+from . import sharding_hints as hints
 from .layers import dense, dense_init
 
 
@@ -90,8 +101,9 @@ def attention(params, x, *, n_heads: int, n_kv_heads: int, d_head: int,
     """
     b, t, _ = x.shape
     q, k, v = _qkv(params, x, n_heads, n_kv_heads, d_head)
+    t0 = hints.seq_offset(t)      # this shard's first position (0 unsharded)
     if pos is None:
-        pos = torch.arange(t, device=x.device)[None].expand(b, t)
+        pos = torch.arange(t0, t0 + t, device=x.device)[None].expand(b, t)
     if mrope_sections is not None:
         p3 = pos3 if pos3 is not None else pos[None].expand(3, b, t)
         q = apply_mrope(q, p3, rope_theta, mrope_sections)
@@ -99,10 +111,14 @@ def attention(params, x, *, n_heads: int, n_kv_heads: int, d_head: int,
     else:
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
+    k, v = hints.gather_seq(k), hints.gather_seq(v)   # the keys from 0
+    ks, vs = k, v
+    if t0 + t < k.shape[1]:   # keys past this shard's last row: never seen
+        ks, vs = k[:, :t0 + t].contiguous(), v[:, :t0 + t].contiguous()
     fn = (_flash.flash_attention if resolve(impl, x) == "cuda"
           else _flash.flash_attention_plain)
-    out = fn(q, k, v, window=int(window),
-             softcap=attn_softcap).to(x.dtype)
+    out = fn(q, ks, vs, window=int(window), softcap=attn_softcap,
+             q_offset=t0).to(x.dtype)
     return dense(params["wo"], out.reshape(b, t, -1), x.dtype), (k, v)
 
 
@@ -145,11 +161,28 @@ def attention_decode(params, x, cache_k, cache_v, pos, *, n_heads: int,
     else:
         slot, kpos = pos.long(), pos
     rows = torch.arange(b, device=x.device)
-    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
-
     fn = (_decode.decode_attention if resolve(impl, x) == "cuda"
           else _decode.decode_attention_plain)
-    out = fn(q[:, 0], cache_k, cache_v, kpos.to(torch.int32),
-             window=int(window), softcap=attn_softcap).to(x.dtype)
+    kpos = kpos.to(torch.int32)
+    if hints.kv_shards() == 1:
+        cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+        out = fn(q[:, 0], cache_k, cache_v, kpos, window=int(window),
+                 softcap=attn_softcap)
+    else:
+        # this shard holds slots s0 .. s0 + n - 1: the new k/v land only in
+        # the shard that holds their slot
+        n = cache_k.shape[1]
+        s0 = hints.kv_offset(n)
+        loc = slot - s0
+        mine = ((loc >= 0) & (loc < n))[:, None, None]
+        loc = loc.clamp(0, n - 1)
+        cache_k[rows, loc] = torch.where(mine, k[:, 0].to(cache_k.dtype),
+                                         cache_k[rows, loc])
+        cache_v[rows, loc] = torch.where(mine, v[:, 0].to(cache_v.dtype),
+                                         cache_v[rows, loc])
+        out, lse = fn(q[:, 0], cache_k, cache_v, kpos, window=int(window),
+                      softcap=attn_softcap, k_offset=s0, return_lse=True)
+        out = hints.combine_kv(out, lse, _decode.combine_shards)
+    out = out.to(x.dtype)
     return dense(params["wo"], out.reshape(b, 1, -1), x.dtype), cache_k, cache_v

@@ -35,8 +35,18 @@ trains through the kernels.  With ``cfg.remat`` every group runs under
 group body), so its forward runs again in the backward; the cross-entropy
 goes by ``cfg.loss_chunk`` positions, each chunk checkpointed, its logits in
 fp32.  Training takes the fp32 masters alone: params holding compute copies
-raise, since gradients would land on the copies.  Not ported yet
-(ROADMAP.md): sharding hints.
+raise, since gradients would land on the copies.
+
+Under a sharded step (``launch.steps``) the same functions run on each
+device's own tokens: ``sharding_hints.local_tokens`` says how they are laid
+out, weights are all-gathered on use (``sharding_hints.gather_params``,
+DTensor leaves; per group in the loop), the recurrent mixers see the whole
+sequence (gathered before the mixing, this shard's rows kept after: one
+all-gather a block), the caches are each device's shards (the KV caches'
+rows by ``kv_offset``), the prefill's last position comes from the last
+sequence shard, and the loss and the MoE balance loss are each device's
+share of the global mean (summed over devices by the step).  Without a
+layout every one of these is the identity.
 """
 from __future__ import annotations
 
@@ -45,9 +55,9 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..pytree import tree_map
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import sharding_hints as hints
 from . import ssm as ssm_mod
 from .config import ModelConfig
 from .convert import resolve_device
@@ -74,6 +84,18 @@ def _attn_cache_len(cfg: ModelConfig, spec: dict, max_seq: int) -> int:
     or read keys the window mask cannot use); the others ``max_seq``."""
     w = _attn_kwargs(cfg, spec)["window"]
     return min(w, max_seq) if w and w > 0 else max_seq
+
+
+def _place_kv_shard(buf, kv, rows: int) -> None:
+    """``_place_kv`` into this device's rows of a cache of ``rows`` slots
+    (the whole buffer unsharded)."""
+    if buf.shape[1] == rows:
+        _place_kv(buf, kv)
+        return
+    full = kv.new_zeros((kv.shape[0], rows) + tuple(kv.shape[2:]))
+    _place_kv(full, kv)
+    s0 = hints.kv_offset(buf.shape[1])
+    buf.copy_(full[:, s0:s0 + buf.shape[1]])
 
 
 def _place_kv(buf, kv) -> None:
@@ -232,8 +254,9 @@ def _apply_block_full(cfg, spec, bp, x, impl, want_cache: bool = True):
     loss or None); training passes ``want_cache=False`` and builds no
     cache."""
     if spec["kind"] == "rwkv6":
-        x, c = _rwkv6_block(cfg, bp, x, None, impl)
-        return x, (c if want_cache else None), None
+        # the token shifts and the WKV scan need the whole sequence
+        x, c = _rwkv6_block(cfg, bp, hints.gather_seq(x), None, impl)
+        return hints.local_rows(x), (c if want_cache else None), None
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if spec["kind"] == "attn":
         y, (k, v) = attn_mod.attention(bp["attn"], h, impl=impl,
@@ -244,10 +267,12 @@ def _apply_block_full(cfg, spec, bp, x, impl, want_cache: bool = True):
         y, aux = _apply_ffn_part(cfg, spec, bp, x)
         return x + y, ({"k": k, "v": v} if want_cache else None), aux
     kw = dict(d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim, impl=impl)
+    h = hints.gather_seq(h)        # the conv and the scan: whole sequence
     if not want_cache:
-        return x + ssm_mod.mamba2(bp["mamba"], h, **kw), None, None
+        y = ssm_mod.mamba2(bp["mamba"], h, **kw)
+        return x + hints.local_rows(y), None, None
     y, (s, cs) = ssm_mod.mamba2(bp["mamba"], h, return_state=True, **kw)
-    return x + y, {"ssm": s, "conv": cs}, None
+    return x + hints.local_rows(y), {"ssm": s, "conv": cs}, None
 
 
 _SHARED_SPEC = {"kind": "attn", "is_local": False, "is_moe": False}
@@ -264,9 +289,10 @@ def _apply_shared_attn_full(cfg, sp, x, impl):
 
 # ----------------------------- full forward ----------------------------------
 def _embed_in(cfg: ModelConfig, params, batch, key: str, dtype):
+    """This device's tokens embedded (its rows of the sequence)."""
     if cfg.input_mode == "embeds":
-        return batch["embeds"].to(dtype)
-    return embed(params["embed"], batch[key], dtype)
+        return hints.local_rows(batch["embeds"]).to(dtype)
+    return embed(params["embed"], hints.local_rows(batch[key]), dtype)
 
 
 def _logits(cfg: ModelConfig, params, h):
@@ -278,8 +304,19 @@ def _logits(cfg: ModelConfig, params, h):
 
 
 def _group(tree, g: int):
-    """Group g's slice of a stacked tree (views, no copies)."""
-    return tree_map(lambda a: a[g], tree)
+    """Group g's slice of a stacked tree (views, no copies; gathered where
+    the leaves are sharded DTensors)."""
+    return hints.gather_params(tree, g)
+
+
+_TOP = ("embed", "final_norm", "head", "shared_attn")
+
+
+def _top(params) -> dict:
+    """The weights outside the group stack, gathered for use (the params
+    themselves unsharded); "blocks" as it is."""
+    return {k: (hints.gather_params(v) if k in _TOP else v)
+            for k, v in params.items()}
 
 
 def _no_compute_copies(params) -> None:
@@ -306,6 +343,7 @@ def forward_train(cfg: ModelConfig, params: Params, batch, *,
     forward runs again in the backward, kernels included)."""
     _no_compute_copies(params)
     templates = _group_templates(cfg)
+    params = _top(params)
     x = _embed_in(cfg, params, batch, "tokens", dtype)
 
     def group_body(x, aux, g):
@@ -343,29 +381,48 @@ def loss_fn(cfg: ModelConfig, params: Params, batch, *, impl: str = "auto",
     """Mean next-token cross-entropy plus ``0.01 * aux``.  The (B, T, V)
     logits never exist whole: ``cfg.loss_chunk`` positions at a time, each
     chunk checkpointed under autograd (a tail short of a chunk is dropped,
-    as in ``repro``)."""
+    as in ``repro``).  Under a sharded step, this device's share: its
+    tokens' summed loss over the global count, plus its share of aux."""
     h, aux = forward_train(cfg, params, batch, impl=impl, dtype=dtype)
+    params = _top(params)
     labels = batch["labels"]
     b, t = labels.shape
     chunk = min(cfg.loss_chunk, t)
     n_chunks = t // chunk
+    labels = hints.local_rows(labels)
+    t0 = hints.seq_offset(labels.shape[1])
+    end = min(max(n_chunks * chunk - t0, 0), labels.shape[1])
     total = torch.zeros((), device=h.device)
-    for i in range(n_chunks):
-        hc = h[:, i * chunk:(i + 1) * chunk]
-        lc = labels[:, i * chunk:(i + 1) * chunk]
+    for i0 in range(0, end, chunk):
+        hc = h[:, i0:min(i0 + chunk, end)]
+        lc = labels[:, i0:min(i0 + chunk, end)]
         if torch.is_grad_enabled():
             total = total + checkpoint(_chunk_nll, cfg, params, hc, lc,
                                        use_reentrant=False)
         else:
             total = total + _chunk_nll(cfg, params, hc, lc)
+    b *= hints.batch_shards()
     return total / (b * n_chunks * chunk) + 0.01 * aux
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
                device="cuda", dtype=COMPUTE_DTYPE) -> Params:
     """Zeroed decode cache matching the group/block structure."""
-    dev = resolve_device(device)
+    return _init_cache(cfg, batch_size, max_seq, resolve_device(device),
+                       dtype)
+
+
+def _init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dev,
+                dtype, kv_shards: int = 1) -> Params:
+    """``init_cache`` with each KV cache's rows cut into ``kv_shards``
+    (this device's shard under a sharded step)."""
     g, b, dh = cfg.n_groups, batch_size, cfg.d_head
+
+    def rows(n: int) -> int:
+        if n % kv_shards:
+            raise ValueError(f"a KV cache of {n} rows does not split into "
+                             f"{kv_shards} shards")
+        return n // kv_shards
 
     def zeros(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -373,7 +430,7 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
     cache = {}
     for p, spec in enumerate(_group_templates(cfg)):
         if spec["kind"] == "attn":
-            s_p = _attn_cache_len(cfg, spec, max_seq)
+            s_p = rows(_attn_cache_len(cfg, spec, max_seq))
             c = {n: zeros(g, b, s_p, cfg.n_kv_heads, dh, dtype=dtype)
                  for n in ("k", "v")}
         elif spec["kind"] == "rwkv6":
@@ -389,8 +446,8 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, *,
                  "conv": zeros(g, b, cfg.d_conv - 1, d_xbc)}
         cache[f"p{p}"] = c
     if cfg.hybrid_attn_period:
-        cache["shared"] = {n: zeros(g, b, max_seq, cfg.n_kv_heads, dh,
-                                    dtype=dtype) for n in ("k", "v")}
+        cache["shared"] = {n: zeros(g, b, rows(max_seq), cfg.n_kv_heads,
+                                    dh, dtype=dtype) for n in ("k", "v")}
     return cache
 
 
@@ -398,16 +455,19 @@ def prefill(cfg: ModelConfig, params: Params, batch, max_seq: int, *,
             impl: str = "auto", dtype=COMPUTE_DTYPE) -> tuple:
     """Full-sequence forward returning (last-position logits, cache)."""
     templates = _group_templates(cfg)
+    params = _top(params)
     x = _embed_in(cfg, params, batch, "tokens", dtype)
-    cache = init_cache(cfg, x.shape[0], max_seq, device=x.device, dtype=dtype)
+    cache = _init_cache(cfg, x.shape[0], max_seq, x.device, dtype,
+                        hints.kv_shards())
     for g in range(cfg.n_groups):
         for p, spec in enumerate(templates):
             key = f"p{p}"
             x, c, _ = _apply_block_full(
                 cfg, spec, _group(params["blocks"][key], g), x, impl)
             if spec["kind"] == "attn":
+                rows = _attn_cache_len(cfg, spec, max_seq)
                 for n in ("k", "v"):
-                    _place_kv(cache[key][n][g], c[n])
+                    _place_kv_shard(cache[key][n][g], c[n], rows)
             else:
                 for n, t in c.items():
                     cache[key][n][g].copy_(t)
@@ -415,9 +475,9 @@ def prefill(cfg: ModelConfig, params: Params, batch, max_seq: int, *,
             x, cs = _apply_shared_attn_full(cfg, params["shared_attn"], x,
                                             impl)
             for n in ("k", "v"):
-                _place_kv(cache["shared"][n][g], cs[n])
+                _place_kv_shard(cache["shared"][n][g], cs[n], max_seq)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(cfg, params, x[:, -1:]), cache
+    return _logits(cfg, params, hints.last_row(x)), cache
 
 
 # ------------------------------ decode step ----------------------------------
@@ -431,7 +491,9 @@ def _apply_block_decode(cfg, spec, bp, x, c, pos, impl):
     h = rmsnorm(bp["ln1"], x, cfg.norm_eps)
     if spec["kind"] == "attn":
         kw = _attn_kwargs(cfg, spec)
-        rolling = c["k"].shape[1] if kw["window"] > 0 else 0
+        # the ring's slots: this device's rows times the cache's shards
+        rolling = c["k"].shape[1] * hints.kv_shards() \
+            if kw["window"] > 0 else 0
         y, _, _ = attn_mod.attention_decode(
             bp["attn"], h, c["k"], c["v"], pos, rolling_window=rolling,
             impl=impl, **kw)
@@ -453,6 +515,7 @@ def decode_step(cfg: ModelConfig, params: Params, batch, cache, *,
     "pos": (B,)}.  Returns (logits (B,1,V), cache), the cache updated in
     place."""
     templates = _group_templates(cfg)
+    params = _top(params)
     pos = batch["pos"]
     x = _embed_in(cfg, params, batch, "token", dtype)
     for g in range(cfg.n_groups):

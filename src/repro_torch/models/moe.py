@@ -19,9 +19,15 @@ differs from JAX are written out:
   ``F.one_hot`` raises; an index compare gives the zero row.
 * the capacity ``int(capacity_factor * top_k * t / e)`` stays Python.
 
-``moe_ffn`` on one card has no mesh, so it always takes the flat path, as
-``repro``'s does without a 'model' mesh axis; ``_moe_grouped`` (GShard
-groups of tokens) is reached through an explicit group count.
+``moe_ffn`` without a mesh takes the flat path, as ``repro``'s does without
+a 'model' mesh axis; ``_moe_grouped`` (GShard groups of tokens) is reached
+through an explicit group count.  Under a sharded step the model sees each
+device's own tokens, and ``repro`` groups them by 'model' shard (routing
+capacity per shard) when the sequence has at least two tokens a shard: the
+flat path on the local tokens is that group.  With one token a shard
+``repro`` routes the whole sequence at once, so the tokens are gathered
+first.  The balance loss is then each device's share of the global one
+(``_aux``).
 ``layers.with_compute_copies`` adds a copy of the stacked expert weights in
 the compute dtype (``"wi_c"``, ``"wg_c"``, ``"wo_c"``), the same values as
 ``repro``'s per-call cast.
@@ -31,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import sharding_hints as hints
 from .layers import normal
 
 
@@ -65,10 +72,14 @@ def moe_ffn(params, x, *, top_k: int, capacity_factor: float = 1.25,
     """x: (B, T, d) -> ((B, T, d), aux load-balancing loss).
 
     ``groups`` > 1 splits T into that many token groups, each with its own
-    capacity (``repro``'s grouping by 'model' shards); on one card there is
-    no mesh, and the default of 1 is the flat path.
+    capacity (``repro``'s grouping by 'model' shards).  Under a sharded step
+    x is already one device's group, so the default of 1 serves both.
     """
     b, t, d = x.shape
+    if hints.seq_shards() > 1 and t < 2:
+        y, aux = moe_ffn(params, hints.gather_seq(x), top_k=top_k,
+                         capacity_factor=capacity_factor, groups=groups)
+        return hints.local_rows(y), aux / hints.seq_shards()
     if groups > 1:
         y, aux = _moe_grouped(params, x.reshape(b, groups, t // groups, d),
                               top_k=top_k, capacity_factor=capacity_factor)
@@ -123,10 +134,20 @@ def _experts(params, xe, dtype):
 
 
 def _aux(probs, gate_idx, e: int, dims) -> torch.Tensor:
-    """Switch-style load-balance loss: e * sum(mean prob * top-1 share)."""
-    me = probs.mean(dim=dims)
-    ce = F.one_hot(gate_idx[..., 0], e).float().mean(dim=dims)
-    return e * torch.sum(me * ce)
+    """Switch-style load-balance loss: e * sum(mean prob * top-1 share).
+
+    Under a sharded step the means run over every device's tokens: the
+    top-1 shares are summed over the devices, and this device returns its
+    tokens' part of the mean probability times them, so the parts sum to
+    the loss and each part's gradient is its own tokens'."""
+    shards = hints.token_shards()
+    if shards == 1:
+        me = probs.mean(dim=dims)
+        ce = F.one_hot(gate_idx[..., 0], e).float().mean(dim=dims)
+        return e * torch.sum(me * ce)
+    n = probs[..., 0].numel() * shards
+    ce = hints.token_sum(F.one_hot(gate_idx[..., 0], e).float().sum(dim=dims))
+    return e * torch.sum(probs.sum(dim=dims) / n * (ce / n))
 
 
 def _moe_flat(params, x, *, top_k: int, capacity_factor: float):

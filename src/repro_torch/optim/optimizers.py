@@ -9,7 +9,11 @@ tree and the state a new NamedTuple over the same moment tensors with the
 step advanced.  The states keep ``repro``'s NamedTuples and field order, so a
 checkpoint's leaves line up between the packages; the moments keep their
 dtypes (Lion's is bf16 by default).  Weight decay applies to every leaf, as
-in ``repro``.  ``state_pspec`` is not ported: the port has no device mesh yet.
+in ``repro``.  ``state_pspec`` gives the state's sharding specs from the
+params'; on DTensor leaves placed by them the update runs as written (the
+sharded train step calls it under DTensor's implicit replication, so the
+0-d step and learning-rate tensors mix with the shards, and the global
+norm and Adafactor's means reduce over the shards).
 """
 from __future__ import annotations
 
@@ -207,6 +211,37 @@ def sgdm(lr: float | Callable = 1e-2, momentum: float = 0.9) -> Optimizer:
         return params, LionState(step, state.mu)
 
     return Optimizer("sgdm", init, update)
+
+
+# ------------------------- sharding of optimizer state ------------------------
+def _map2(fn, specs, params):
+    if isinstance(params, dict):
+        return {k: _map2(fn, specs[k], v) for k, v in params.items()}
+    return fn(specs, params)
+
+
+def state_pspec(opt_name: str, param_spec_tree, params):
+    """The optimizer state's spec tree (specs as in ``launch.sharding``)
+    from the params' and the params (tensors, or anything with a shape).
+
+    Adam/Lion/SGD-momentum moments share the param spec; Adafactor's
+    factored statistics drop the reduced axis from it.  ZeRO sharding by
+    construction."""
+    scalar = ()
+    if opt_name == "adamw":
+        return AdamState(scalar, param_spec_tree, param_spec_tree)
+    if opt_name in ("lion", "sgdm"):
+        return LionState(scalar, param_spec_tree)
+    if opt_name == "adafactor":
+        def pad(spec, p):
+            return tuple(spec) + (None,) * (len(p.shape) - len(spec))
+
+        vr = _map2(lambda sp, p: pad(sp, p)[:-1] if _factored(p) else sp,
+                   param_spec_tree, params)
+        vc = _map2(lambda sp, p: pad(sp, p)[:-2] + pad(sp, p)[-1:]
+                   if _factored(p) else (), param_spec_tree, params)
+        return FactorState(scalar, vr, vc)
+    raise ValueError(opt_name)
 
 
 OPTIMIZERS = {"adamw": adamw, "adafactor": adafactor, "lion": lion,

@@ -4,8 +4,8 @@ mesh (port of ``repro.runtime.elastic``).
 Power-of-two shrink: the largest (data, model) mesh with data' <= data a
 power of two and model unchanged (a lost model-parallel group kills its
 slice anyway, so elasticity works on the data axis); the global batch is
-kept by raising per-replica microbatching.  ``build_mesh`` is not ported:
-the port has no device mesh yet.
+kept by raising per-replica microbatching.  ``build_mesh`` makes the
+plan's mesh over the caller's process group.
 """
 from __future__ import annotations
 
@@ -50,3 +50,10 @@ def plan_remesh(old_shape: tuple, axis_names: tuple,
                     devices_available=devices_available,
                     grad_accum_factor=accum)
     return plan
+
+
+def build_mesh(plan: ElasticPlan, *, device_type: str = "cuda"):
+    """The device mesh of ``plan.new_shape`` named ``plan.axis_names``."""
+    from ..launch.mesh import make_mesh
+    return make_mesh(plan.new_shape, plan.axis_names,
+                     device_type=device_type)

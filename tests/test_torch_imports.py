@@ -50,7 +50,10 @@ def test_importing_the_port_leaves_jax_out():
             "repro_torch.pytree, repro_torch.optim, "
             "repro_torch.optim.compression, repro_torch.data, "
             "repro_torch.checkpoint, repro_torch.runtime, "
-            "repro_torch.launch.steps, repro_torch.launch.train; "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.launch.dryrun, repro_torch.launch.graph_analysis, "
+            "repro_torch.models.sharding_hints; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "assert not bad, bad")
