@@ -224,7 +224,7 @@ printing one JSON line:
              them the times phase's offset-0 flash and decode times at
              zamba2's shapes and those kernels' times before they took
              offsets (0.3628 and 0.0503 ms, PERF.md).
-   sharded — (last) the sharded steps of ``launch.steps`` on a (1, 1)
+   sharded — (after train_zamba2) the sharded steps of ``launch.steps`` on a (1, 1)
              ('data', 'model') mesh over a one-process NCCL group (a
              ``FileStore`` in a temporary directory): zamba2-2.7b served at
              full width and depth as phase zamba2 (same weights and
@@ -243,6 +243,41 @@ printing one JSON line:
              share of a decode step, a prefill and a train step, beside the
              unsharded phases', and where the decode step's host time goes
              (the DTensor dispatch cost).
+   perf_off — (last) the paper-faithful off path of each §Perf flag
+             (``repro_torch.perf``), served through ``models.lm`` at a
+             path's full width, beside the same path's phase under the
+             default flags in this run.  main() pins the default flags
+             before phase 1, whatever ``REPRO_PERF`` says; this phase sets
+             its own with ``perf.baseline()``/``perf.flags`` around each
+             path.  gemma2-9b under ``baseline()`` (phase gemma2's 4
+             layers, 1 x 6144, 16 out; ``serve_path``): its local layers'
+             caches linear, 6160 rows, and flash and decode on fp32
+             copies (the fp32 instances at dh 256); logits against the
+             plain engine under the same flags by the bf16 and fp32 gates
+             of phase zamba2, no planted fault.  zamba2-2.7b decode under
+             ``bf16_attn_io=False`` (4 x 2048, 32 out; ``serve_path``
+             with PO_COMPARE decode steps compared, PO_TIMED runs timed):
+             each of the 9 decode launches a step reads fp32 copies of its
+             cache.  rwkv6-1.6b's prefill under ``rwkv_chunked=False``
+             (the per-token WKV, 4 x 2048; ``run_rwkv_per_token``): its
+             launches, host time, peak, its logits' distance from the
+             chunked form's (printed), busy time and idle share of the
+             per-token and chunked prefills cut to PO_RWKV_PROFILE_T tokens
+             (the full per-token trace takes minutes to read), and an fp32
+             wiring gate at PO_RWKV_GATE (kernel engine against
+             ``impl="ref"``, 1e-3 x max(1, max|ref|)).  mixtral-8x7b's
+             prefill under
+             ``bf16_moe_dispatch=False`` (4 layers, 2 x 5120; the fp32
+             combine tensor): the gates on the prefill's logits, and
+             whether they equal the default's bit for bit (printed).
+             Every path's launches per prefill and per decode step must
+             equal its default phase's.  ``grouped_moe_dispatch`` and
+             ``tp_serving_params`` change nothing on one card (a (1, 1)
+             mesh has no 'model' or 'data' width), so this phase does not
+             run them; ``tests/test_torch_perf.py`` holds them on a (2, 2)
+             gloo mesh on the CPU.  Prints each path's prefill and decode
+             latency, busy time and idle share, peak memory and (gemma2)
+             the local caches' bytes, baseline beside default.
 7. the ``kernels`` line, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -317,6 +352,12 @@ SH_TRAIN_STEPS = 3
 # LM paths: positions compared with the plain engine (the prefill's last
 # and the first decode steps'), host-clock runs timed
 LM_COMPARE, LM_TIMED = 8, 3
+# perf_off: decode steps compared and served runs timed on the zamba2 and
+# mixtral baselines (gemma2 keeps LM_COMPARE and LM_TIMED); the prompt
+# length at which rwkv6's per-token and chunked prefills are profiled, and
+# its fp32 wiring gate at (batch, T)
+PO_COMPARE, PO_TIMED = 2, 1
+PO_RWKV_PROFILE_T, PO_RWKV_GATE = 256, (1, 256)
 # Faults planted in the bf16 flash kernel (flash_mma_kernel), name -> (text
 # of csrc/flash_attention.cu, its replacement); the bf16 flash cases must
 # catch each.  The first two touch only rows from 1024 on, which only the
@@ -690,20 +731,22 @@ def randomize_bn(params: dict, gen: torch.Generator) -> None:
             randomize_bn(v, gen)
 
 
-def profile_busy(fn, reps: int = PROFILE_REPS, top: int = 6) -> dict:
+def profile_busy(fn, reps: int = PROFILE_REPS, top: int = 6,
+                 cpu: bool = True) -> dict:
     """Device busy time per call of fn under torch.profiler, and the top
     ``top`` kernels.
 
     Busy time is the union of the device activity intervals; the idle share
     is the rest of the profiled window (the profiler slows the host, so the
-    share is an upper bound for an unprofiled run).
+    share is an upper bound for an unprofiled run).  ``cpu=False`` records
+    device activity only (a call of very many small launches).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1594,7 +1637,8 @@ class RoutingReplay:
 
 def serve_path(name: str, serve, lm, cfg, params, prompts: dict, gen: int,
                counters: dict, want_prefill: dict, want_step: dict,
-               faults: dict) -> dict:
+               faults: dict, *, compare: int = LM_COMPARE,
+               timed: int = LM_TIMED) -> dict:
     """One LM served at full width through ``launch.serve``, as phase zamba2
     (module docstring): exact launches per prefill, per decode step and per
     run; the prefill's and the first LM_COMPARE - 1 decode steps' logits,
@@ -1606,7 +1650,9 @@ def serve_path(name: str, serve, lm, cfg, params, prompts: dict, gen: int,
     engines take the plain fp32 engine's expert choices (``RoutingReplay``),
     counting the tokens each would have routed otherwise; the fp32 kernel
     engine and the fault runs route on their own, and the fp32 kernel
-    engine must choose as the plain fp32 engine did, token for token."""
+    engine must choose as the plain fp32 engine did, token for token.
+    ``compare`` and ``timed`` cut the teacher-forced decode steps compared
+    and the served runs timed (phase perf_off)."""
     import contextlib
     from repro_torch.models import moe as moe_mod
     b, t = prompts["tokens"].shape
@@ -1636,10 +1682,10 @@ def serve_path(name: str, serve, lm, cfg, params, prompts: dict, gen: int,
     _, per_step = counted(lambda: lm.decode_step(cfg, params, step_batch,
                                                  cache))
     runs = [serve.generate(cfg, params, prompts, gen)
-            for _ in range(LM_TIMED)]
+            for _ in range(timed)]
 
     # parity: every engine fed the main run's own tokens
-    forced = out["tokens"][:, :LM_COMPARE]
+    forced = out["tokens"][:, :compare]
     run = lambda **kw: forced_logits(lm, cfg, params, prompts, forced, gen,
                                      **kw)
     fp32 = torch.float32
@@ -2650,6 +2696,192 @@ def run_sharded(serve, lm, counters: dict, zamba2: dict,
     return rec
 
 
+def local_cache_bytes(lm, cfg, batch: int, max_seq: int) -> int:
+    """Bytes of the sliding-window layers' KV caches of ``lm.init_cache``
+    under the flags in force (shapes only: meta tensors)."""
+    cache = lm.init_cache(cfg, batch, max_seq, device="meta")
+    specs = lm._group_templates(cfg)
+    return sum(v.numel() * v.element_size()
+               for p, spec in enumerate(specs)
+               if spec["kind"] == "attn" and spec["is_local"]
+               for v in cache[f"p{p}"].values())
+
+
+def beside(rec: dict, base: dict) -> dict:
+    """A served path's headline numbers under the baseline flags beside the
+    same path's under the default flags (its phase's record)."""
+    keys = {"prefill_ms": ("prefill_ms_median",),
+            "decode_ms_per_token": ("decode_ms_per_token_median",),
+            "prefill_busy_ms": ("prefill_device", "device_busy_ms"),
+            "prefill_idle": ("prefill_device", "idle_share"),
+            "decode_busy_ms": ("decode_step_device", "device_busy_ms"),
+            "decode_idle": ("decode_step_device", "idle_share"),
+            "peak_gb": ("peak_memory_gb",)}
+    out = {}
+    for k, path in keys.items():
+        pair = []
+        for r in (rec, base):
+            v = r
+            for f in path:
+                v = v.get(f) if isinstance(v, dict) else None
+            pair.append(v)
+        out[k] = {"baseline": pair[0], "default": pair[1]}
+    out["launches"] = {"prefill": rec["launches_per_prefill"],
+                       "decode_step": rec.get("launches_per_decode_step")}
+    return out
+
+
+def run_rwkv_per_token(serve, lm, counters: dict, base: dict) -> dict:
+    """rwkv6-1.6b's prefill with the per-token WKV (``rwkv_chunked`` off) at
+    full width and depth, R_BATCH x R_PROMPT: exact launches (48 conv1d, as
+    the chunked form), its host-clock time, peak memory, and its logits'
+    distance from the chunked form's (printed); the device's busy time and
+    idle share of the per-token and the chunked prefill at R_BATCH x
+    PO_RWKV_PROFILE_T (the profiler's trace of the whole per-token prefill,
+    2048 x 24 steps of a few kernels each, takes minutes to read), device
+    activity only; the fp32 wiring gate at PO_RWKV_GATE (batch, T): the
+    kernel engine's prefill logits within 1e-3 x max(1, max|ref|) of
+    ``impl="ref"``'s."""
+    from repro_torch import perf
+    cfg, params = serve.load_model("rwkv6-1.6b", device=DEVICE, seed=SEED)
+    prompts = serve.make_prompts(cfg, R_BATCH, R_PROMPT, device=DEVICE,
+                                 seed=SEED)
+    max_seq = R_PROMPT + R_GEN
+    cut = {"tokens": prompts["tokens"][:, :PO_RWKV_PROFILE_T]}
+    prefill_cut = lambda: lm.prefill(cfg, params, cut,
+                                      max_seq=PO_RWKV_PROFILE_T)
+    chunked, _ = lm.prefill(cfg, params, prompts, max_seq=max_seq)
+    busy_chunked = profile_busy(prefill_cut, reps=1, cpu=False)
+    with perf.flags(rwkv_chunked=False):
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, _ = lm.prefill(cfg, params, prompts, max_seq=max_seq)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: f.launches for k, f in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        busy = profile_busy(prefill_cut, reps=1, cpu=False)
+        gb, gt = PO_RWKV_GATE
+        small = {"tokens": prompts["tokens"][:gb, :gt]}
+        f32 = torch.float32
+        got32, _ = lm.prefill(cfg, params, small, max_seq=gt, dtype=f32)
+        ref32, _ = lm.prefill(cfg, params, small, max_seq=gt, impl="ref",
+                              dtype=f32)
+    err32 = (got32 - ref32).abs().max().item()
+    tol32 = 1e-3 * max(1.0, ref32.abs().max().item())
+    want = {**{k: 0 for k in counters}, **base["launches_per_prefill"]}
+    finite = bool(torch.isfinite(logits).all())
+    rec = {"prefill_ms": {"baseline": ms,
+                          "default": base["prefill_ms_median"]},
+           "peak_gb": {"baseline": peak_gb,
+                       "default": base["peak_memory_gb"]},
+           f"prefill_busy_ms_at_T{PO_RWKV_PROFILE_T}": {
+               "baseline": busy.get("device_busy_ms"),
+               "default": busy_chunked.get("device_busy_ms")},
+           f"prefill_idle_at_T{PO_RWKV_PROFILE_T}": {
+               "baseline": busy.get("idle_share"),
+               "default": busy_chunked.get("idle_share")},
+           "default_prefill_busy_ms": base["prefill_device"].get(
+               "device_busy_ms"),
+           "launches": {"prefill": launches, "decode_step": None},
+           "finite": finite,
+           "vs_chunked_bf16_max_abs": (logits.float() - chunked.float())
+           .abs().max().item(),
+           "fp32_gate": {"shape": PO_RWKV_GATE, "max_abs_err": err32,
+                         "tol": tol32}}
+    if launches != want:
+        raise SystemExit(f"perf_off rwkv6: launches per prefill {launches} "
+                         f"!= {want}")
+    if not finite or err32 > tol32:
+        raise SystemExit(f"perf_off rwkv6: per-token prefill logits "
+                         f"finite={finite}, fp32 gate {err32} > {tol32}")
+    return rec
+
+
+def run_perf_off(serve, lm, counters: dict, base: dict, smi: str) -> dict:
+    """Phase perf_off (module docstring): each flag's paper-faithful off path
+    served at a path's full width, beside the same path's phase under the
+    default flags (``base``: phase name -> record)."""
+    from repro_torch import perf
+    t_all = time.perf_counter()
+    out, secs = {}, {}
+
+    def launches_of(name):
+        return (base[name]["launches_per_prefill"],
+                base[name]["launches_per_decode_step"])
+
+    t0 = time.perf_counter()
+    with perf.baseline():
+        cfg, params = cut_model(lm, "gemma2-9b", G_LAYERS)
+        prompts = serve.make_prompts(cfg, 1, G_PROMPT, device=DEVICE,
+                                     seed=SEED)
+        rec = serve_path("perf_off gemma2", serve, lm, cfg, params, prompts,
+                         G_GEN, counters, *launches_of("gemma2"), {})
+        local = local_cache_bytes(lm, cfg, 1, G_PROMPT + G_GEN)
+    local_default = local_cache_bytes(lm, cfg, 1, G_PROMPT + G_GEN)
+    out["gemma2 baseline()"] = {
+        **beside(rec, base["gemma2"]),
+        "local_cache_bytes": {"baseline": local, "default": local_default},
+        "max_err_over_tol": rec["max_err_over_tol"],
+        "fp32_max_err_over_tol": rec["fp32_max_err_over_tol"]}
+    del params
+    free()
+    secs["gemma2"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with perf.flags(bf16_attn_io=False):
+        cfg, params = serve.load_model("zamba2-2.7b", device=DEVICE,
+                                       seed=SEED)
+        prompts = serve.make_prompts(cfg, Z_BATCH, Z_PROMPT, device=DEVICE,
+                                     seed=SEED)
+        rec = serve_path("perf_off zamba2", serve, lm, cfg, params, prompts,
+                         Z_GEN, counters, *launches_of("zamba2"), {},
+                         compare=PO_COMPARE, timed=PO_TIMED)
+    out["zamba2 bf16_attn_io=False"] = {
+        **beside(rec, base["zamba2"]),
+        "max_err_over_tol": rec["max_err_over_tol"],
+        "fp32_max_err_over_tol": rec["fp32_max_err_over_tol"]}
+    del params
+    free()
+    secs["zamba2"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out["rwkv6 rwkv_chunked=False"] = run_rwkv_per_token(serve, lm, counters,
+                                                         base["rwkv6"])
+    free()
+    secs["rwkv6"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg, params = cut_model(lm, "mixtral-8x7b", M_LAYERS)
+    prompts = serve.make_prompts(cfg, M_BATCH, M_PROMPT, device=DEVICE,
+                                 seed=SEED)
+    default, _ = lm.prefill(cfg, params, prompts, max_seq=M_PROMPT + M_GEN)
+    with perf.flags(bf16_moe_dispatch=False):
+        rec = serve_path("perf_off mixtral", serve, lm, cfg, params, prompts,
+                         M_GEN, counters, *launches_of("mixtral"), {},
+                         compare=0, timed=PO_TIMED)
+        fp32_combine, _ = lm.prefill(cfg, params, prompts,
+                                     max_seq=M_PROMPT + M_GEN)
+    out["mixtral bf16_moe_dispatch=False"] = {
+        **beside(rec, base["mixtral"]),
+        "max_err_over_tol": rec["max_err_over_tol"],
+        "fp32_max_err_over_tol": rec["fp32_max_err_over_tol"],
+        "prefill_logits_bit_equal_to_default": torch.equal(default,
+                                                           fp32_combine)}
+    del default, fp32_combine
+    del params
+    free()
+    secs["mixtral"] = time.perf_counter() - t0
+    summary = {"phase": "perf_off", "card": smi, "paths": out,
+               "seconds_by_path": secs,
+               "seconds": time.perf_counter() - t_all}
+    emit(summary)
+    return summary
+
+
 def free() -> None:
     """Hand a finished phase's memory back before the next."""
     import gc
@@ -2667,6 +2899,11 @@ def main() -> int:
               "missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE / "src"))
+    import dataclasses
+    from repro_torch import perf
+    # every phase but perf_off runs the default flags, whatever REPRO_PERF
+    # says; perf_off sets its own inside
+    perf.set_flags(**dataclasses.asdict(perf.PerfConfig()))
     from repro_torch.kernels import _build, conv2d as conv_mod
     from repro_torch.kernels import conv1d as c1_mod
     from repro_torch.kernels import decode_attention as da_mod
@@ -2683,7 +2920,8 @@ def main() -> int:
     peaks = PEAKS["pcie" if "PCIe" in name or "PCIe" in smi else "sxm"]
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "peaks": peaks})
+          "cuda": torch.version.cuda, "peaks": peaks,
+          "perf_flags": dataclasses.asdict(perf.get())})
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 2. build (and the planted faults' builds beside it)
@@ -2929,6 +3167,10 @@ def main() -> int:
     t0 = time.perf_counter()
     sharded = run_sharded(serve, lm, counters, zamba2, train_s)
     emit({"phase": "sharded", "seconds": time.perf_counter() - t0})
+    free()
+    perf_off = run_perf_off(serve, lm, counters,
+                            {"zamba2": zamba2, "gemma2": gemma2,
+                             "mixtral": mixtral, "rwkv6": rwkv6}, smi)
 
     dump({**details, "times": per_path, "lm_times": lm_times,
           "launch_floor_ms": launch_floor_ms,
@@ -2937,7 +3179,7 @@ def main() -> int:
           "mixtral": mixtral, "scheduler": sched, "rwkv6": rwkv6,
           "tune": tuned, "report": table2, "train_kernels": train_k,
           "train_smollm": train_s, "train_zamba2": train_z,
-          "shard_splits": splits, "sharded": sharded})
+          "shard_splits": splits, "sharded": sharded, "perf_off": perf_off})
 
     # 7. kernels line (dense ResNet-50 main path), the card, the last line
     sources = {"conv2d": ("src/repro_torch/kernels/csrc/conv2d.cu",
@@ -2964,6 +3206,10 @@ def main() -> int:
         sharded["smollm_train"]["launches_per_step"][0]
     by_path.update({f"{p}_tuned": r["launches"]
                     for p, r in tuned["per_net"].items()})
+    for name, r in perf_off["paths"].items():
+        for what, n in r["launches"].items():
+            if n is not None:
+                by_path[f"perf_off_{name.split()[0]}_{what}"] = n
     line = []
     for kname, (src, replaces) in sources.items():
         rs = [r for r in per_path["resnet50"] if r["kernel"] == kname]

@@ -27,14 +27,21 @@ where they carry over:
     is slower than NVLink, so the collective term is a lower bound.
   * ``lower_s`` is the trace's time.  ``compile_s`` and XLA's
     ``cost_analysis`` have no counterpart (nothing is compiled).
+  * ``perf``: the flags the cell was traced under.
 
-``--perf`` accepts only ``on``: the port always takes ``repro``'s default
-flags (it has no ``perf.py``).
+``--perf`` is ``repro``'s: ``off`` (the default, the paper-faithful
+baseline), ``on``, or a comma list of flags to turn on from ``off``
+(``set_perf``).  ``on`` and ``off`` set the four flags ``bf16_attn_io``,
+``rwkv_chunked``, ``bf16_moe_dispatch`` and ``windowed_local_cache`` and
+leave the others (``rwkv_chunk``, ``grouped_moe_dispatch``,
+``tp_serving_params``) as ``REPRO_PERF`` or the caller set them, as
+``repro``'s do.  ``main`` restores the flags when it returns.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -45,10 +52,25 @@ import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor
 
+from .. import perf
+
 # H100 SXM, NVIDIA's published figures (not measured here)
 PEAK_FLOPS = 989e12          # dense bf16, per device
 HBM_BW = 3.35e12             # bytes/s per device
 NVLINK_BW = 450e9            # bytes/s per device, each way
+
+
+_MODE_FLAGS = ("bf16_attn_io", "rwkv_chunked", "bf16_moe_dispatch",
+               "windowed_local_cache")
+
+
+def set_perf(mode: str):
+    """'off' (paper-faithful baseline), 'on', or comma list of flags."""
+    if mode in ("on", "off"):
+        perf.set_flags(**{k: mode == "on" for k in _MODE_FLAGS})
+    else:
+        set_perf("off")
+        perf.set_flags(**{k.strip(): True for k in mode.split(",") if k})
 
 
 @contextlib.contextmanager
@@ -149,6 +171,7 @@ def _trace_cell(cfg, shape, mesh, optimizer, arch, shape_name, multi_pod):
         "seq_len": shape.seq_len, "global_batch": shape.global_batch,
         "params": cfg.param_count(), "active_params": n_active,
         "lower_s": round(t_lower, 1),
+        "perf": dataclasses.asdict(perf.get()),
         "memory": {
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,
@@ -182,8 +205,6 @@ def _trace_cell(cfg, shape, mesh, optimizer, arch, shape_name, multi_pod):
 
 
 def main(argv=None):
-    from ..configs import ARCHS, SHAPES
-
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
@@ -195,9 +216,17 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="reduced configs and shapes on the production "
                          "meshes")
-    ap.add_argument("--perf", default="on", choices=["on"],
-                    help="repro's default flags, the only ones the port has")
+    ap.add_argument("--perf", default="off",
+                    help="'off' (paper-faithful baseline), 'on', or a comma "
+                         "list of perf flags to enable")
     args = ap.parse_args(argv)
+    with perf.flags():
+        set_perf(args.perf)
+        return _run(args)
+
+
+def _run(args):
+    from ..configs import ARCHS, SHAPES
 
     archs = list(ARCHS) if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) \

@@ -12,6 +12,13 @@ local ops and collectives DTensor then runs; DTensor's own shape
 propagation, which runs the op once at global shapes, is not counted.
 Python loops unroll, so every group of a stack is seen (``repro`` multiplies
 ``while`` bodies by their trip count; 12 groups count 12 times here too).
+The per-token recurrences (``models.loops.scan``: RWKV-6's WKV without
+``perf.rwkv_chunked``) are folded: one step is traced and its ops, forward
+and backward, count T times (``GraphCounter.repeated``), as ``repro``
+counts its ``lax.scan``; tracing 32768 steps a layer would take hours under
+``FakeTensorMode``.  The folded count equals the unrolled one
+(``fold_loops=False``) in FLOPs, bytes and ops for a forward; the peak of
+live bytes is the folded trace's own.
 
 Conventions (per device, local shard shapes; ``repro``'s):
   * FLOPs: ``mm``/``bmm``/``addmm``/``baddbmm`` = 2 * prod(result) *
@@ -28,12 +35,15 @@ Conventions (per device, local shard shapes; ``repro``'s):
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 from dataclasses import dataclass, field
 
 import torch
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..models import loops
 
 _DOTS = {"mm", "bmm", "addmm", "baddbmm"}
 _COLLECTIVE_NS = ("_c10d_functional", "c10d_functional")
@@ -92,12 +102,25 @@ class GraphCounter(TorchDispatchMode):
     """Counts the ops one device runs inside the ``with`` block
     (``.cost``).  Enter it inside the ``FakeTensorMode`` of the trace."""
 
-    def __init__(self):
+    def __init__(self, fold_loops: bool = True):
         super().__init__()
         self.cost = GraphCost()
         self._live = 0
         self._paused = 0
         self._real_prop = None
+        self._fold = (loops.folding(self.repeated) if fold_loops
+                      else contextlib.nullcontext())
+
+    @contextlib.contextmanager
+    def repeated(self, n: int):
+        """The ops inside the block count n times (the peak of live
+        bytes as traced)."""
+        outer = self.cost
+        self.cost = GraphCost(peak_live_bytes=outer.peak_live_bytes)
+        try:
+            yield
+        finally:
+            self.cost = outer + self.cost.scale(n)
 
     # DTensor's shape propagation runs the op at global shapes: not counted
     def __enter__(self):
@@ -114,11 +137,13 @@ class GraphCounter(TorchDispatchMode):
 
         self._real_prop = real
         ShardingPropagator._propagate_tensor_meta_non_cached = hidden
+        self._fold.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
         ShardingPropagator._propagate_tensor_meta_non_cached = self._real_prop
+        self._fold.__exit__(*exc)
         return super().__exit__(*exc)
 
     def _free(self, n: int) -> None:

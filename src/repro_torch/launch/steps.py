@@ -16,11 +16,15 @@ the DTensor shards; ``make_prefill(cfg, mesh, max_seq)`` and
 ``make_decode_step(cfg, mesh, max_seq, batch_size)`` return logits and the
 cache with ``repro``'s output specs (the vocabulary over 'model' where it
 divides), and decode updates the cache in place.  Params keep their
-training specs for serving too: ``repro``'s default leaves
-``tp_serving_params`` off (stripping the 'data' axis raised each device's
-weight reads 16x there).  Each returns a dict with ``repro``'s keys where they apply (no ``jit``:
-PyTorch runs eagerly); ``input_specs``, ``param_specs`` and ``cache_specs``
-give meta tensors, shapes without memory, for the dry run.
+training specs for serving too unless ``perf.tp_serving_params`` is on
+(``repro``'s C3, off by default: stripping the 'data' axis raised each
+device's weight reads 16x there); ``make_decode_step`` reads the flag when
+it is made, as ``repro``'s does, and its ``param_spec`` then keeps only the
+'model' sharding (``_strip_data_axis``).  Each returns a dict with
+``repro``'s keys where they apply (no ``jit``: PyTorch runs eagerly);
+``input_specs``, ``param_specs`` and ``cache_specs`` give meta tensors,
+shapes without memory, for the dry run (the caches' rows follow
+``perf.windowed_local_cache`` at the time of the call).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from torch.distributed.tensor.experimental import (
     local_map,
 )
 
+from .. import perf
 from ..models import lm
 from ..models import sharding_hints as hints
 from ..models.config import ModelConfig
@@ -46,6 +51,7 @@ from .sharding import (
     distribute,
     make_cache_pspecs,
     make_param_pspecs,
+    map_specs,
     placements,
 )
 
@@ -274,12 +280,24 @@ def make_prefill(cfg: ModelConfig, mesh, max_seq: int, *, impl: str = "auto",
     return {"fn": prefill_fn, "param_spec": p_spec}
 
 
+def _strip_data_axis(spec: tuple) -> tuple:
+    """C3 (§Perf): serving params keep only the TP ('model') sharding."""
+    return tuple(None if a == "data" or (isinstance(a, tuple) and "data" in a)
+                 else a for a in spec)
+
+
 def make_decode_step(cfg: ModelConfig, mesh, max_seq: int, batch_size: int,
                      *, impl: str = "auto", dtype=lm.COMPUTE_DTYPE) -> dict:
     """``fn(params, cache, batch) -> (logits (B, 1, V), cache)``, sharded;
-    the cache (placed by ``cache_spec``) is updated in place."""
+    the cache (placed by ``cache_spec``) is updated in place.  Params are
+    placed by ``param_spec``: their training specs, or with
+    ``perf.tp_serving_params`` on when the step is made, those specs with
+    the 'data' axis stripped."""
     sizes = axis_sizes(mesh)
     p_spec = make_param_pspecs(param_specs(cfg), sizes)
+    if perf.get().tp_serving_params:
+        p_spec = map_specs(lambda _, sp: _strip_data_axis(sp), p_spec,
+                           p_spec)
     c_struct = cache_specs(cfg, batch_size, max_seq)
     c_spec = make_cache_pspecs(sizes, c_struct, batch_size)
     layout = _layout(mesh, batch_size, 1, kv=True)

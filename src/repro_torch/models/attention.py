@@ -11,9 +11,16 @@ function, and the kernel's plain version runs on the CPU or with
 ``impl="ref"``.  ``attention_decode`` writes the new token's k/v into the
 cache in place (the reference returns a new cache) and calls the decode
 kernel, which takes the soft-cap, a window over a linear cache, and, through
-the position it is given, a rolling cache (``rolling_window``).  The
-attention operands go to the kernels in the activations' dtype (``repro``'s
-default ``bf16_attn_io``).
+the position it is given, a rolling cache (``rolling_window``).
+
+``perf.bf16_attn_io`` (on by default, as in ``repro``) hands the kernels
+their operands in the activations' dtype: the bf16 instances, which round
+p to bf16 before P·V.  Off (the paper-faithful baseline), the kernels get
+fp32 copies of q, k and v (in decode, of q and the cache, after the new
+token is written into the cache in its own dtype) and run their fp32
+instances, which do not round; the output is cast back to the
+activations' dtype and the cache stays in its own, as ``repro``'s
+``_gqa_scores``/``_gqa_out`` and ``flash_attention`` do.
 
 Under a sharded step (``sharding_hints.local_tokens``) the tokens of a
 sequence are sharded: ``attention`` ropes this shard's rows at their own
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import perf
 from ..kernels import decode_attention as _decode
 from ..kernels import flash_attention as _flash
 from ..kernels.ops import resolve
@@ -90,6 +98,14 @@ def _qkv(params, x, n_heads, n_kv_heads, d_head):
     return q, k, v
 
 
+def _io(*ts):
+    """The attention kernels' operands: as they are under
+    ``perf.bf16_attn_io``, else fp32 copies."""
+    if perf.get().bf16_attn_io:
+        return ts
+    return tuple(t.float() for t in ts)
+
+
 # ------------------------------ forward --------------------------------------
 def attention(params, x, *, n_heads: int, n_kv_heads: int, d_head: int,
               rope_theta: float = 1e4, window: int = 0,
@@ -117,7 +133,7 @@ def attention(params, x, *, n_heads: int, n_kv_heads: int, d_head: int,
         ks, vs = k[:, :t0 + t].contiguous(), v[:, :t0 + t].contiguous()
     fn = (_flash.flash_attention if resolve(impl, x) == "cuda"
           else _flash.flash_attention_plain)
-    out = fn(q, ks, vs, window=int(window), softcap=attn_softcap,
+    out = fn(*_io(q, ks, vs), window=int(window), softcap=attn_softcap,
              q_offset=t0).to(x.dtype)
     return dense(params["wo"], out.reshape(b, t, -1), x.dtype), (k, v)
 
@@ -167,7 +183,7 @@ def attention_decode(params, x, cache_k, cache_v, pos, *, n_heads: int,
     if hints.kv_shards() == 1:
         cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
         cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
-        out = fn(q[:, 0], cache_k, cache_v, kpos, window=int(window),
+        out = fn(*_io(q[:, 0], cache_k, cache_v), kpos, window=int(window),
                  softcap=attn_softcap)
     else:
         # this shard holds slots s0 .. s0 + n - 1: the new k/v land only in
@@ -181,8 +197,9 @@ def attention_decode(params, x, cache_k, cache_v, pos, *, n_heads: int,
                                          cache_k[rows, loc])
         cache_v[rows, loc] = torch.where(mine, v[:, 0].to(cache_v.dtype),
                                          cache_v[rows, loc])
-        out, lse = fn(q[:, 0], cache_k, cache_v, kpos, window=int(window),
-                      softcap=attn_softcap, k_offset=s0, return_lse=True)
+        out, lse = fn(*_io(q[:, 0], cache_k, cache_v), kpos,
+                      window=int(window), softcap=attn_softcap, k_offset=s0,
+                      return_lse=True)
         out = hints.combine_kv(out, lse, _decode.combine_shards)
     out = out.to(x.dtype)
     return dense(params["wo"], out.reshape(b, 1, -1), x.dtype), cache_k, cache_v

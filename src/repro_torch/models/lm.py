@@ -21,11 +21,16 @@ kernels (``"cuda"``), their plain versions (``"ref"``) or by device
 (``"auto"``), as ``kernels.ops`` does.  ``dtype`` is the activations' and
 caches' dtype, ``COMPUTE_DTYPE`` (bf16) as in ``repro``; an fp32 run of the
 plain engine is the reference the bf16 engines are measured against.  As in
-``repro`` (its default ``windowed_local_cache``), a sliding-window layer's
-cache is a ring of ``min(window, max_seq)`` slots holding position p in slot
-p % W (``_attn_cache_len``, ``_place_kv``); every other attention cache
-holds ``max_seq`` rows.  Serving drops the MoE layers' load-balancing
-loss, as ``repro``'s prefill does; training adds it, ``0.01 * aux``.
+``repro``, under ``perf.windowed_local_cache`` (the default) a
+sliding-window layer's cache is a ring of ``min(window, max_seq)`` slots
+holding position p in slot p % W (``_attn_cache_len``, ``_place_kv``), and
+every other attention cache holds ``max_seq`` rows; without the flag (the
+paper-faithful baseline) every attention cache holds ``max_seq`` rows
+written linearly, and decode masks the window over it.  The flag is read
+when a cache is made (``init_cache``, ``prefill``) and at every decode
+step, which must see the state the cache was made under.  Serving drops
+the MoE layers' load-balancing loss, as ``repro``'s prefill does;
+training adds it, ``0.01 * aux``.
 
 Training (``forward_train``, ``loss_fn``) differentiates with autograd.  The
 flash and conv1d wrappers are autograd Functions (the kernels forward, the
@@ -55,6 +60,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import perf
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import sharding_hints as hints
@@ -80,8 +86,12 @@ COMPUTE_DTYPE = torch.bfloat16   # activations and KV caches
 
 
 def _attn_cache_len(cfg: ModelConfig, spec: dict, max_seq: int) -> int:
-    """Sliding-window layers keep a rolling window-sized cache (never store
-    or read keys the window mask cannot use); the others ``max_seq``."""
+    """Under ``perf.windowed_local_cache`` sliding-window layers keep a
+    rolling window-sized cache (never store or read keys the window mask
+    cannot use); the others, and every layer without the flag,
+    ``max_seq``."""
+    if not perf.get().windowed_local_cache:
+        return max_seq
     w = _attn_kwargs(cfg, spec)["window"]
     return min(w, max_seq) if w and w > 0 else max_seq
 
@@ -493,7 +503,7 @@ def _apply_block_decode(cfg, spec, bp, x, c, pos, impl):
         kw = _attn_kwargs(cfg, spec)
         # the ring's slots: this device's rows times the cache's shards
         rolling = c["k"].shape[1] * hints.kv_shards() \
-            if kw["window"] > 0 else 0
+            if perf.get().windowed_local_cache and kw["window"] > 0 else 0
         y, _, _ = attn_mod.attention_decode(
             bp["attn"], h, c["k"], c["v"], pos, rolling_window=rolling,
             impl=impl, **kw)

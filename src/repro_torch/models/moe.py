@@ -7,10 +7,11 @@ SwiGLU expert FFNs, weights stacked on a leading expert axis.  Top-1
 (mixtral).  ``repro`` computes every product here as an ``einsum`` outside
 any Pallas kernel, so they stay ``torch.einsum``.
 
-Numerics follow ``repro``'s defaults: the router and its softmax in fp32,
-the dispatch/combine tensors in the activation dtype (``bf16_moe_dispatch``)
-with the routing positions in fp32, SiLU in fp32.  Three places where torch
-differs from JAX are written out:
+Numerics follow ``repro``: the router and its softmax in fp32, the
+combine tensor in the activation dtype under ``perf.bf16_moe_dispatch``
+(the default) and in fp32 without it (the baseline), the routing positions
+in fp32, SiLU in fp32.  Three places where torch differs from JAX are
+written out:
 
 * top-k: ``lax.top_k`` puts the lowest index first among equal values;
   ``torch.topk`` promises no order, so a stable descending sort is used.
@@ -20,14 +21,17 @@ differs from JAX are written out:
 * the capacity ``int(capacity_factor * top_k * t / e)`` stays Python.
 
 ``moe_ffn`` without a mesh takes the flat path, as ``repro``'s does without
-a 'model' mesh axis; ``_moe_grouped`` (GShard groups of tokens) is reached
-through an explicit group count.  Under a sharded step the model sees each
-device's own tokens, and ``repro`` groups them by 'model' shard (routing
-capacity per shard) when the sequence has at least two tokens a shard: the
-flat path on the local tokens is that group.  With one token a shard
-``repro`` routes the whole sequence at once, so the tokens are gathered
-first.  The balance loss is then each device's share of the global one
-(``_aux``).
+a 'model' mesh axis (``perf.grouped_moe_dispatch`` then changes nothing);
+``_moe_grouped`` (GShard groups of tokens) is reached through an explicit
+group count.  Under a sharded step the model sees each device's own tokens
+(the sequence over 'model' where it divides), and ``repro`` groups them by
+'model' shard (routing capacity per shard) under
+``perf.grouped_moe_dispatch`` when the sequence has at least two tokens a
+shard: the flat path on the local tokens is that group.  With one token a
+shard, or without the flag, ``repro`` routes each row's whole sequence
+with one capacity, so the sequence is gathered first, routed flat, and
+each device keeps its own rows.  The balance loss is each device's share
+of the global one (``_aux``).
 ``layers.with_compute_copies`` adds a copy of the stacked expert weights in
 the compute dtype (``"wi_c"``, ``"wg_c"``, ``"wo_c"``), the same values as
 ``repro``'s per-call cast.
@@ -37,6 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import perf
 from . import sharding_hints as hints
 from .layers import normal
 
@@ -76,10 +81,13 @@ def moe_ffn(params, x, *, top_k: int, capacity_factor: float = 1.25,
     x is already one device's group, so the default of 1 serves both.
     """
     b, t, d = x.shape
-    if hints.seq_shards() > 1 and t < 2:
-        y, aux = moe_ffn(params, hints.gather_seq(x), top_k=top_k,
-                         capacity_factor=capacity_factor, groups=groups)
-        return hints.local_rows(y), aux / hints.seq_shards()
+    if hints.seq_shards() > 1 and (t < 2 or
+                                   not perf.get().grouped_moe_dispatch):
+        # repro routes each row's whole sequence as one group; every
+        # sequence shard computes it, and _aux gives each 1/shards of it
+        y, aux = _moe_flat(params, hints.gather_seq(x), top_k=top_k,
+                           capacity_factor=capacity_factor)
+        return hints.local_rows(y), aux
     if groups > 1:
         y, aux = _moe_grouped(params, x.reshape(b, groups, t // groups, d),
                               top_k=top_k, capacity_factor=capacity_factor)
@@ -99,7 +107,7 @@ def _route(params, x, k: int, capacity_factor: float, tokens_axis: int):
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
     capacity = max(1, int(capacity_factor * k * t / e))
-    comb_dt = x.dtype
+    comb_dt = x.dtype if perf.get().bf16_moe_dispatch else torch.float32
     slots = torch.arange(capacity, device=x.device)
 
     # position of each (token, choice) within its expert's buffer; later
@@ -139,7 +147,10 @@ def _aux(probs, gate_idx, e: int, dims) -> torch.Tensor:
     Under a sharded step the means run over every device's tokens: the
     top-1 shares are summed over the devices, and this device returns its
     tokens' part of the mean probability times them, so the parts sum to
-    the loss and each part's gradient is its own tokens'."""
+    the loss and each part's gradient is its own tokens'.  Routed over the
+    gathered sequence, every sequence shard holds the same tokens: n and
+    the summed shares count each of them once per shard, so each shard's
+    part is 1/shards of its rows' and the parts still sum to the loss."""
     shards = hints.token_shards()
     if shards == 1:
         me = probs.mean(dim=dims)

@@ -9,18 +9,23 @@
   RMSNorm in fp32.
 * RWKV-6 (Finch), rwkv6-1.6b's mixer: the WKV recurrence with
   data-dependent decay, chunked (``_wkv_chunked``, chunks of
-  ``RWKV_CHUNK`` tokens) where ``repro`` takes its chunked form (T > 1 and
-  a multiple of the chunk, or T <= the chunk) and per token otherwise
-  (decode).  The token shift ``lerp(x_{t-1}, x_t, mu)`` is a depthwise
-  causal conv with taps ``(1 - mu, mu)``, so it runs through the conv1d
-  kernel at FL 2.
+  ``perf.rwkv_chunk`` tokens) where ``repro`` takes its chunked form
+  (``perf.rwkv_chunked``, T > 1 and a multiple of the chunk, or T <= the
+  chunk) and per token otherwise (``_wkv_recurrent``: decode, and every T
+  in the paper-faithful baseline).  The chunked form's products take
+  operands rounded to bf16 under ``perf.bf16_attn_io`` (the default) and
+  fp32 ones without it.  The token shift ``lerp(x_{t-1}, x_t, mu)`` is a
+  depthwise causal conv with taps ``(1 - mu, mu)``, so it runs through the
+  conv1d kernel at FL 2.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .. import perf
 from ..kernels import ops
+from . import loops
 from .layers import dense, dense_init, normal
 
 
@@ -174,12 +179,6 @@ def mamba2_decode(params, x, state, conv_state, *, d_state: int,
 
 
 # ------------------------------- RWKV-6 --------------------------------------
-RWKV_CHUNK = 512                 # repro's perf rwkv_chunk
-# repro's bf16_attn_io: the chunked form's einsum operands are rounded to
-# bf16 and multiplied with fp32 accumulation, whatever the activations' dtype
-WKV_IO_DTYPE = torch.bfloat16
-
-
 def rwkv6_init(gen, d_model: int, n_heads: int, *, d_ff: int | None = None,
                decay_rank: int = 64, device="cpu"):
     d_ff = d_ff if d_ff is not None else 4 * d_model
@@ -221,8 +220,10 @@ def _token_shift(x, prev, mu, impl: str = "auto"):
 
 
 def _io(z):
-    """A chunked einsum operand: rounded to WKV_IO_DTYPE, used in fp32."""
-    return z.to(WKV_IO_DTYPE).float()
+    """A chunked einsum operand: under ``perf.bf16_attn_io`` rounded to
+    bf16 (``repro``'s operands, whatever the activations' dtype) and used
+    in fp32; else z itself."""
+    return z.to(torch.bfloat16).float() if perf.get().bf16_attn_io else z
 
 
 def _wkv_chunked(r, k, v, log_decay, u, state, chunk: int):
@@ -233,9 +234,10 @@ def _wkv_chunked(r, k, v, log_decay, u, state, chunk: int):
     exclusive one, the intra-chunk weights are
     ``A[t, i] = (r e^E)(k e^-C)^T`` for i < t; ``e^-C`` is clipped at
     ``e^30`` (error only where the true weight underflows to zero anyway).
-    ``repro`` multiplies bf16 operands with fp32 accumulation
-    (``preferred_element_type``): here the operands are rounded to bf16 and
-    multiplied in fp32, where a bf16 matmul would round its output.
+    Under ``perf.bf16_attn_io`` ``repro`` multiplies bf16 operands with
+    fp32 accumulation (``preferred_element_type``): here the operands are
+    rounded to bf16 and multiplied in fp32, where a bf16 matmul would round
+    its output.
     Returns ((b, T, H, E), final state).
     """
     b, t, h, d = r.shape
@@ -271,16 +273,19 @@ def _wkv_chunked(r, k, v, log_decay, u, state, chunk: int):
     return y.reshape(b, t, h, e_dim), state
 
 
+def _wkv_step(state, rt, kt, vt, ld, u):
+    """One token of the WKV6 recurrence: rt/kt/vt/ld (b, H, D)."""
+    kv = torch.einsum("bhk,bhv->bhkv", kt, vt)                  # (b,H,dk,dv)
+    out = torch.einsum("bhk,bhkv->bhv", rt, state + u[None, :, :, None] * kv)
+    return state * torch.exp(ld)[..., None] + kv, out
+
+
 def _wkv_recurrent(r, k, v, log_decay, u, state):
-    """The per-token WKV6 recurrence (decode, and T off the chunk), fp32.
-    Returns ((b, T, H, E), final state)."""
-    outs = []
-    for i in range(r.shape[1]):
-        kv = torch.einsum("bhk,bhv->bhkv", k[:, i], v[:, i])   # (b,H,dk,dv)
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, i],
-                                 state + u[None, :, :, None] * kv))
-        state = state * torch.exp(log_decay[:, i])[..., None] + kv
-    return torch.stack(outs, dim=1), state
+    """The per-token WKV6 recurrence (decode, T off the chunk, and every T
+    without ``perf.rwkv_chunked``), fp32, a ``loops.scan`` over the tokens
+    (``repro``'s ``lax.scan``).  Returns ((b, T, H, E), final state)."""
+    state, out = loops.scan(_wkv_step, state, (r, k, v, log_decay), (u,))
+    return out, state
 
 
 def rwkv6_time_mix(params, x, prev_x, state, *, n_heads: int,
@@ -302,8 +307,9 @@ def rwkv6_time_mix(params, x, prev_x, state, *, n_heads: int,
     log_decay = -torch.exp(w.reshape(b, t, n_heads, dh))       # <= 0
 
     rf, kf, vf = r.float(), k.float(), v.float()
-    c = min(RWKV_CHUNK, t)
-    if t > 1 and t % c == 0:
+    pc = perf.get()
+    c = min(pc.rwkv_chunk, t)
+    if pc.rwkv_chunked and t > 1 and t % c == 0:
         out, state = _wkv_chunked(rf, kf, vf, log_decay, params["u"], state,
                                   c)
     else:

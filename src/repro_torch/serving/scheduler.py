@@ -8,7 +8,8 @@ every decode step advances all active slots together.
 A slot table (per-slot position, request), a FIFO admission queue, and step
 functions over ``models.lm``'s prefill and decode.  The cache is one fixed
 (G, B, S, ...) buffer of ``lm.init_cache``'s layout (sliding-window layers
-keep rings of ``min(window, max_seq)`` slots); admission writes a request's
+keep rings of ``min(window, max_seq)`` slots under the default
+``perf.windowed_local_cache``); admission writes a request's
 prefill cache into its slot (no reallocation: slots are the unit of
 elasticity), and a decode step updates it in place.  Each slot keeps its
 own position, so the rings of different rows wrap at different steps.

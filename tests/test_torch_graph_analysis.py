@@ -4,7 +4,9 @@ this process, under ``FakeTensorMode``: exact hand counts of a sharded
 matmul's FLOPs (the local product, not the global one a mode above DTensor
 would see), each collective's bytes by ``repro``'s conventions, a stack of
 12 groups counting 12 times one group, and a smoke dry-run cell on both
-production meshes with ``repro``'s record keys."""
+production meshes with ``repro``'s record keys; the per-token WKV folded
+(one step counted T times) against the unrolled loop: equal counts for a
+forward, within 1 % with the backward."""
 import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -124,3 +126,77 @@ def test_constrain_tokens_shards_batch_and_sequence(mesh16):
     assert tuple(y.placements) == (Shard(0), Shard(1))
     assert tuple(y.to_local().shape) == (2, 4, 8)
     assert tuple(z.placements) == (Replicate(), Shard(1))  # 8 rows < 16
+
+
+# ------------------------------------------- folded per-token recurrences --
+def _wkv_cost(fold: bool, grad: bool):
+    from repro_torch.models import ssm
+    b, t, h, d = 2, 24, 4, 16
+    with FakeTensorMode():
+        args = [torch.empty(b, t, h, d).requires_grad_(grad)
+                for _ in range(4)]
+        u = torch.empty(h, d).requires_grad_(grad)
+        s0 = torch.empty(b, h, d, d).requires_grad_(grad)
+        with GraphCounter(fold_loops=fold) as c:
+            out, s = ssm._wkv_recurrent(*args, u, s0)
+            if grad:
+                torch.autograd.grad((out.sum(), s.sum()), args + [u, s0])
+    assert tuple(out.shape) == (b, t, h, d) and tuple(s.shape) == (b, h, d, d)
+    return c.cost
+
+
+def test_folded_wkv_counts_the_unrolled_loop():
+    """One traced step counted T times (``models.loops.scan`` under the
+    counter) gives the unrolled loop's FLOPs, bytes and ops exactly."""
+    folded, unrolled = _wkv_cost(True, False), _wkv_cost(False, False)
+    for f in ("flops", "bytes", "collective_bytes", "ops"):
+        assert getattr(folded, f) == getattr(unrolled, f), f
+
+
+def test_folded_wkv_backward_is_within_a_percent():
+    """With the backward: the folded step's backward counted T times, the
+    sliced inputs' and stacked outputs' gradients moved otherwise than the
+    loop's (``models.loops`` docstring): within 1 % of the unrolled
+    count."""
+    folded, unrolled = _wkv_cost(True, True), _wkv_cost(False, True)
+    for f in ("flops", "bytes", "ops"):
+        u = getattr(unrolled, f)
+        assert abs(getattr(folded, f) - u) <= 0.01 * u, f
+
+
+def _rwkv_cell_cost(kind: str, fold: bool):
+    from repro_torch import perf
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import graph_analysis
+    cfg = get_config("rwkv6-1.6b", smoke=True)
+    shape = ShapeSpec("short", kind, 64, 16)
+    real = graph_analysis.GraphCounter.__init__
+    with perf.baseline(), dryrun.fake_world(256), pytest.MonkeyPatch.context(
+    ) as mp:
+        mp.setattr(graph_analysis.GraphCounter, "__init__",
+                   lambda self, fold_loops=True: real(self, fold))
+        mesh = make_production_mesh(device_type="cpu")
+        return dryrun._trace_cell(cfg, shape, mesh, "adamw", "rwkv6-1.6b",
+                                  "short", False)["hlo"]
+
+
+def test_folded_rwkv_prefill_cell_counts_the_unrolled_cell():
+    """rwkv6's sharded prefill under the baseline (the per-token WKV) at T
+    64 on the 16x16 mesh: the folded count is the unrolled count."""
+    folded, unrolled = (_rwkv_cell_cost("prefill", f) for f in (True, False))
+    for f in ("flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev",
+              "ops_per_dev"):
+        assert folded[f] == unrolled[f], f
+
+
+def test_folded_rwkv_train_cell_counts_the_unrolled_cell():
+    """The same in a train step (the backward as in
+    ``test_folded_wkv_backward_is_within_a_percent``, and the loop's last
+    carry gradient, none in the loop and zeros in the folded step): within
+    1 % of the unrolled count."""
+    folded, unrolled = (_rwkv_cell_cost("train", f) for f in (True, False))
+    for f in ("flops_per_dev", "bytes_per_dev", "ops_per_dev"):
+        assert abs(folded[f] - unrolled[f]) <= 0.01 * unrolled[f], f
+    assert folded["collective_bytes_per_dev"] == \
+        unrolled["collective_bytes_per_dev"]

@@ -22,6 +22,7 @@ import torch
 
 from repro import perf
 from repro.models import ssm as j_ssm
+from repro_torch import perf as t_perf
 from repro_torch.kernels import conv1d as t_conv1d
 from repro_torch.models import ssm as t_ssm
 from repro_torch.models.convert import params_from_numpy
@@ -84,7 +85,7 @@ def test_wkv_chunked_matches_repro(t, chunk):
 # the per-token recurrence, as in repro
 @pytest.mark.parametrize("t", [16, 20, 1])
 @pytest.mark.parametrize("carried", [False, True])
-def test_time_mix_matches_repro(t, carried, monkeypatch):
+def test_time_mix_matches_repro(t, carried):
     p = _params(1)
     jp, tp = _both(p)
     rng = np.random.default_rng(t + 10 * carried)
@@ -92,15 +93,15 @@ def test_time_mix_matches_repro(t, carried, monkeypatch):
     prev = (rng.standard_normal((2, 1, D)) if carried
             else np.zeros((2, 1, D))).astype(np.float32)
     s0 = (rng.standard_normal((2, H, DH, DH)) * carried).astype(np.float32)
-    monkeypatch.setattr(t_ssm, "RWKV_CHUNK", 8)
     with perf.flags(rwkv_chunk=8):
         jy, jlast, js = j_ssm.rwkv6_time_mix(
             jp, jnp.asarray(x, jnp.bfloat16), jnp.asarray(prev),
             jnp.asarray(s0), n_heads=H)
-    ty, tlast, ts = t_ssm.rwkv6_time_mix(
-        tp, torch.from_numpy(x).to(torch.bfloat16),
-        torch.from_numpy(prev) if carried else None, torch.from_numpy(s0),
-        n_heads=H)
+    with t_perf.flags(rwkv_chunk=8):
+        ty, tlast, ts = t_ssm.rwkv6_time_mix(
+            tp, torch.from_numpy(x).to(torch.bfloat16),
+            torch.from_numpy(prev) if carried else None,
+            torch.from_numpy(s0), n_heads=H)
     assert ty.dtype == torch.bfloat16 and ts.dtype == torch.float32
     assert _err(ty, jy) <= 2e-2 * _scale(jy)
     assert _err(ts, js) <= 2e-2 * _scale(js)

@@ -2,8 +2,8 @@
 ``jax.value_and_grad(repro.models.lm.loss_fn)`` for all ten archs' smoke
 configs, with fp32 activations on both sides (``repro``'s
 ``COMPUTE_DTYPE`` patched to fp32, the port's ``dtype=``) and RWKV-6's
-chunked products on fp32 operands on both sides (``repro``'s
-``bf16_attn_io`` flag off, the port's ``ssm.WKV_IO_DTYPE``): the wiring,
+chunked products on fp32 operands on both sides (each package's
+``perf.bf16_attn_io`` flag off): the wiring,
 with rounding out of the way.  (With bf16 operands each side rounds its own
 fp32 values, and a value on a rounding boundary moves the embedding's
 gradient by up to 7e-4 in one element.)  Tolerance: the loss and each
@@ -25,10 +25,10 @@ import torch
 
 from repro import perf
 from repro.configs import get_config as j_get_config
+from repro_torch import perf as t_perf
 from repro.models import lm as j_lm
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import lm as t_lm
-from repro_torch.models import ssm as t_ssm
 from repro_torch.models.convert import lm_params_from_numpy
 from repro_torch.pytree import flatten
 
@@ -81,8 +81,7 @@ def _scale(a) -> float:
 @pytest.fixture
 def fp32_everywhere(monkeypatch):
     monkeypatch.setattr(j_lm, "COMPUTE_DTYPE", jnp.float32)
-    monkeypatch.setattr(t_ssm, "WKV_IO_DTYPE", torch.float32)
-    with perf.flags(bf16_attn_io=False):
+    with perf.flags(bf16_attn_io=False), t_perf.flags(bf16_attn_io=False):
         yield
 
 
