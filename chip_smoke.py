@@ -34,7 +34,8 @@ printing one JSON line:
              linear cache (inside a tile, across tiles and splits) and
              rings (pos before the ring fills, on its last slot, wrapped;
              the kernel given min(pos, W - 1)), FL 2-4, odd C, strided
-             input), and at the other LM paths' main-path shapes: mixtral's
+             input; dh 20, padded to 64 in the wrappers), and at the other
+             LM paths' main-path shapes: mixtral's
              prefill flash (T 5120 past its window of 4096), decode at the
              mixtral, scheduler (B 4, a position per row) and gemma2
              serving shapes, rwkv6's token shifts in prefill and decode
@@ -101,6 +102,18 @@ printing one JSON line:
              L2), forward medians tuner on and off, and how many layers
              changed plan.  A committed table (kernels/tuned/) must not be
              stale.
+   bench   — (before tune) the bench record at full size
+             (``repro_torch.bench.telemetry_report.collect_bench`` over
+             ``bench.run``'s networks: ResNet-50 and VGG-16 unfused and
+             fused, ResNet-50's structured-sparse twin, the smoke sets;
+             per layer the median cold-L2 CUDA-event time of 10 dispatches,
+             the committed tuned tables on); hard gates: every fused block
+             touches strictly fewer bytes than unfused, every pruned layer
+             strictly fewer than its dense twin; then
+             ``bench.check_regression`` against the committed BENCH_21.json,
+             whose verdict and worst ratio are printed (a timing miss alone
+             does not fail this run: the card may be another H100 at other
+             clocks; the CLI is where the timing gate is hard).
    report  — the planned-vs-measured table (``observability.report``, the
              paper's Table II) of one traced ResNet-50 forward, printed; its
              Chrome trace (``observability.export``) written to a temporary
@@ -152,6 +165,17 @@ printing one JSON line:
              2048-token prompts (the chunked WKV form), 32 tokens; 48
              conv1d (the token shifts) per prefill and per step; fault:
              the decode token shift without its carried row.
+   smollm_dh20 — (after rwkv6) smollm-360m's smoke config (2 layers,
+             d_model 60, 3 heads over 1 of dh 20, which neither attention
+             kernel is built at: the wrappers zero-pad q, k and v to 64 and
+             keep dh 20's scale) served through ``launch.serve`` as phase
+             zamba2 (``serve_path``: launches, the bf16 and fp32 logit
+             gates, the three planted faults), 2 x 64-token prompts, 16
+             out; decode's log-sum-exp at dh 20 within 1e-4 of the plain
+             version's.  Its flash and decode calls are also lm_checks
+             cases; after it both are timed in bf16 beside the same
+             launch on operands padded beforehand (the same bits
+             required) and the pads alone: the padding's cost.
    scheduler — ``serving.ContinuousBatcher`` on mixtral's weights: 4
              slots, 8 requests (prompts of 512-6144 tokens, budgets of 4-16,
              drawn from the seed); exact launches, each request admitted
@@ -278,6 +302,10 @@ printing one JSON line:
              gloo mesh on the CPU.  Prints each path's prefill and decode
              latency, busy time and idle share, peak memory and (gemma2)
              the local caches' bytes, baseline beside default.
+The case lists, operands, costs and library calls are
+``repro_torch.bench.kernel_bench``'s and the timer is ``bench.timer``'s (the
+kernel bench CLI times the same rows).
+
 7. the ``kernels`` line, the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -307,41 +335,47 @@ import torch
 import torch.nn.functional as F
 
 HERE = Path(__file__).resolve().parent
+# the port's package, from the checkout this script sits in (alone, the
+# import below fails and the script exits nonzero)
+sys.path.insert(0, str(HERE / "src"))
+from repro_torch.bench.kernel_bench import (  # noqa: E402
+    DECODE_PATH_NAMES, G_GEN, G_PROMPT, M_BATCH, M_GEN, M_PROMPT, R_BATCH,
+    R_PROMPT, S_BUDGET_RANGE, S_PROMPT_RANGE, S_SLOTS, SD_BATCH, SD_GEN,
+    SD_PROMPT, TS_BATCH, TS_SEQ, TZ_BATCH, TZ_SEQ, Z_BATCH, Z_GEN, Z_PROMPT,
+    Kernels, conv1d_case, decode_case, decode_path_cases, dh20_cases,
+    dh256_cases, epilogue_of, flash_case, kernel_pos, lm_kernel_cases,
+    lm_operands, lm_reduction, main_path_shapes, make_operands,
+    model_epilogue, peaks_for, time_cnn_call, time_lm_case, time_padding,
+    train_flash_cases)
+from repro_torch.bench.timer import cold_time_ms, flush_buffer  # noqa: E402
+
 DEVICE = "cuda"
 SEED = 0
-# Published peaks (NVIDIA data sheets; dense, no sparsity): fp32 on the CUDA
-# cores, bf16 on the tensor cores, device-memory bandwidth.
-PEAKS = {"sxm": {"fp32": 67e12, "bf16": 989e12, "bw": 3.35e12},
-         "pcie": {"fp32": 51e12, "bf16": 756e12, "bw": 2.0e12}}
 FWD_REPS = 20
-KERNEL_REPS = 10
 PROFILE_REPS = 5
-SLEEP_CYCLES = 1_000_000     # ~0.5 ms of device time at H100 clocks
-# zamba2-2.7b serving: batch 4 x 2048-token prompts, 32 generated tokens
-Z_BATCH, Z_PROMPT, Z_GEN = 4, 2048, 32
-# gemma2-9b serving at full width: 4 of its 42 layers (two local, two
-# global), one 6144-token prompt, 16 tokens out
-G_LAYERS, G_PROMPT, G_GEN = 4, 6144, 16
-# mixtral-8x7b serving at full width: 4 of its 32 layers, batch 2 x
-# 5120-token prompts (past the 4096 window: prefill rolls the rings and
-# decode wraps them), 16 tokens out
-M_LAYERS, M_BATCH, M_PROMPT, M_GEN = 4, 2, 5120, 16
-# rwkv6-1.6b serving at full width and depth: batch 4 x 2048-token prompts
-# (the chunked WKV form), 32 tokens out
-R_BATCH, R_PROMPT, R_GEN = 4, 2048, 32
-# the continuous-batching scheduler on mixtral's weights: 4 slots, 8
-# requests, prompt lengths and budgets drawn from the seed
-S_SLOTS, S_REQUESTS, S_PROMPT_RANGE, S_BUDGET_RANGE = 4, 8, (512, 6144), (4, 16)
-# smollm-360m trained at full width and depth: train_4k's sequence of 4096
-# (its global batch of 256 cut to 8 for one card), AdamW at lr 3e-4, 6 steps
-# through the supervisor with a checkpoint every 3, then steps 4-6 again
-# from the step-3 checkpoint; its fp32 wiring gate at (layers, batch, seq)
-TS_BATCH, TS_SEQ, TS_STEPS, TS_CKPT_EVERY, TS_LR = 8, 4096, 6, 3, 3e-4
+# Shapes the kernel cases share live in repro_torch.bench.kernel_bench;
+# these are the phases' own.  gemma2-9b serving at full width: 4 of its 42
+# layers (two local, two global)
+G_LAYERS = 4
+# mixtral-8x7b serving at full width: 4 of its 32 layers
+M_LAYERS = 4
+# rwkv6-1.6b serving at full width and depth: 32 tokens out
+R_GEN = 32
+# the continuous-batching scheduler on mixtral's weights: 8 requests
+S_REQUESTS = 8
+# smollm-360m trained at full width and depth: 6 steps through the
+# supervisor with a checkpoint every 3 at AdamW lr 3e-4, then steps 4-6
+# again from the step-3 checkpoint; its fp32 wiring gate at (layers,
+# batch, seq)
+TS_STEPS, TS_CKPT_EVERY, TS_LR = 6, 3, 3e-4
 TS_GATE = (2, 2, 1024)
 # zamba2-2.7b trained at full width, depth cut to one group (6 Mamba2 blocks
-# and the shared attention block); its fp32 wiring gate at (batch, seq)
-TZ_LAYERS, TZ_BATCH, TZ_SEQ, TZ_STEPS = 6, 2, 2048, 3
+# and the shared attention block), 3 steps; its fp32 wiring gate at (batch,
+# seq)
+TZ_LAYERS, TZ_STEPS = 6, 3
 TZ_GATE = (1, 512)
+# phase bench: the committed bench record it compares with
+BASELINE = "BENCH_21.json"
 # shard_splits: shards a sequence or a cache is cut into, and the cold-L2
 # bf16 times of flash and decode at zamba2's serving shapes before the
 # kernels took shard offsets (PERF.md §6)
@@ -496,50 +530,7 @@ def _epilogue_combos():
     return list(itertools.product((False, True), repeat=4))
 
 
-def cold_time_ms(fn, flush: torch.Tensor, reps: int = KERNEL_REPS) -> float:
-    """Mean device time of fn() from a cold L2 cache.
-
-    Before each call the stream sleeps (about half a millisecond) and then
-    overwrites 64 MB, more than the 50 MB L2.  The host enqueues the events
-    and the call while the device still sleeps, so the events time the
-    device's work and not the host's launch overhead.
-    """
-    fn()
-    torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    for s, e in zip(starts, ends):
-        torch.cuda._sleep(SLEEP_CYCLES)
-        flush.zero_()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / reps
-
-
 # ------------------------------------------------------------- shapes ------
-def main_path_shapes(trace, apply, params: dict, x, kw: dict) -> list[dict]:
-    """The kernel calls of one forward: kind, shapes, stride/pad, epilogue."""
-    with trace.capture() as tr:
-        apply(params, x, impl="ref", **kw)
-    calls = []
-    for sp in tr.find("kernels.conv2d"):
-        a = sp.attrs
-        calls.append({"kernel": "conv2d", "x": tuple(a["x_shape"]),
-                      "w": tuple(a["w_shape"]), "stride": a["stride"],
-                      "padding": a["padding"], "epilogue": a["epilogue"]})
-    for sp in tr.find("kernels.conv1x1"):
-        a = sp.attrs
-        kernel = ("mm_weight_stationary"
-                  if a["stationarity"] == "weight_stationary"
-                  else "mm_act_stationary")
-        calls.append({"kernel": kernel, "x": tuple(a["x_shape"]),
-                      "w": tuple(a["w_shape"]), "stride": a["stride"],
-                      "padding": 0, "epilogue": a["epilogue"]})
-    return calls
-
-
 def ragged_calls() -> list[dict]:
     """Prime channel counts, stride 2, the 7x7 stem pattern, odd rows; K
     off the tiles on the vec16 path, an input slice one element off 16-byte
@@ -589,134 +580,6 @@ def ragged_calls() -> list[dict]:
 
 
 # ------------------------------------------------------------ kernels ------
-class Kernels:
-    """Each kernel's wrapper, plain version, library call, and cost."""
-
-    def __init__(self, conv_mod, mm_mod, peaks: dict):
-        self.conv, self.mm, self.peaks = conv_mod, mm_mod, peaks
-        self.wrappers = {"conv2d": conv_mod.conv2d,
-                         "mm_act_stationary": mm_mod.matmul_act_stationary,
-                         "mm_weight_stationary":
-                             mm_mod.matmul_weight_stationary}
-
-    def out_shape(self, call):
-        if call["kernel"] == "conv2d":
-            b, h, w, _ = call["x"]
-            fh, fw, _, k = call["w"]
-            oh, ow = self.conv.out_hw(h, w, fh, fw, call["stride"],
-                                      call["padding"])
-            return (b, oh, ow, k)
-        k = call["w"][-1]
-        if len(call["x"]) == 2:
-            return (call["x"][0], k)
-        b, h, w, _ = call["x"]
-        s = call["stride"]
-        return (b, -(-h // s), -(-w // s), k)
-
-    def reduction(self, call) -> int:
-        w = call["w"]
-        return w[0] * w[1] * w[2] if call["kernel"] == "conv2d" else w[0]
-
-    def run(self, call, x, w, ep):
-        fn = self.wrappers[call["kernel"]]
-        if call["kernel"] == "conv2d":
-            return fn(x, w, stride=call["stride"], padding=call["padding"],
-                      **ep)
-        return fn(x, w, stride=call["stride"], **ep)
-
-    def run_tuned(self, call, x, w, ep, tiles):
-        """The call under a tuned plan; a 1x1 takes the entry's
-        stationarity, as the dispatch does."""
-        if call["kernel"] == "conv2d":
-            return self.conv.conv2d(x, w, stride=call["stride"],
-                                    padding=call["padding"], tiles=tiles,
-                                    **ep)
-        wrapper = (self.wrappers["mm_weight_stationary"]
-                   if tiles.stationarity == "weight_stationary"
-                   else self.wrappers["mm_act_stationary"])
-        return wrapper(x, w, stride=call["stride"], tiles=tiles, **ep)
-
-    def plan(self, call, x, w, ep) -> dict:
-        """The launch plan the wrapper makes for these operands: tile,
-        splits and gather path."""
-        if call["kernel"] == "conv2d":
-            p = self.conv.launch_plan(x, w, stride=call["stride"],
-                                      padding=call["padding"],
-                                      residual=ep["residual"])
-        else:
-            planner = (self.mm.ws_plan
-                       if call["kernel"] == "mm_weight_stationary"
-                       else self.mm.act_plan)
-            p = planner(x, w, stride=call["stride"], residual=ep["residual"])
-        return {"tile": [p.bm, p.bn, p.groups], "splits": p.splits,
-                "per": p.per, "path": p.path}
-
-    def plain(self, call, x, w, ep):
-        if call["kernel"] == "conv2d":
-            return self.conv.conv2d_plain(x, w, stride=call["stride"],
-                                          padding=call["padding"], **ep)
-        return self.mm.matmul_plain(x, w, stride=call["stride"], **ep)
-
-    def library(self, call, x, w):
-        """The one PyTorch call for the same product (no epilogue)."""
-        if call["kernel"] == "conv2d":
-            wl = w.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)
-            xl = x.permute(0, 3, 1, 2)          # NHWC memory: channels_last
-            return lambda: F.conv2d(xl, wl, stride=call["stride"],
-                                    padding=call["padding"])
-        if x.ndim == 2:
-            return lambda: torch.matmul(x, w)
-        wl = w.t().contiguous()[:, :, None, None]
-        xl = x.permute(0, 3, 1, 2)
-        return lambda: F.conv2d(xl, wl, stride=call["stride"])
-
-    def cost(self, call, dtype) -> tuple[float, float]:
-        """(FLOPs, bytes): each input read once, each output written once."""
-        es = torch.tensor([], dtype=dtype).element_size()
-        m_k = math.prod(self.out_shape(call))
-        k = call["w"][-1]
-        flops = 2 * m_k * self.reduction(call)
-        # a strided 1x1 reads only its subsampled rows
-        x_el = (math.prod(call["x"]) if call["kernel"] == "conv2d"
-                else m_k // k * call["w"][0])
-        ep = call.get("epilogue", "none")
-        nbytes = (x_el + math.prod(call["w"]) + m_k) * es
-        nbytes += 4 * k * (("scale" in ep) + ("bias" in ep))
-        nbytes += m_k * es * ("residual" in ep)
-        return flops, nbytes
-
-    def bound_ms(self, call, dtype) -> tuple[float, str]:
-        flops, nbytes = self.cost(call, dtype)
-        peak = self.peaks["bf16" if dtype == torch.bfloat16 else "fp32"]
-        t_ops, t_bytes = flops / peak, nbytes / self.peaks["bw"]
-        return (max(t_ops, t_bytes) * 1e3,
-                "operations" if t_ops >= t_bytes else "bytes")
-
-
-def make_operands(kern: Kernels, call, dtype, gen):
-    dev = "cuda"
-    rn = lambda *s: torch.randn(s, device=dev, generator=gen)
-    off = call.get("offset", 0)
-    x = rn(math.prod(call["x"]) + off).to(dtype)[off:].view(call["x"])
-    w = rn(*call["w"]).to(dtype)
-    k = call["w"][-1]
-    full = {"scale": 1.0 + 0.2 * rn(k), "bias": 0.3 * rn(k),
-            "residual": rn(*kern.out_shape(call)).to(dtype), "relu": True}
-    return x, w, full
-
-
-def epilogue_of(full: dict, scale, bias, residual, relu) -> dict:
-    return {"scale": full["scale"] if scale else None,
-            "bias": full["bias"] if bias else None,
-            "residual": full["residual"] if residual else None,
-            "relu": relu}
-
-
-def model_epilogue(full: dict, tag: str) -> dict:
-    return epilogue_of(full, "scale" in tag, "bias" in tag,
-                       "residual" in tag, "relu" in tag)
-
-
 # ------------------------------------------------------------- models ------
 def randomize_bn(params: dict, gen: torch.Generator) -> None:
     """Non-trivial folded BN, so the fused epilogue changes the math."""
@@ -854,192 +717,6 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
 
 
 # --------------------------------------------------------- LM kernels ------
-def flash_case(b, t, h, kh, dh, window=0, softcap=0.0) -> dict:
-    return dict(kernel="flash_attention", b=b, t=t, h=h, kh=kh, dh=dh,
-                window=window, softcap=softcap)
-
-
-def decode_case(b, s, h, kh, dh, pos, window=0, softcap=0.0, ring=0) -> dict:
-    """pos: the model's position per sequence; a ring of ``ring`` slots
-    hands the kernel min(pos, ring - 1) (``kernel_pos``)."""
-    return dict(kernel="decode_attention", b=b, s=s, h=h, kh=kh, dh=dh,
-                pos=pos, window=window, softcap=softcap, ring=ring)
-
-
-def conv1d_case(b, t, c, fl, row=None, col0=0) -> dict:
-    """x is columns [col0, col0 + c) of a (b, t, row) tensor."""
-    return dict(kernel="conv1d_causal", b=b, t=t, c=c, fl=fl, row=row or c,
-                col0=col0)
-
-
-def lm_kernel_cases() -> list[dict]:
-    """zamba2's main-path shapes first (one per kernel), then ragged ones,
-    then the other LM paths' main-path shapes."""
-    fa, da, c1 = flash_case, decode_case, conv1d_case
-    return [
-        # zamba2: 32 heads of 80, T = 2048; the cache holds 2080 rows; the
-        # conv reads the xBC column slice [5120, 10368) of in_proj's output
-        fa(Z_BATCH, Z_PROMPT, 32, 32, 80),
-        da(Z_BATCH, Z_PROMPT + Z_GEN, 32, 32, 80, (0, 2079, 1000, 2047)),
-        c1(Z_BATCH, Z_PROMPT, 5248, 4, row=10368, col0=5120),
-        # ragged: GQA, head dims, T off the 64-row tiles, window, soft-cap
-        fa(2, 300, 8, 2, 64), fa(1, 257, 4, 4, 128), fa(2, 200, 4, 2, 64, 64),
-        fa(1, 130, 6, 3, 80, softcap=50.0), fa(1, 333, 8, 4, 80, 100, 30.0),
-        fa(1, 65, 2, 1, 16),
-        # tile edges of the bf16 kernel (128-row query tiles, 16 rows a
-        # warp, 64-key tiles, 8-key mma n-tiles): T around 16, 64, 128
-        *(fa(b, t, 4, 2, dh) for b, t, dh in (
-            (1, 1, 16), (2, 15, 64), (1, 16, 80), (2, 17, 128),
-            (1, 63, 80), (2, 65, 64), (1, 127, 128), (2, 129, 80))),
-        # windows ending inside an mma n-tile; soft-caps with G = 4
-        fa(2, 200, 4, 4, 80, 21), fa(1, 129, 2, 2, 128, 9),
-        fa(1, 150, 8, 2, 64, softcap=30.0), fa(2, 129, 8, 2, 128, 0, 50.0),
-        fa(1, 257, 16, 4, 80, 37, 20.0), fa(1, 100, 4, 1, 16, 0, 5.0),
-        # a different pos per sequence, 0 and S - 1, S off the 64-row chunks
-        da(3, 300, 8, 2, 64, (299, 0, 130)), da(2, 129, 4, 4, 128, (128, 64)),
-        da(2, 1000, 6, 3, 80, (999, 511)), da(2, 77, 8, 2, 16, (76, 3)),
-        # pos on a chunk's last and first row and inside one; B * KH = 1;
-        # a cache of one row
-        da(4, 300, 8, 2, 80, (63, 64, 100, 128)),
-        da(2, 129, 4, 4, 128, (127, 128)), da(1, 200, 4, 1, 64, (150,)),
-        da(1, 65, 1, 1, 80, (64,)), da(2, 1, 4, 2, 16, (0, 0)),
-        da(1, 1, 8, 1, 128, (0,)),
-        # windows over a linear cache: inside one tile, across tiles and
-        # splits (the splits before the window read nothing), with caps
-        da(3, 300, 8, 2, 64, (299, 0, 130), window=100, softcap=20.0),
-        da(2, 1000, 6, 3, 80, (999, 64), window=64),
-        da(2, 129, 4, 4, 128, (128, 63), window=1, softcap=5.0),
-        # rings (pos is the model's; the kernel sees min(pos, W - 1)):
-        # before the ring fills, on its last slot, wrapped
-        da(3, 200, 8, 2, 64, (37, 199, 1000), ring=200),
-        da(2, 64, 4, 1, 16, (63, 64), softcap=30.0, ring=64),
-        # FL 2-4, odd C (one channel a thread), contiguous and strided x
-        c1(Z_BATCH, Z_PROMPT, 5248, 4), c1(2, 33, 131, 3), c1(1, 17, 96, 2),
-        c1(3, 100, 1000, 4), c1(2, 40, 64, 2, row=80, col0=8),
-        # mixtral's prefill (window 4096, T past it); its and the
-        # scheduler's decode (decode_path_cases); rwkv6's token shifts
-        # (FL 2, C 2048) in prefill and in decode, where the carried row
-        # is prepended to the step's
-        fa(M_BATCH, M_PROMPT, 32, 8, 128, 4096),
-        *decode_path_cases(),
-        c1(R_BATCH, R_PROMPT, 2048, 2), c1(R_BATCH, 2, 2048, 2),
-        # the training paths' flash calls: smollm-360m (15 over 5 heads of
-        # 64) and zamba2's shared attention block (32 over 32 of 80)
-        *train_flash_cases(),
-    ]
-
-
-def train_flash_cases() -> list[dict]:
-    """Flash at the shapes train_smollm and train_zamba2 launch it."""
-    return [flash_case(TS_BATCH, TS_SEQ, 15, 5, 64),
-            flash_case(TZ_BATCH, TZ_SEQ, 32, 32, 80)]
-
-
-DECODE_PATH_NAMES = ("mixtral ring, pos < W and W - 1",
-                     "mixtral ring, wrapped",
-                     "scheduler ring, B 4, a position per row",
-                     "gemma2 local ring, cap 50", "gemma2 global linear, cap 50",
-                     "gemma2 linear, window 4096, cap 50")
-
-
-def decode_path_cases() -> list[dict]:
-    """Decode at the new paths' shapes (``DECODE_PATH_NAMES``): mixtral's
-    ring (B 2, W 4096, 32 heads over 8 of 128) with pos before the ring
-    fills, on its last slot and wrapped; the scheduler's step on the same
-    ring (B S_SLOTS, each slot at its own position, up to its max_seq - 1);
-    gemma2-9b's local layer (ring 4096, cap 50, dh 256) and global layer (a
-    linear cache of 6160 rows, cap 50); and a window over gemma2's linear
-    cache, whose first splits read nothing."""
-    da, w = decode_case, 4096
-    s_last = S_PROMPT_RANGE[1] + S_BUDGET_RANGE[1] - 1
-    return [da(M_BATCH, w, 32, 8, 128, (1000, w - 1), ring=w),
-            da(M_BATCH, w, 32, 8, 128, (w, M_PROMPT + M_GEN - 1), ring=w),
-            da(S_SLOTS, w, 32, 8, 128, (600, w - 1, w + 3, s_last), ring=w),
-            da(2, w, 16, 8, 256, (G_PROMPT, 3000), softcap=50.0, ring=w),
-            da(2, G_PROMPT + G_GEN, 16, 8, 256, (G_PROMPT + G_GEN - 1, 100),
-               softcap=50.0),
-            da(2, G_PROMPT + G_GEN, 16, 8, 256, (G_PROMPT + G_GEN - 1, 5000),
-               window=w, softcap=50.0)]
-
-
-def kernel_pos(case: dict, pos) -> tuple:
-    """The positions the decode kernel is given: a ring of W slots maps
-    pos to min(pos, W - 1), as models.attention.attention_decode does."""
-    ring = case.get("ring", 0)
-    return tuple(min(p, ring - 1) for p in pos) if ring else tuple(pos)
-
-
-def visible_rows(case: dict, pos) -> list[int]:
-    """Keys each sequence's mask lets in at these (model) positions."""
-    w = case.get("window", 0)
-    return [min(p + 1, w) if w > 0 else p + 1 for p in kernel_pos(case, pos)]
-
-
-def lm_operands(case: dict, dtype, gen, pos=None):
-    """(args, kwargs) of the wrapper for one case, drawn on the card."""
-    rn = lambda *s: torch.randn(s, device=DEVICE, generator=gen)
-    if case["kernel"] == "flash_attention":
-        b, t, h, kh, dh = (case[k] for k in ("b", "t", "h", "kh", "dh"))
-        args = (rn(b, t, h, dh), rn(b, t, kh, dh), rn(b, t, kh, dh))
-        return (tuple(a.to(dtype) for a in args),
-                {"window": case["window"], "softcap": case["softcap"]})
-    if case["kernel"] == "decode_attention":
-        b, s, h, kh, dh = (case[k] for k in ("b", "s", "h", "kh", "dh"))
-        args = (rn(b, h, dh), rn(b, s, kh, dh), rn(b, s, kh, dh))
-        p = torch.tensor(kernel_pos(case, pos or case["pos"]),
-                         dtype=torch.int32, device=DEVICE)
-        return (tuple(a.to(dtype) for a in args) + (p,),
-                {"window": case["window"], "softcap": case["softcap"]})
-    b, t, c, fl = (case[k] for k in ("b", "t", "c", "fl"))
-    full = rn(b, t, case["row"]).to(dtype)
-    return (full[..., case["col0"]:case["col0"] + c], rn(fl, c)), {}
-
-
-def lm_cost(case: dict, dtype, pos) -> tuple[float, float]:
-    """(FLOPs, bytes) of one call: each input read once, each output written
-    once; attention counts only the (query, key) pairs its mask lets in."""
-    es = torch.tensor([], dtype=dtype).element_size()
-    if case["kernel"] == "flash_attention":
-        t, w = case["t"], case["window"]
-        pairs = sum(min(i + 1, w) if w > 0 else i + 1 for i in range(t))
-        flops = 4 * case["b"] * case["h"] * case["dh"] * pairs
-        nbytes = 2 * case["b"] * t * (case["h"] + case["kh"]) * case["dh"] * es
-        return flops, nbytes
-    if case["kernel"] == "decode_attention":
-        rows = sum(visible_rows(case, pos))
-        flops = 4 * case["h"] * case["dh"] * rows
-        nbytes = (2 * case["b"] * case["h"] * case["dh"]
-                  + 2 * rows * case["kh"] * case["dh"]) * es + 4 * case["b"]
-        return flops, nbytes
-    n = case["b"] * case["t"] * case["c"]
-    return 2 * n * case["fl"], 2 * n * es + 4 * case["fl"] * case["c"]
-
-
-def lm_library(case: dict, args):
-    """The one PyTorch call for the same function (a yardstick only)."""
-    if case["kernel"] == "flash_attention":
-        q, k, v = (a.transpose(1, 2) for a in args)          # (B, H, T, dh)
-        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                      enable_gqa=True)
-    if case["kernel"] == "decode_attention":
-        q, ck, cv, pos = args
-        q4 = q[:, :, None, :]
-        kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
-        j = torch.arange(ck.shape[1], device=DEVICE)[None, :]
-        mask = j <= pos[:, None]
-        if case.get("window", 0) > 0:
-            mask = mask & (j > pos[:, None] - case["window"])
-        mask = mask[:, None, None, :]
-        return lambda: F.scaled_dot_product_attention(q4, kt, vt,
-                                                      attn_mask=mask,
-                                                      enable_gqa=True)
-    x, w = args
-    xt = x.transpose(1, 2)                                    # (B, C, T) view
-    wt = w.t().contiguous()[:, None, :].to(x.dtype)           # (C, 1, FL)
-    return lambda: F.conv1d(xt, wt, padding=case["fl"] - 1,
-                            groups=case["c"])
-
-
 # ------------------------------------------------------ shard splits ------
 def shard_split_cases() -> list[dict]:
     """Phase shard_splits: the flash and decode shapes split as a sharded
@@ -1263,10 +940,6 @@ def check_cnn_faults(kern, _build, libs: dict, calls: list, gen) -> dict:
     return out
 
 
-def lm_reduction(case: dict) -> int:
-    return case["fl"] if case["kernel"] == "conv1d_causal" else case["dh"]
-
-
 def check_lm_kernels(chk: Checker, lm_kernels: dict, gen) -> dict:
     """Every LM case, fp32 and bf16, against the plain version, and run
     twice for the same bits."""
@@ -1301,31 +974,17 @@ def time_lm_kernels(lm_kernels: dict, peaks: dict, flush, gen) -> dict:
     """Each LM kernel at its zamba2 main-path shape, bf16, cold L2.  The
     decode call reads the whole cache (pos = S - 1 for every sequence)."""
     rows = {}
-    dtype = torch.bfloat16
     for case in lm_kernel_cases()[:3]:
         kname = case["kernel"]
-        wrapper, plain = lm_kernels[kname]
-        pos = None
-        if kname == "decode_attention":
-            pos = (case["s"] - 1,) * case["b"]
-        args, kw = lm_operands(case, dtype, gen, pos)
-        err = (wrapper(*args, **kw).float()
-               - plain(*args, **kw).float()).abs().max().item()
-        flops, nbytes = lm_cost(case, dtype, pos or ())
-        t_ops, t_bytes = flops / peaks["bf16"], nbytes / peaks["bw"]
-        rows[kname] = {
-            "case": {**case, "pos": list(pos)} if pos else case,
-            "dtype": "bfloat16", "max_abs_err": err,
-            "flops": flops, "bytes": nbytes,
-            "ms": cold_time_ms(lambda: wrapper(*args, **kw), flush),
-            "plain_ms": cold_time_ms(lambda: plain(*args, **kw), flush),
-            "library_ms": cold_time_ms(lm_library(case, args), flush),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        pos = ((case["s"] - 1,) * case["b"]
+               if kname == "decode_attention" else None)
+        rows[kname] = time_lm_case(*lm_kernels[kname], case, torch.bfloat16,
+                                   peaks, flush, gen, pos)
         if kname == "decode_attention":
             # a yardstick of the memory system, not a bound: a device copy
             # of the K cache moves as many bytes as decode reads (half read,
             # half written)
+            args, _ = lm_operands(case, torch.bfloat16, gen, pos)
             rows[kname]["cache_copy_ms"] = cold_time_ms(args[1].clone, flush)
     return rows
 
@@ -1335,24 +994,10 @@ def time_decode_paths(lm_kernels: dict, peaks: dict, flush, gen) -> dict:
     L2, at each case's positions, beside its bound (the rows its mask lets
     in), its plain version and SDPA with the same position mask (SDPA has
     no soft-cap: a yardstick of the shape)."""
-    wrapper, plain = lm_kernels["decode_attention"]
-    rows = {}
-    for name, case in zip(DECODE_PATH_NAMES, decode_path_cases(),
-                          strict=True):
-        args, kw = lm_operands(case, torch.bfloat16, gen)
-        flops, nbytes = lm_cost(case, torch.bfloat16, case["pos"])
-        t_ops, t_bytes = flops / peaks["bf16"], nbytes / peaks["bw"]
-        rows[name] = {
-            "case": case, "kernel_pos": list(kernel_pos(case, case["pos"])),
-            "max_abs_err": (wrapper(*args, **kw).float()
-                            - plain(*args, **kw).float()).abs().max().item(),
-            "ms": cold_time_ms(lambda: wrapper(*args, **kw), flush),
-            "plain_ms": cold_time_ms(lambda: plain(*args, **kw), flush),
-            "library_ms": cold_time_ms(lm_library(case, args), flush),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
-    return rows
+    return {name: time_lm_case(*lm_kernels["decode_attention"], case,
+                               torch.bfloat16, peaks, flush, gen)
+            for name, case in zip(DECODE_PATH_NAMES, decode_path_cases(),
+                                  strict=True)}
 
 
 # ------------------------------------------------------------- zamba2 ------
@@ -1437,20 +1082,6 @@ def run_zamba2(serve, lm, attn_mod, fa_mod, da_mod, counters: dict) -> dict:
 
 
 # ------------------------------------------------------- head dim 256 ------
-def dh256_cases() -> list[dict]:
-    """gemma2-9b's attention (dh 256, 16 heads over 8 kv heads): a local
-    (window 4096) and a global layer's prefill at T 6144 and 37 rows off the
-    tiles, soft-cap 50; decode over a 6144-row cache, pos at S - 1, 0,
-    inside and on a 64-row chunk's last row."""
-    fa = lambda t, window: dict(kernel="flash_attention", b=1, t=t, h=16,
-                                kh=8, dh=256, window=window, softcap=50.0)
-    return [fa(G_PROMPT, 4096), fa(G_PROMPT, 0), fa(G_PROMPT - 37, 4096),
-            fa(G_PROMPT - 37, 0),
-            dict(kernel="decode_attention", b=4, s=G_PROMPT, h=16, kh=8,
-                 dh=256, pos=(G_PROMPT - 1, 0, 3000, 4095), window=0,
-                 softcap=0.0, ring=0)]
-
-
 def ptxas_instances(log: str, tag: str) -> dict:
     """Registers and spilled bytes of each kernel instance in one source's
     ``-Xptxas -v`` output whose mangled name holds ``tag``."""
@@ -1468,19 +1099,6 @@ def ptxas_instances(log: str, tag: str) -> dict:
                 if hit:
                     rec[key] = int(hit.group(1))
     return out
-
-
-def dh256_library(case: dict, args):
-    """SDPA at the same shape: causal, or masked to the window (it has no
-    soft-cap, so it is a yardstick of the shape, not the same function)."""
-    if case["kernel"] == "decode_attention" or not case["window"]:
-        return lm_library(case, args)
-    q, k, v = (a.transpose(1, 2) for a in args)
-    i = torch.arange(case["t"], device=DEVICE)
-    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
-                                         - case["window"])
-    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                  enable_gqa=True)
 
 
 def check_dh256(_build, lm_kernels: dict, peaks: dict, flush, gen) -> dict:
@@ -1509,25 +1127,13 @@ def check_dh256(_build, lm_kernels: dict, peaks: dict, flush, gen) -> dict:
               if r.get("spill_store_bytes") or r.get("spill_load_bytes")]
     times = {}
     for case in dh256_cases()[:2] + dh256_cases()[-1:]:
-        wrapper, plain = lm_kernels[case["kernel"]]
-        pos = None
-        if case["kernel"] == "decode_attention":
-            pos = (case["s"] - 1,) * case["b"]
-        args, kw = lm_operands(case, torch.bfloat16, gen, pos)
-        flops, nbytes = lm_cost(case, torch.bfloat16, pos or ())
-        t_ops, t_bytes = flops / peaks["bf16"], nbytes / peaks["bw"]
+        pos = ((case["s"] - 1,) * case["b"]
+               if case["kernel"] == "decode_attention" else None)
         name = (f"flash window {case['window']}"
                 if case["kernel"] == "flash_attention" else "decode")
-        times[name] = {
-            "case": {**case, "pos": list(pos)} if pos else case,
-            "max_abs_err": (wrapper(*args, **kw).float()
-                            - plain(*args, **kw).float()).abs().max().item(),
-            "ms": cold_time_ms(lambda: wrapper(*args, **kw), flush),
-            "plain_ms": cold_time_ms(lambda: plain(*args, **kw), flush, 3),
-            "library_ms": cold_time_ms(dh256_library(case, args), flush),
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+        times[name] = time_lm_case(*lm_kernels[case["kernel"]], case,
+                                   torch.bfloat16, peaks, flush, gen, pos,
+                                   plain_reps=3)
     rec = {"phase": "attn_dh256", "cases": len(chk.cases),
            "failed": chk.failures(),
            "max_err_over_tol": max(c["err_over_tol"] for c in chk.cases),
@@ -1967,6 +1573,109 @@ def run_scheduler(lm, cfg, params, counters: dict) -> dict:
 
 
 # --------------------------------------------------------------- tune ------
+def run_smollm_dh20(serve, lm, attn_mod, fa_mod, da_mod, counters: dict,
+                    lm_kernels: dict, peaks: dict, flush) -> dict:
+    """Phase smollm_dh20: smollm-360m's smoke config (2 layers, d_model 60,
+    3 heads over 1 of dh 20, which the attention wrappers zero-pad to 64 at
+    the unpadded scale) served on the card through ``launch.serve``
+    (``serve_path``): SD_BATCH x SD_PROMPT-token prompts, SD_GEN tokens; a
+    flash launch per layer per prefill, a decode launch per layer per step;
+    the three planted faults of ``planted_faults``.  Beside it decode's
+    log-sum-exp at dh 20 (``return_lse``, the sharded combine's input)
+    against the plain version's, fp32, within 1e-4.  After it the two dh
+    20 calls in bf16, cold L2 (``time_lm_case``), and what their padding
+    costs (``time_padding``: the wrapper beside the same launch on operands
+    padded beforehand, which must give the same bits, and the pads
+    alone)."""
+    cfg, params = serve.load_model("smollm-360m", smoke=True, device=DEVICE,
+                                   seed=SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    case = dh20_cases()[1]
+    args, kw = lm_operands(case, torch.float32, gen)
+    _, lse = da_mod.decode_attention(*args, **kw, return_lse=True)
+    _, plain_lse = da_mod.decode_attention_plain(*args, **kw,
+                                                 return_lse=True)
+    lse_err = (lse - plain_lse).abs().max().item()
+    if not lse_err <= 1e-4:
+        raise SystemExit(f"smollm_dh20: decode's log-sum-exp at dh 20 off "
+                         f"the plain version's by {lse_err}")
+    prompts = serve.make_prompts(cfg, SD_BATCH, SD_PROMPT, device=DEVICE,
+                                 seed=SEED)
+    rec = serve_path("smollm_dh20", serve, lm, cfg, params, prompts, SD_GEN,
+                     counters, {"flash_attention": cfg.n_layers},
+                     {"decode_attention": cfg.n_layers},
+                     planted_faults(attn_mod, fa_mod, da_mod, cfg.n_layers))
+    times = {}
+    for case in dh20_cases():
+        kname = case["kernel"]
+        times[kname] = {
+            **time_lm_case(*lm_kernels[kname], case, torch.bfloat16, peaks,
+                           flush, gen),
+            "padding": time_padding(case, torch.bfloat16, flush, gen)}
+    emit({"phase": "smollm_dh20", "head_dim": cfg.d_model // cfg.n_heads,
+          "decode_lse_max_abs_err": lse_err,
+          "times_bf16": {k: {f: r[f] for f in (
+              "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+              "padding")} for k, r in times.items()}})
+    unequal = [k for k, r in times.items()
+               if not r["padding"]["prepadded_bits_equal"]]
+    if unequal:
+        raise SystemExit(f"smollm_dh20: {unequal} on operands padded "
+                         "beforehand differ from the padding wrapper")
+    return {**rec, "decode_lse_max_abs_err": lse_err, "times_bf16": times}
+
+
+def run_bench(baseline: Path) -> dict:
+    """Phase bench: the bench record at full size on the card
+    (``bench.telemetry_report.collect_bench`` over ``bench.run``'s
+    networks: ResNet-50 and VGG-16 unfused and fused, ResNet-50's sparse
+    twin, the smoke sets), with the committed tuned tables.  Hard gates:
+    every fused block touches strictly fewer bytes than unfused and every
+    pruned layer strictly fewer than its dense twin.  Then
+    ``bench.check_regression`` against the committed baseline: its
+    verdict and worst ratio are printed, and a timing miss alone does not
+    fail this run (another card may run at other clocks; the CLI gate is
+    where timing is hard)."""
+    from repro_torch.bench import check_regression as cr
+    from repro_torch.bench.run import bench_nets
+    from repro_torch.bench.telemetry_report import collect_bench
+    t0 = time.perf_counter()
+    rec = collect_bench(bench_nets(False, True), tuned=True)
+    seconds = time.perf_counter() - t0
+    blocks = [b for fd in rec["fused_delta"].values() for b in fd["blocks"]]
+    pruned = [l for sd in rec["sparse_delta"].values() for l in sd["layers"]
+              if l["pruned"]]
+    bytes_bad = cr.check_bytes(rec)
+    verdict = {"baseline": baseline.name, "found": baseline.exists()}
+    if baseline.exists():
+        base = cr.load(str(baseline))
+        problems = (cr.compare(base, rec) + cr.check_tuning(rec)
+                    + cr.check_sparse(rec) + cr.check_stale_tables())
+        ratio, where = cr.worst_ratio(base, rec)
+        verdict.update(passed=not problems, problems=problems[:10],
+                       n_problems=len(problems), worst_ratio=ratio,
+                       worst_at=where, baseline_device=base.get("device"))
+    out = {"phase": "bench", "seconds": seconds, "device": rec["device"],
+           "timer": rec["timer"],
+           "totals_ms": {n: r["total_measured_ms"]
+                         for n, r in rec["networks"].items()},
+           "host_totals_ms": {n: r["total_host_ms"]
+                              for n, r in rec["networks"].items()},
+           "fused_blocks": len(blocks), "pruned_layers": len(pruned),
+           "bytes_invariant_problems": bytes_bad,
+           "tuning": {n: {k: d[k] for k in ("keys_timed", "keys_missing",
+                                             "total_default_ms",
+                                             "total_tuned_ms")}
+                      for n, d in rec["tuning"].items()},
+           "regression": verdict}
+    emit(out)
+    if not blocks or not pruned or bytes_bad:
+        raise SystemExit(f"bench: byte invariants fail over {len(blocks)} "
+                         f"fused blocks and {len(pruned)} pruned layers: "
+                         f"{bytes_bad[:5]}")
+    return {**out, "record": rec}
+
+
 def tuned_key(autotune, call: dict) -> str:
     """The tuning key of one main-path kernel call, its epilogue included."""
     if call["kernel"] == "conv2d":
@@ -2009,7 +1718,7 @@ def run_tune(kern, calls: dict, paths: dict, x, counters: dict,
                    e.tuned_ms]
                for k, e in entries.items() if e.config != records[k][0][
                    "config"]}
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buffer()
     per_net, problems = {}, []
     autotune.enable()
     try:
@@ -2894,11 +2603,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not (HERE / "src" / "repro_torch").is_dir():
-        print("chip_smoke: run from a checkout of the repository (src/ "
-              "missing)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(HERE / "src"))
     import dataclasses
     from repro_torch import perf
     # every phase but perf_off runs the default flags, whatever REPRO_PERF
@@ -2917,7 +2621,7 @@ def main() -> int:
     smi = nvidia_smi()
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    peaks = PEAKS["pcie" if "PCIe" in name or "PCIe" in smi else "sxm"]
+    peaks = peaks_for(f"{name} {smi}")
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "peaks": peaks,
@@ -3039,29 +2743,15 @@ def main() -> int:
     train_k = check_train_kernels(fa_mod, c1_mod, dgen)
 
     # 5. times at the fp32 main-path shapes, with each call's own epilogue
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = flush_buffer()
     per_path = {}
     for p, cs in calls.items():
         rows = []
         for c in cs:
-            x_, w_, full = make_operands(kern, c, torch.float32, dgen)
-            ep = model_epilogue(full, c["epilogue"])
-            got = kern.run(c, x_, w_, ep)
-            want = kern.plain(c, x_, w_, ep)
-            err = (got - want).abs().max().item()
-            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-                lib_ms = cold_time_ms(kern.library(c, x_, w_), flush)
-            bound, by = kern.bound_ms(c, torch.float32)
-            flops, nbytes = kern.cost(c, torch.float32)
-            rows.append({
-                "kernel": c["kernel"], "x": c["x"], "w": c["w"],
-                "stride": c["stride"], "epilogue": c["epilogue"],
-                "max_abs_err": err, "flops": flops, "bytes": nbytes,
-                "ms": cold_time_ms(lambda: kern.run(c, x_, w_, ep), flush),
-                "plain_ms": cold_time_ms(lambda: kern.plain(c, x_, w_, ep),
-                                         flush),
-                "library_ms": lib_ms, "bound_ms": bound, "bound_by": by})
+            rows.append(time_cnn_call(kern, c, torch.float32, flush, dgen))
             if c["kernel"] == "mm_weight_stationary":
+                x_, w_, full = make_operands(kern, c, torch.float32, dgen)
+                ep = model_epilogue(full, c["epilogue"])
                 rows[-1]["device_kernels"] = device_kernels(
                     lambda: kern.run(c, x_, w_, ep))
         per_path[p] = rows
@@ -3144,6 +2834,7 @@ def main() -> int:
     emit({"phase": "resnet50_prepruned", "median_ms": statistics.median(times),
           "min_ms": min(times)})
     emit({"phase": "host", **host_profile(lambda: cnn.resnet50_apply(r50, x))})
+    bench = run_bench(HERE / BASELINE)
     tuned = run_tune(kern, calls, paths, x, counters, dgen)
     table2 = run_report(cnn, r50, x, peaks)
     zamba2 = run_zamba2(serve, lm, attn_mod, fa_mod, da_mod, counters)
@@ -3156,6 +2847,8 @@ def main() -> int:
     free()
     rwkv6 = run_rwkv6(serve, lm, counters)
     free()
+    smollm = run_smollm_dh20(serve, lm, attn_mod, fa_mod, da_mod, counters,
+                             lm_kernels, peaks, flush)
     t0 = time.perf_counter()
     train_s = run_train_smollm(lm, fa_mod, counters, peaks)
     free()
@@ -3177,6 +2870,7 @@ def main() -> int:
           "models": models, "zamba2": zamba2, "attn_dh256": dh256,
           "decode_paths": decode_paths, "gemma2": gemma2,
           "mixtral": mixtral, "scheduler": sched, "rwkv6": rwkv6,
+          "smollm_dh20": smollm, "bench": bench,
           "tune": tuned, "report": table2, "train_kernels": train_k,
           "train_smollm": train_s, "train_zamba2": train_z,
           "shard_splits": splits, "sharded": sharded, "perf_off": perf_off})
@@ -3193,7 +2887,7 @@ def main() -> int:
     by_path["zamba2_prefill"] = zamba2["launches_per_prefill"]
     by_path["zamba2_decode"] = zamba2["launches_per_decode_step"]
     for p, r in (("gemma2", gemma2), ("mixtral", mixtral),
-                 ("rwkv6", rwkv6)):
+                 ("rwkv6", rwkv6), ("smollm_dh20", smollm)):
         by_path[f"{p}_prefill"] = r["launches_per_prefill"]
         by_path[f"{p}_decode"] = r["launches_per_decode_step"]
     by_path["scheduler"] = sched["launches"]

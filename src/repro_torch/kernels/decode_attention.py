@@ -9,10 +9,13 @@ the cache is cut into splits of whole ``CHUNK``-row tiles, each block
 streams its split's tiles and writes its partial softmax to an fp32
 workspace, and the last split of each (b, kh) to finish combines them in a
 fixed order; splits past ``pos[b]``, and splits wholly before the window,
-read nothing.  A rolling cache (a ring of W slots) is the caller's mapping:
-``models.attention.attention_decode`` passes ``min(pos, W - 1)``, under
-which this causal mask is the ring's.  ``pos`` must be >= 0, and (H / Kh)
-* dh may be at most 2048.
+read nothing.  A head dim between the built ones runs zero-padded to the
+next (``flash_attention.with_padded_head_dim``, the scale and the
+log-sum-exp the unpadded dh's; the padded copy of the cache costs a read
+and a write of it a call).  A rolling cache (a ring of W slots) is the
+caller's mapping: ``models.attention.attention_decode`` passes
+``min(pos, W - 1)``, under which this causal mask is the ring's.  ``pos``
+must be >= 0, and (H / Kh) * dh may be at most 2048.
 
 Cache shards: a cache whose S axis is sharded over a mesh holds, on each
 shard, rows ``k_offset .. k_offset + S - 1``; the kernel masks row j as key
@@ -37,7 +40,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .flash_attention import HEAD_DIMS
+from .flash_attention import with_padded_head_dim
 from .ref import decode_attention_ref
 
 CHUNK = 64          # DA_CH of csrc/decode_attention.cu: rows of a tile
@@ -53,12 +56,14 @@ _slots: dict[tuple, int] = {}
 
 def decode_attention_plain(q, cache_k, cache_v, pos, *, window: int = 0,
                            softcap: float = 0.0, k_offset: int = 0,
-                           return_lse: bool = False):
+                           return_lse: bool = False,
+                           scale: float | None = None):
     """The kernel's function in plain PyTorch (fp32 math, q's dtype; the
-    log-sum-exp fp32)."""
+    log-sum-exp fp32); scores scaled by ``scale``, dh ** -0.5 by
+    default."""
     out = decode_attention_ref(q, cache_k, cache_v, pos, window=window,
                                softcap=softcap, k_offset=k_offset,
-                               return_lse=return_lse)
+                               return_lse=return_lse, scale=scale)
     if return_lse:
         return out[0].to(q.dtype), out[1]
     return out.to(q.dtype)
@@ -133,15 +138,23 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                                       window=window, softcap=softcap,
                                       k_offset=k_offset,
                                       return_lse=return_lse)
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {dh} not in "
-                         f"{HEAD_DIMS}")
-    code = _build.attention_operands("decode_attention", q=q, k=cache_k,
-                                     v=cache_v)
     if pos.device != q.device or pos.dtype != torch.int32:
         raise TypeError(f"decode_attention: pos must be int32 on {q.device}, "
                         f"got {pos.dtype} on {pos.device}")
-    pos = pos.contiguous()
+    return with_padded_head_dim(_launch, q, cache_k, cache_v,
+                                pos.contiguous(), window=window,
+                                softcap=softcap, k_offset=k_offset,
+                                return_lse=return_lse)
+
+
+def _launch(q, cache_k, cache_v, pos, *, window: int, softcap: float,
+            k_offset: int, return_lse: bool, scale: float):
+    """One launch of csrc/decode_attention.cu (counted), at a head dim it
+    is built at."""
+    b, h, dh = q.shape
+    s, kh = cache_k.shape[1], cache_k.shape[2]
+    code = _build.attention_operands("decode_attention", q=q, k=cache_k,
+                                     v=cache_v)
     lib = _build.load("decode_attention", _SIGNATURES)
     plan = launch_plan(b, s, h, kh, dh,
                        _resident_blocks(lib, q.device, code, h, kh, dh))
@@ -156,7 +169,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
             pos.data_ptr(), out.data_ptr(),
             lse.data_ptr() if return_lse else None, ws.data_ptr(),
             tickets.data_ptr(), b, s, h, kh, dh, plan.splits,
-            plan.split_tiles, int(window), int(k_offset), dh ** -0.5,
+            plan.split_tiles, int(window), int(k_offset), float(scale),
             float(softcap), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "decode_attention")
     decode_attention.launches += 1

@@ -5,10 +5,12 @@ with the Pallas kernel's online softmax in fp32, an optional sliding
 ``window`` and tanh ``softcap``, whole KV tiles past the diagonal skipped.
 bf16 runs on the tensor cores (``mma.sync``, 128-row query tiles, 64-key
 K/V tiles); fp32 on the fp32 CUDA cores (64-row tiles), an exact fp32
-result.  Any T and S (the Pallas wrapper needs T % 256 == 0); the head dims
-of ``HEAD_DIMS``, those the configs use.  The source's header note says
-which Pallas kernel it replaces, what bounds it on the H100 and how its
-design answers that.
+result.  Any T and S (the Pallas wrapper needs T % 256 == 0); the kernel
+is built at the head dims of ``HEAD_DIMS``, those the full configs use, and
+any narrower head dim runs zero-padded to the next of them
+(``with_padded_head_dim``, the scale kept the unpadded dh's).  The
+source's header note says which Pallas kernel it replaces, what bounds it
+on the H100 and how its design answers that.
 
 ``q_offset`` is the position of q's first row: a shard of a sequence
 sharded over a mesh axis holds rows ``q_offset .. q_offset + T - 1`` against
@@ -61,10 +63,40 @@ def _shapes(q, k, v):
 
 
 def flash_attention_plain(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                          q_offset: int = 0) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (fp32 math, q's dtype)."""
+                          q_offset: int = 0,
+                          scale: float | None = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (fp32 math, q's dtype);
+    scores scaled by ``scale``, dh ** -0.5 by default."""
     return flash_attention_ref(q, k, v, window=window, softcap=softcap,
-                               q_offset=q_offset).to(q.dtype)
+                               q_offset=q_offset, scale=scale).to(q.dtype)
+
+
+def padded_head_dim(dh: int) -> int:
+    """The narrowest head dim the kernels are built at that holds dh."""
+    for d in HEAD_DIMS:
+        if d >= dh:
+            return d
+    raise ValueError(f"head dim {dh} above the widest built, {HEAD_DIMS[-1]}")
+
+
+def with_padded_head_dim(fn, q, k, v, *rest, **kw):
+    """``fn(q, k, v, *rest, scale=dh ** -0.5, **kw)`` at a head dim the
+    kernels are built at: q, k and v zero-padded along dh to
+    ``padded_head_dim(dh)`` and the output sliced back to dh (the first
+    of a tuple; a log-sum-exp beside it is the unpadded one).  A zero
+    column adds nothing to any q . k, and the padded output columns are
+    sums of p x 0; the scale stays the unpadded dh's, or every score would
+    be off by sqrt(padded / dh).  The padding copies q, k and v, a KV cache
+    included, on every call."""
+    dh = q.shape[-1]
+    wide = padded_head_dim(dh)
+    if wide == dh:
+        return fn(q, k, v, *rest, scale=dh ** -0.5, **kw)
+    pad = lambda t: torch.nn.functional.pad(t, (0, wide - dh))
+    out = fn(pad(q), pad(k), pad(v), *rest, scale=dh ** -0.5, **kw)
+    if isinstance(out, tuple):
+        return (out[0][..., :dh].contiguous(),) + out[1:]
+    return out[..., :dh].contiguous()
 
 
 FLASH_BWD_ROWS = 512   # query rows per block of the plain backward
@@ -72,17 +104,22 @@ FLASH_BWD_ROWS = 512   # query rows per block of the plain backward
 
 def _launch(q, k, v, window: int, softcap: float,
             q_offset: int = 0) -> torch.Tensor:
-    """One launch of csrc/flash_attention.cu (counted)."""
+    """One launch of csrc/flash_attention.cu (counted), at q's head dim
+    padded to one the kernel is built at."""
+    return with_padded_head_dim(_launch_built, q, k, v, window=window,
+                                softcap=softcap, q_offset=q_offset)
+
+
+def _launch_built(q, k, v, *, window: int, softcap: float, q_offset: int,
+                  scale: float) -> torch.Tensor:
     b, t, s, h, kh, dh = _shapes(q, k, v)
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
     code = _build.attention_operands("flash_attention", q=q, k=k, v=v)
     out = torch.empty_like(q)
     lib = _build.load("flash_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.carla_flash_attention(
             code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, s, h, kh, dh, int(window), int(q_offset), dh ** -0.5,
+            b, t, s, h, kh, dh, int(window), int(q_offset), float(scale),
             float(softcap),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention")

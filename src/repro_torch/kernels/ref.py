@@ -111,12 +111,14 @@ FLASH_REF_ROWS = 2048   # query rows the plain flash scores at once
 
 
 def flash_attention_ref(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0,
+                        scale: float | None = None) -> torch.Tensor:
     """Causal GQA attention.  q: (B, T, H, dh); k/v: (B, S, Kh, dh) -> fp32
     (B, T, H, dh).  Row t of q is position ``q_offset + t`` (a sequence
     shard's rows; 0 unsharded); key j is visible to it when j <= q_offset +
     t and, with a window, j > q_offset + t - window; scores are soft-capped
-    before the mask.  Each row's softmax is its own, so a long T is scored
+    before the mask, after ``scale`` (dh ** -0.5 by default).  Each row's
+    softmax is its own, so a long T is scored
     ``FLASH_REF_ROWS`` query rows at a time (the same math, a bounded (T, S)
     score block)."""
     t = q.shape[1]
@@ -126,12 +128,13 @@ def flash_attention_ref(q, k, v, *, window: int = 0, softcap: float = 0.0,
             _flash_rows(q[:, t0:t0 + FLASH_REF_ROWS],
                         k[:, :q_offset + t0 + FLASH_REF_ROWS],
                         v[:, :q_offset + t0 + FLASH_REF_ROWS],
-                        q_offset + t0, window, softcap)
+                        q_offset + t0, window, softcap, scale)
             for t0 in range(0, t, FLASH_REF_ROWS)], dim=1)
-    return _flash_rows(q, k, v, q_offset, window, softcap)
+    return _flash_rows(q, k, v, q_offset, window, softcap, scale)
 
 
-def _flash_rows(q, k, v, t0: int, window: int, softcap: float):
+def _flash_rows(q, k, v, t0: int, window: int, softcap: float,
+                scale: float | None = None):
     """Query rows t0 .. t0 + T - 1 of flash_attention_ref (q holds those
     rows, k/v the keys from 0)."""
     b, t, h, dh = q.shape
@@ -139,7 +142,7 @@ def _flash_rows(q, k, v, t0: int, window: int, softcap: float):
     qg = q.reshape(b, t, kh, h // kh, dh)
     with _exact_fp32(q):
         sc = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float())
-    sc = sc * dh ** -0.5
+    sc = sc * (dh ** -0.5 if scale is None else scale)
     if softcap and softcap > 0:
         sc = softcap * torch.tanh(sc / softcap)
     qpos = t0 + torch.arange(t, device=q.device)[:, None]
@@ -155,12 +158,14 @@ def _flash_rows(q, k, v, t0: int, window: int, softcap: float):
 
 def decode_attention_ref(q, cache_k, cache_v, pos, *, window: int = 0,
                          softcap: float = 0.0, k_offset: int = 0,
-                         return_lse: bool = False):
+                         return_lse: bool = False,
+                         scale: float | None = None):
     """One query per sequence against its cache.  q: (B, H, dh); cache:
     (B, S, Kh, dh); pos: (B,) int -> fp32 (B, H, dh).  Cache row j holds
     key ``k_offset + j`` (a cache shard's rows; 0 unsharded); key i is
     visible to sequence b when i <= pos[b] and, with a window, i > pos[b] -
-    window; scores are soft-capped before the mask.  A sequence that sees no
+    window; scores are scaled by ``scale`` (dh ** -0.5 by default) and
+    soft-capped before the mask.  A sequence that sees no
     row gets a zero output.  With ``return_lse``, also each head's fp32
     log-sum-exp of its visible scores, (B, H) (-inf where none is
     visible)."""
@@ -169,7 +174,7 @@ def decode_attention_ref(q, cache_k, cache_v, pos, *, window: int = 0,
     qg = q.reshape(b, kh, h // kh, dh)
     with _exact_fp32(q):
         sc = torch.einsum("bkgd,bskd->bkgs", qg.float(), cache_k.float())
-    sc = sc * dh ** -0.5
+    sc = sc * (dh ** -0.5 if scale is None else scale)
     if softcap and softcap > 0:
         sc = softcap * torch.tanh(sc / softcap)
     kpos = k_offset + torch.arange(s, device=q.device)[None, :]

@@ -58,6 +58,8 @@ from .. import perf
 PEAK_FLOPS = 989e12          # dense bf16, per device
 HBM_BW = 3.35e12             # bytes/s per device
 NVLINK_BW = 450e9            # bytes/s per device, each way
+# apart from repro's experiments/dryrun, whose records have the same names
+DEFAULT_OUT = os.path.join("experiments", "dryrun_torch")
 
 
 _MODE_FLAGS = ("bf16_attn_io", "rwkv_chunked", "bf16_moe_dispatch",
@@ -211,7 +213,7 @@ def main(argv=None):
     ap.add_argument("--mesh", choices=["single", "multi", "both"],
                     default="single")
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--optimizer", default=None)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced configs and shapes on the production "

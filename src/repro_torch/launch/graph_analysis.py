@@ -18,7 +18,9 @@ and backward, count T times (``GraphCounter.repeated``), as ``repro``
 counts its ``lax.scan``; tracing 32768 steps a layer would take hours under
 ``FakeTensorMode``.  The folded count equals the unrolled one
 (``fold_loops=False``) in FLOPs, bytes and ops for a forward; the peak of
-live bytes is the folded trace's own.
+live bytes adds what the T - 1 untraced steps would leave alive (their
+tensors saved for the backward, their slices of the output), as XLA's
+``memory_analysis()`` counts what ``lax.scan`` stacks.
 
 Conventions (per device, local shard shapes; ``repro``'s):
   * FLOPs: ``mm``/``bmm``/``addmm``/``baddbmm`` = 2 * prod(result) *
@@ -113,14 +115,40 @@ class GraphCounter(TorchDispatchMode):
 
     @contextlib.contextmanager
     def repeated(self, n: int):
-        """The ops inside the block count n times (the peak of live
-        bytes as traced)."""
+        """The ops inside the block count n times.  The block yields
+        ``resident(*kept, during_bytes=0)``: ``kept`` are the tensors each
+        of the n steps leaves alive after it ends (its tensors saved for
+        the backward, its slice of the stacked output), so the n - 1 steps
+        not traced hold as many bytes again each, from the block's end
+        until the tensors are freed; ``during_bytes`` are bytes the
+        untraced steps hold only while the block runs (the carry of the
+        step before the last).  The peak is the traced step's own on top
+        of both: the unrolled loop's last step."""
         outer = self.cost
-        self.cost = GraphCost(peak_live_bytes=outer.peak_live_bytes)
+        # the block's own peak, from the bytes live when it starts
+        self.cost = GraphCost(peak_live_bytes=self._live)
+        kept, beside = {}, 0
+
+        def resident(*tensors, during_bytes: int = 0):
+            nonlocal beside
+            for t in tensors:
+                base = t if t._base is None else t._base
+                kept[id(base)] = base
+            beside += during_bytes
+
         try:
-            yield
+            yield resident
         finally:
-            self.cost = outer + self.cost.scale(n)
+            extra = 0
+            for t in kept.values():
+                n_bytes = (n - 1) * t.numel() * t.element_size()
+                extra += n_bytes
+                weakref.finalize(t, self._free, n_bytes)
+            self._live += extra
+            inner = self.cost
+            inner.peak_live_bytes = max(
+                inner.peak_live_bytes + extra + beside, self._live)
+            self.cost = outer + inner.scale(n)
 
     # DTensor's shape propagation runs the op at global shapes: not counted
     def __enter__(self):

@@ -10,9 +10,9 @@ its structured-sparse twin, whose pruned channel counts are new keys — it
   1. takes the candidate plans of ``core.autotune`` (every tile and split
      count the planner weighs, ranked by its latency model; for 1x1 layers
      both stationarities), the analytic plan among them;
-  2. times each on the card with CUDA events from a cold L2 cache (before
-     each call the stream sleeps and a 64 MB memset flushes the 50 MB L2, as
-     ``chip_smoke.py`` times every kernel), in ``ROUNDS`` interleaved rounds;
+  2. times each on the card with CUDA events from a cold L2 cache
+     (``bench.timer``, the timer of ``chip_smoke.py`` and the bench
+     record), in ``ROUNDS`` interleaved rounds;
   3. holds each candidate's output to the kernel's plain version on the same
      operands, within ``chip_smoke.py``'s tolerance (fp32 2e-4 x sqrt(R);
      bf16 max(2e-2 x sqrt(R), 2^-7 x max|plain|)); a candidate that misses
@@ -44,6 +44,7 @@ import statistics
 
 import torch
 
+from ..bench.timer import cold_time_ms, cold_times_ms, flush_buffer
 from ..core import autotune, networks
 from ..core.autotune import Entry, TileConfig
 from ..kernels import conv2d as _conv2d
@@ -51,10 +52,9 @@ from ..kernels import matmul as _mm
 from ..models.convert import resolve_device
 
 ROUNDS = 3          # interleaved timing rounds per candidate
-REPS = 5            # cold calls averaged in one round
+REPS = 5            # cold calls averaged in one round (timed per plan by
+                    # collect_tuning_delta)
 CANDIDATES = 6      # candidate plans timed per layer, the analytic one first
-SLEEP_CYCLES = 1_000_000     # ~0.5 ms of device time at H100 clocks
-FLUSH_BYTES = 64 * 2 ** 20   # more than the H100's 50 MB L2
 NETS = ("resnet50", "vgg16", "smoke")
 
 
@@ -104,25 +104,6 @@ def candidates(layer, n_sms: int,
         padding=layer.Z, n_sms=n_sms, max_candidates=max_candidates)
 
 
-def cold_time_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
-    """Mean device time of fn() from a cold L2 cache: before each call the
-    stream sleeps and then overwrites ``flush`` (more than the L2), and the
-    host enqueues the events and the call while the device still sleeps,
-    so the events time the device's work, not the host's launch."""
-    fn()
-    torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    for s, e in zip(starts, ends):
-        torch.cuda._sleep(SLEEP_CYCLES)
-        flush.zero_()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / reps
-
-
 def tolerance(want: torch.Tensor, reduction: int) -> float:
     """``chip_smoke.py``'s kernel-vs-plain tolerance."""
     if want.dtype != torch.bfloat16:
@@ -170,7 +151,8 @@ def tune_layer(layer, flush: torch.Tensor, gen: torch.Generator,
     timed = [r for r in recs if r["ok"]]
     for _ in range(ROUNDS):
         for r in timed:
-            r["rounds"].append(cold_time_ms(lambda: run(r["config"]), flush))
+            r["rounds"].append(cold_time_ms(lambda: run(r["config"]), flush,
+                                            REPS))
     best = choose(recs)
     entry = Entry(config=best["config"], source="cache",
                   tuned_ms=best["ms"], default_ms=analytic["ms"])
@@ -201,7 +183,7 @@ def tune_layers(layers, *, seed: int = 0,
                 log=None) -> tuple[dict[str, Entry], dict[str, list]]:
     """Tune every unique key of ``layers``: (entries, candidate records),
     operands drawn from ``seed``."""
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = flush_buffer()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     entries, records = {}, {}
     for layer in layers:
@@ -209,6 +191,50 @@ def tune_layers(layers, *, seed: int = 0,
         if key not in entries:
             entries[key], records[key] = tune_layer(layer, flush, gen, log)
     return entries, records
+
+
+def collect_tuning_delta(net: str, *, reps: int = REPS, layers=None,
+                         seed: int = 3) -> dict:
+    """Tuned against default plan, per unique key of ``net``'s layers
+    (``layers`` overrides them, e.g. the structured-sparse twin's): for each
+    key the tuning cache resolves (committed tables and the user cache),
+    the median cold-L2 device time of ``reps`` calls under its tuned plan
+    and under the analytic plan, on operands drawn from ``seed``; a key
+    with no entry is listed untimed, so a gap in the tables shows.  The
+    section ``bench.check_regression.check_tuning`` gates on.  Needs the
+    card: without one it raises."""
+    resolve_device("cuda")
+    if layers is None:
+        layers = net_layers(net)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flush = flush_buffer()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    seen, out = set(), []
+    for layer in layers:
+        key = layer_key(layer)
+        if key in seen:
+            continue
+        seen.add(key)
+        entry = autotune.lookup(key)
+        if entry is None:
+            out.append({"layer": layer.name, "key": key, "tuned": False})
+            continue
+        run, _, _ = _operands(layer, gen)
+        default = candidates(layer, n_sms, max_candidates=1)[0]
+        time_ms = lambda cfg: statistics.median(
+            cold_times_ms(lambda: run(cfg), flush, reps))
+        default_ms, tuned_ms = time_ms(default), time_ms(entry.config)
+        out.append({
+            "layer": layer.name, "key": key, "tuned": True,
+            "tile_config": entry.config.short,
+            "tuning_source": entry.source,
+            "default_ms": default_ms, "tuned_ms": tuned_ms,
+            "speedup": default_ms / max(tuned_ms, 1e-9)})
+    timed = [e for e in out if e["tuned"]]
+    return {"impl": "cuda", "timer": "cuda_event_cold_l2", "layers": out,
+            "keys_timed": len(timed), "keys_missing": len(out) - len(timed),
+            "total_default_ms": sum(e["default_ms"] for e in timed),
+            "total_tuned_ms": sum(e["tuned_ms"] for e in timed)}
 
 
 def table_name(net: str) -> str:

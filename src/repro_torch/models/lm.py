@@ -36,8 +36,9 @@ Training (``forward_train``, ``loss_fn``) differentiates with autograd.  The
 flash and conv1d wrappers are autograd Functions (the kernels forward, the
 plain versions' gradients backward), so ``impl="cuda"``/``"auto"`` on the card
 trains through the kernels.  With ``cfg.remat`` every group runs under
-``torch.utils.checkpoint`` (``repro``'s ``jax.checkpoint`` of the scanned
-group body), so its forward runs again in the backward; the cross-entropy
+``torch.utils.checkpoint`` (``loops.checkpoint``; ``repro``'s
+``jax.checkpoint`` of the scanned group body), so its forward runs again
+in the backward; the cross-entropy
 goes by ``cfg.loss_chunk`` positions, each chunk checkpointed, its logits in
 fp32.  Training takes the fp32 masters alone: params holding compute copies
 raise, since gradients would land on the copies.
@@ -58,7 +59,6 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from .. import perf
 from . import attention as attn_mod
@@ -80,6 +80,7 @@ from .layers import (
     softcap,
     table,
 )
+from .loops import checkpoint
 
 Params = Any
 COMPUTE_DTYPE = torch.bfloat16   # activations and KV caches
@@ -372,7 +373,7 @@ def forward_train(cfg: ModelConfig, params: Params, batch, *,
     remat = cfg.remat and torch.is_grad_enabled()
     for g in range(cfg.n_groups):
         if remat:
-            x, aux = checkpoint(group_body, x, aux, g, use_reentrant=False)
+            x, aux = checkpoint(group_body, x, aux, g)
         else:
             x, aux = group_body(x, aux, g)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -407,8 +408,7 @@ def loss_fn(cfg: ModelConfig, params: Params, batch, *, impl: str = "auto",
         hc = h[:, i0:min(i0 + chunk, end)]
         lc = labels[:, i0:min(i0 + chunk, end)]
         if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, cfg, params, hc, lc,
-                                       use_reentrant=False)
+            total = total + checkpoint(_chunk_nll, cfg, params, hc, lc)
         else:
             total = total + _chunk_nll(cfg, params, hc, lc)
     b *= hints.batch_shards()

@@ -21,6 +21,7 @@ import contextlib
 import contextvars
 
 import torch
+import torch.utils.checkpoint
 
 _FOLD: contextvars.ContextVar = contextvars.ContextVar("fold", default=None)
 
@@ -58,6 +59,36 @@ def scan(step, carry, xs: tuple, consts: tuple = ()):
     return carry, y.unsqueeze(1).expand(shape).contiguous()
 
 
+_CHECKPOINTED: contextvars.ContextVar = contextvars.ContextVar(
+    "checkpointed", default=False)
+
+
+def checkpoint(fn, *args):
+    """``torch.utils.checkpoint.checkpoint(fn, *args)``, non-reentrant, with
+    the region marked for ``scan``: in its forward and in its backward's
+    recomputation ``checkpointed()`` is true.  A folded step counts what it
+    saves for the backward only while a checkpointed region's backward runs
+    (the forward drops it); a region checkpointed by another route counts
+    as not checkpointed, its saved tensors in the forward too (an upper
+    bound)."""
+
+    def marked(*a):
+        tok = _CHECKPOINTED.set(True)
+        try:
+            return fn(*a)
+        finally:
+            _CHECKPOINTED.reset(tok)
+
+    return torch.utils.checkpoint.checkpoint(marked, *args,
+                                             use_reentrant=False)
+
+
+def checkpointed() -> bool:
+    """Whether the call runs inside ``checkpoint``'s region, its forward or
+    its backward's recomputation."""
+    return _CHECKPOINTED.get()
+
+
 class _Folded(torch.autograd.Function):
     """One step counted n times, forward and backward."""
 
@@ -65,18 +96,52 @@ class _Folded(torch.autograd.Function):
     def forward(ctx, n, repeat, step, n_consts, *args):
         ctx.set_materialize_grads(False)
         ctx.n_consts = n_consts
+        in_checkpoint = checkpointed()
+        saved = []
+
+        def pack(t):
+            saved.append(t)
+            return t
+
         # the step's own graph keeps its tensors (an outer checkpoint's
         # hooks must not pack them)
         with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
-                lambda t: t, lambda t: t):
+                pack, lambda t: t):
             ins = [a.detach().requires_grad_(a.requires_grad) for a in args]
             # a carry inside the loop depends on the steps before it
             ins[0].requires_grad_(any(a.requires_grad for a in args))
             ctx.carry_needs_grad = args[0].requires_grad
-            with repeat(n):
-                outs = step(*ins)
-        ctx.n, ctx.repeat, ctx.ins, ctx.outs = n, repeat, ins, outs
-        return tuple(o.detach() for o in outs)
+            with repeat(n) as resident:
+                carry, y = step(*ins)
+                y_out = y.detach()
+                # what each unrolled step leaves alive: its output slice
+                # until the stack is made, the tensors its backward saved
+                # (not the loop's own slices of xs and constants) and its
+                # carry, which the next step saves
+                ins_ids = {id(a) for a in ins}
+                kept = {id(b): b for b in (
+                    t if t._base is None else t._base for t in saved)
+                    if id(b) not in ins_ids}
+                if carry.requires_grad:
+                    kept[id(carry)] = carry
+                ctx.step_bytes = sum(t.numel() * t.element_size()
+                                     for t in kept.values())
+                # a checkpointed forward keeps none of them (the backward
+                # recomputes them), nor does a forward without a backward:
+                # then the last step runs beside the carry of the step
+                # before it
+                ctx.checkpointed = in_checkpoint and carry.requires_grad
+                if carry.requires_grad and not in_checkpoint:
+                    resident(y_out, *kept.values())
+                else:
+                    resident(y_out, during_bytes=carry.numel()
+                             * carry.element_size())
+        ctx.n, ctx.repeat, ctx.ins, ctx.outs = n, repeat, ins, (carry, y)
+        carry_out = carry.detach()
+        # a detached view shares its tensor's storage: keep the tensors the
+        # counter tracks alive as long as the views the loop returns
+        carry_out._traced, y_out._traced = carry, y
+        return carry_out, y_out
 
     @staticmethod
     def backward(ctx, carry_grad, y_grad):
@@ -90,7 +155,12 @@ class _Folded(torch.autograd.Function):
         want = [t for t in ctx.ins if t.requires_grad]
         got = [None] * len(want)
         if pairs and want:
-            with ctx.repeat(ctx.n):
+            with ctx.repeat(ctx.n) as resident:
+                if ctx.checkpointed:
+                    # the checkpoint recomputed the n steps for this
+                    # backward: the n - 1 untraced ones hold their saved
+                    # tensors while it runs
+                    resident(during_bytes=(ctx.n - 1) * ctx.step_bytes)
                 got = torch.autograd.grad(
                     [o for o, _ in pairs], want, [g for _, g in pairs],
                     allow_unused=True)

@@ -129,17 +129,30 @@ def test_constrain_tokens_shards_batch_and_sequence(mesh16):
 
 
 # ------------------------------------------- folded per-token recurrences --
-def _wkv_cost(fold: bool, grad: bool):
-    from repro_torch.models import ssm
-    b, t, h, d = 2, 24, 4, 16
+def _wkv_cost(fold: bool, grad: bool, t: int = 24, *,
+              backward: bool | None = None, checkpointed: bool = False,
+              marks: list | None = None):
+    """The counter's cost of the per-token WKV at T t; ``grad``: its inputs
+    need gradients, and unless ``backward`` is False it runs the backward;
+    ``checkpointed``: under ``loops.checkpoint``, each of its runs
+    appending ``loops.checkpointed()`` to ``marks``."""
+    from repro_torch.models import loops, ssm
+    b, h, d = 2, 4, 16
+    marks = [] if marks is None else marks
+
+    def wkv(*a):
+        marks.append(loops.checkpointed())
+        return ssm._wkv_recurrent(*a)
+
     with FakeTensorMode():
         args = [torch.empty(b, t, h, d).requires_grad_(grad)
                 for _ in range(4)]
         u = torch.empty(h, d).requires_grad_(grad)
         s0 = torch.empty(b, h, d, d).requires_grad_(grad)
         with GraphCounter(fold_loops=fold) as c:
-            out, s = ssm._wkv_recurrent(*args, u, s0)
-            if grad:
+            out, s = (loops.checkpoint(wkv, *args, u, s0) if checkpointed
+                      else wkv(*args, u, s0))
+            if grad and backward is not False:
                 torch.autograd.grad((out.sum(), s.sum()), args + [u, s0])
     assert tuple(out.shape) == (b, t, h, d) and tuple(s.shape) == (b, h, d, d)
     return c.cost
@@ -151,6 +164,8 @@ def test_folded_wkv_counts_the_unrolled_loop():
     folded, unrolled = _wkv_cost(True, False), _wkv_cost(False, False)
     for f in ("flops", "bytes", "collective_bytes", "ops"):
         assert getattr(folded, f) == getattr(unrolled, f), f
+    assert abs(folded.peak_live_bytes - unrolled.peak_live_bytes) \
+        <= PEAK_TOL * unrolled.peak_live_bytes
 
 
 def test_folded_wkv_backward_is_within_a_percent():
@@ -162,6 +177,26 @@ def test_folded_wkv_backward_is_within_a_percent():
     for f in ("flops", "bytes", "ops"):
         u = getattr(unrolled, f)
         assert abs(getattr(folded, f) - u) <= 0.01 * u, f
+    assert abs(folded.peak_live_bytes - unrolled.peak_live_bytes) \
+        <= PEAK_TOL * unrolled.peak_live_bytes
+
+
+# The folded peak of live bytes against the unrolled loop's: the T - 1
+# untraced steps' saved tensors, output slices and carries count toward it
+# (``GraphCounter.repeated``); the backward's scatter of the sliced inputs'
+# gradients differs from the loop's stack (``models.loops``), so within 10 %.
+PEAK_TOL = 0.10
+
+
+@pytest.mark.parametrize("t", [24, 96])
+@pytest.mark.parametrize("grad", [False, True])
+def test_folded_wkv_peak_live_bytes_is_the_unrolled_loops(t, grad):
+    """The folded step's peak of live bytes grows with T as the unrolled
+    loop's does, forward only and with the backward."""
+    folded, unrolled = _wkv_cost(True, grad, t), _wkv_cost(False, grad, t)
+    assert abs(folded.peak_live_bytes - unrolled.peak_live_bytes) \
+        <= PEAK_TOL * unrolled.peak_live_bytes, \
+        (folded.peak_live_bytes, unrolled.peak_live_bytes)
 
 
 def _rwkv_cell_cost(kind: str, fold: bool):
@@ -177,16 +212,18 @@ def _rwkv_cell_cost(kind: str, fold: bool):
         mp.setattr(graph_analysis.GraphCounter, "__init__",
                    lambda self, fold_loops=True: real(self, fold))
         mesh = make_production_mesh(device_type="cpu")
-        return dryrun._trace_cell(cfg, shape, mesh, "adamw", "rwkv6-1.6b",
-                                  "short", False)["hlo"]
+        rec = dryrun._trace_cell(cfg, shape, mesh, "adamw", "rwkv6-1.6b",
+                                 "short", False)
+    return {**rec["hlo"], "temp_bytes": rec["memory"]["temp_bytes"]}
 
 
 def test_folded_rwkv_prefill_cell_counts_the_unrolled_cell():
     """rwkv6's sharded prefill under the baseline (the per-token WKV) at T
-    64 on the 16x16 mesh: the folded count is the unrolled count."""
+    64 on the 16x16 mesh: the folded count is the unrolled count, its peak
+    of live bytes too."""
     folded, unrolled = (_rwkv_cell_cost("prefill", f) for f in (True, False))
     for f in ("flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev",
-              "ops_per_dev"):
+              "ops_per_dev", "temp_bytes"):
         assert folded[f] == unrolled[f], f
 
 
@@ -200,3 +237,34 @@ def test_folded_rwkv_train_cell_counts_the_unrolled_cell():
         assert abs(folded[f] - unrolled[f]) <= 0.01 * unrolled[f], f
     assert folded["collective_bytes_per_dev"] == \
         unrolled["collective_bytes_per_dev"]
+
+
+@pytest.mark.parametrize("t", [24, 96])
+def test_folded_wkv_under_checkpoint_counts_saved_bytes_in_its_backward(t):
+    """Under ``loops.checkpoint`` (the remat of ``models.lm``) the folded
+    step's forward keeps none of the T - 1 untraced steps' saved tensors:
+    its peak is at most two steps' worth above the forward without
+    gradients.  Its backward holds them all, as the loop's backward without
+    a checkpoint does: within ``PEAK_TOL`` of the unrolled count.  The
+    region is marked in its forward and nowhere outside it."""
+    from repro_torch.models import loops
+    marks = []
+    ck_fwd = _wkv_cost(True, True, t, backward=False, checkpointed=True,
+                       marks=marks).peak_live_bytes
+    ck_bwd = _wkv_cost(True, True, t, checkpointed=True,
+                       marks=marks).peak_live_bytes
+    assert marks and all(marks) and not loops.checkpointed()
+    no_grad = _wkv_cost(True, False, t).peak_live_bytes
+    grad_fwd = _wkv_cost(True, True, t, backward=False).peak_live_bytes
+    step = (grad_fwd - no_grad) / (t - 1)       # one step's saved bytes
+    assert no_grad <= ck_fwd <= no_grad + 2 * step, (ck_fwd, no_grad, step)
+    unrolled = _wkv_cost(False, True, t).peak_live_bytes
+    assert abs(ck_bwd - unrolled) <= PEAK_TOL * unrolled, (ck_bwd, unrolled)
+
+
+def test_checkpoint_marks_the_recomputation_too():
+    """``loops.checkpoint``'s backward runs the region again with the mark
+    on (an unrolled loop saves tensors, so its backward recomputes)."""
+    marks = []
+    _wkv_cost(False, True, 4, checkpointed=True, marks=marks)
+    assert marks == [True, True]
