@@ -34,14 +34,22 @@ printing one JSON line:
              linear cache (inside a tile, across tiles and splits) and
              rings (pos before the ring fills, on its last slot, wrapped;
              the kernel given min(pos, W - 1)), FL 2-4, odd C, strided
-             input; dh 20, padded to 64 in the wrappers), and at the other
+             input; dh 20, padded to 64 in the wrappers; the paths no
+             config has: conv1d at FL 1, 5, 7 and 9 (odd C, strided and
+             contiguous x) and flash and decode at dh 272, 384, 512 and
+             1024 (the wide kernels: GQA, windows, soft-caps, query and key
+             offsets, a position per row, rings, the log-sum-exp, a cache
+             of one row)), and at the other
              LM paths' main-path shapes: mixtral's
              prefill flash (T 5120 past its window of 4096), decode at the
              mixtral, scheduler (B 4, a position per row) and gemma2
              serving shapes, rwkv6's token shifts in prefill and decode
              (FL 2, C 2048); fp32 and bf16.  Every case runs twice and must
              give the same bits (for decode: the combine's fixed order, the
-             ticket counters' reset).
+             ticket counters' reset), and its first call must add one to
+             its kernel's launch counter.  Decode's log-sum-exp within 1e-4
+             x max(1, |plain|) of the plain version's (-inf where no row is
+             visible, on both sides).
              Tolerance:
              attention fp32 1e-4 (unit-normal inputs, as
              tests/test_kernels.py); bf16 per output element 2^-6 x
@@ -176,6 +184,18 @@ printing one JSON line:
              cases; after it both are timed in bf16 beside the same
              launch on operands padded beforehand (the same bits
              required) and the pads alone: the padding's cost.
+   wide_paths — (after smollm_dh20) the paths no config has, served
+             through ``launch.serve`` as phase zamba2 (``serve_path``:
+             launches, the bf16 and fp32 logit gates, the three planted
+             faults), 2 x 64-token prompts, 16 out: gemma2-9b's smoke config
+             with 4 heads over 2 of dh 512 (the wide flash and decode
+             kernels; local layers on rings of 16, soft-cap 50), and
+             zamba2-2.7b's smoke config with d_conv 7 (conv1d's runtime-FL
+             kernel).  Then flash and decode at dh 512 (8 heads over 4, T
+             and S 2048) and conv1d at FL 7 (zamba2's prefill shape) in
+             bf16, cold L2, beside the bound, the plain version and SDPA /
+             depthwise F.conv1d, and the wide instances' registers and
+             spills.
    scheduler — ``serving.ContinuousBatcher`` on mixtral's weights: 4
              slots, 8 requests (prompts of 512-6144 tokens, budgets of 4-16,
              drawn from the seed); exact launches, each request admitted
@@ -306,7 +326,9 @@ The case lists, operands, costs and library calls are
 ``repro_torch.bench.kernel_bench``'s and the timer is ``bench.timer``'s (the
 kernel bench CLI times the same rows).
 
-7. the ``kernels`` line, the card, and the last line
+7. the ``kernels`` line (the six kernels at their main paths' shapes, and
+   the wide attention paths and conv1d at FL 7 at phase wide_paths' timed
+   shapes, launched by its served runs), the card, and the last line
    ``{"ok": true, "device": {...}}``.
 
 Per-case details go to ``chiprun_out/chip_smoke_cases.json``.  Any failed
@@ -344,9 +366,9 @@ from repro_torch.bench.kernel_bench import (  # noqa: E402
     SD_PROMPT, TS_BATCH, TS_SEQ, TZ_BATCH, TZ_SEQ, Z_BATCH, Z_GEN, Z_PROMPT,
     Kernels, conv1d_case, decode_case, decode_path_cases, dh20_cases,
     dh256_cases, epilogue_of, flash_case, kernel_pos, lm_kernel_cases,
-    lm_operands, lm_reduction, main_path_shapes, make_operands,
+    WIDE_DH, lm_operands, lm_reduction, main_path_shapes, make_operands,
     model_epilogue, peaks_for, time_cnn_call, time_lm_case, time_padding,
-    train_flash_cases)
+    train_flash_cases, wide_time_cases)
 from repro_torch.bench.timer import cold_time_ms, flush_buffer  # noqa: E402
 
 DEVICE = "cuda"
@@ -383,6 +405,9 @@ SHARD_SPLITS = (2, 4, 8)
 BEFORE_OFFSETS_MS = {"flash_attention": 0.3628, "decode_attention": 0.0503}
 # phase sharded: smollm-360m's sharded train steps (train_smollm's first)
 SH_TRAIN_STEPS = 3
+# wide_paths: gemma2's smoke config at head dim WIDE_DH and zamba2's at
+# d_conv WP_FL served at WP_BATCH x WP_PROMPT-token prompts, WP_GEN out
+WP_FL, WP_BATCH, WP_PROMPT, WP_GEN = 7, 2, 64, 16
 # LM paths: positions compared with the plain engine (the prefill's last
 # and the first decode steps'), host-clock runs timed
 LM_COMPARE, LM_TIMED = 8, 3
@@ -522,7 +547,21 @@ def _attn_tol(want: torch.Tensor, plain, args, kw: dict):
         return 1e-4
     a = [t.float() if t.is_floating_point() else t for t in args]
     a[2] = a[2].abs()                                  # v, or the V cache
+    kw = {k: v for k, v in kw.items() if k != "return_lse"}
     return 2.0 ** -6 * plain(*a, **kw)
+
+
+def _lse_err(got, want) -> float:
+    """Decode's log-sum-exp against the plain version's, relative to
+    max(1, |plain|); inf where one is -inf (no visible row) and the other
+    is not."""
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin):
+        return math.inf
+    if not fin.any():
+        return 0.0
+    return ((got[fin] - want[fin]).abs()
+            / want[fin].abs().clamp(min=1.0)).max().item()
 
 
 def _epilogue_combos():
@@ -942,20 +981,33 @@ def check_cnn_faults(kern, _build, libs: dict, calls: list, gen) -> dict:
 
 def check_lm_kernels(chk: Checker, lm_kernels: dict, gen) -> dict:
     """Every LM case, fp32 and bf16, against the plain version, and run
-    twice for the same bits."""
+    twice for the same bits; each call must launch its kernel once (its
+    counter), and a decode log-sum-exp must be within 1e-4 x max(1,
+    |plain|) of the plain one's."""
     for case in lm_kernel_cases():
         wrapper, plain = lm_kernels[case["kernel"]]
         for dtype in (torch.float32, torch.bfloat16):
             args, kw = lm_operands(case, dtype, gen)
+            before = wrapper.launches
             got, want = wrapper(*args, **kw), plain(*args, **kw)
+            launched = wrapper.launches - before
+            lse_err = None
+            if isinstance(got, tuple):
+                lse_err = _lse_err(got[1], want[1])
+                got, want = got[0], want[0]
             tol = (None if case["kernel"] == "conv1d_causal"
                    else _attn_tol(want, plain, args, kw))
             chk.add(case["kernel"], {**case, "dtype": str(dtype)[6:]}, got,
                     want, lm_reduction(case), tol)
-            same = torch.equal(got, wrapper(*args, **kw))
+            again = wrapper(*args, **kw)
+            same = torch.equal(got, again[0] if lse_err is not None
+                               else again)
             rec = chk.cases[-1]
-            rec.update(repeat_identical=same, ok=rec["ok"] and same)
-            del args, got, want
+            rec.update(repeat_identical=same, launches=launched,
+                       ok=rec["ok"] and same and launched == 1)
+            if lse_err is not None:
+                rec.update(lse_err=lse_err, ok=rec["ok"] and lse_err <= 1e-4)
+            del args, got, want, again
     torch.cuda.synchronize()
     summary = {}
     for kname in lm_kernels:
@@ -967,7 +1019,20 @@ def check_lm_kernels(chk: Checker, lm_kernels: dict, gen) -> dict:
             **{f"max_abs_err_{d}": max(c["max_abs_err"] for c in cs
                                        if c["dtype"] == d)
                for d in ("float32", "bfloat16")}}
+    # the paths no config has, apart
+    summary["wide_head_dims"] = _subset(chk, lambda c: c.get("dh", 0) > 256)
+    summary["any_fl"] = _subset(chk, lambda c: c["kernel"] == "conv1d_causal"
+                                and c["fl"] not in (2, 3, 4))
     return summary
+
+
+def _subset(chk: Checker, pick) -> dict:
+    cs = [c for c in chk.cases if pick(c)]
+    return {"cases": len(cs), "failed": sum(not c["ok"] for c in cs),
+            "launches": sum(c["launches"] for c in cs),
+            "max_err_over_tol": max(c["err_over_tol"] for c in cs),
+            "max_lse_err": max((c["lse_err"] for c in cs if "lse_err" in c),
+                               default=None)}
 
 
 def time_lm_kernels(lm_kernels: dict, peaks: dict, flush, gen) -> dict:
@@ -1377,14 +1442,14 @@ def serve_path(name: str, serve, lm, cfg, params, prompts: dict, gen: int,
     return rec
 
 
-def cut_model(lm, arch: str, n_layers: int):
-    """(config, parameters) of ``arch`` at full width with its depth cut to
-    n_layers: random fp32 weights from SEED on the card, with their bf16
-    compute copies."""
+def cut_model(lm, arch: str, *, smoke: bool = False, **changes):
+    """(config, parameters) of ``arch`` (its smoke config with ``smoke``)
+    with ``changes`` made (its depth cut by ``n_layers``): random fp32
+    weights from SEED on the card, with their bf16 compute copies."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.layers import with_compute_copies
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke), **changes)
     return cfg, with_compute_copies(lm.init_params(
         cfg, torch.Generator(device=DEVICE).manual_seed(SEED),
         device=DEVICE))
@@ -1398,7 +1463,7 @@ def run_gemma2(serve, lm, attn_mod, fa_mod, da_mod, counters: dict) -> dict:
     G_LAYERS decode launches per step; planted faults, half the window in
     the first of every two flash calls, and the decode kernel without its
     soft-cap."""
-    cfg, params = cut_model(lm, "gemma2-9b", G_LAYERS)
+    cfg, params = cut_model(lm, "gemma2-9b", n_layers=G_LAYERS)
     prompts = serve.make_prompts(cfg, 1, G_PROMPT, device=DEVICE, seed=SEED)
     faults = {k: v for k, v in planted_faults(attn_mod, fa_mod, da_mod,
                                               2).items()
@@ -1417,7 +1482,7 @@ def run_mixtral(serve, lm, attn_mod, counters: dict):
     flash launches per prefill and M_LAYERS decode launches per step;
     planted ring faults.  Returns the record, the config and the weights
     (the scheduler phase serves them too)."""
-    cfg, params = cut_model(lm, "mixtral-8x7b", M_LAYERS)
+    cfg, params = cut_model(lm, "mixtral-8x7b", n_layers=M_LAYERS)
     prompts = serve.make_prompts(cfg, M_BATCH, M_PROMPT, device=DEVICE,
                                  seed=SEED)
     rec = serve_path("mixtral", serve, lm, cfg, params, prompts, M_GEN,
@@ -1623,6 +1688,65 @@ def run_smollm_dh20(serve, lm, attn_mod, fa_mod, da_mod, counters: dict,
         raise SystemExit(f"smollm_dh20: {unequal} on operands padded "
                          "beforehand differ from the padding wrapper")
     return {**rec, "decode_lse_max_abs_err": lse_err, "times_bf16": times}
+
+
+def run_wide_paths(serve, lm, attn_mod, fa_mod, da_mod, counters: dict,
+                   lm_kernels: dict, peaks: dict, flush) -> dict:
+    """Phase wide_paths: the paths no config has, served through
+    ``launch.serve`` as phase zamba2 (``serve_path``).  gemma2-9b's smoke
+    config with 4 heads over 2 of dh WIDE_DH (the wide attention kernels,
+    unpadded; two local layers on rings of 16 slots, two global; soft-cap
+    50), WP_BATCH x WP_PROMPT-token prompts, WP_GEN tokens: a flash launch
+    per layer per prefill, a decode launch per layer per step.
+    zamba2-2.7b's smoke config with d_conv WP_FL (conv1d's runtime-FL
+    kernel): a conv1d launch per layer and a flash launch per group per
+    prefill, a decode launch per group per step.  Each with the three
+    faults of ``planted_faults``.  Then each of ``wide_time_cases`` in
+    bf16, cold L2, beside its bound, plain version and library call, and
+    the wide instances' registers and spills."""
+    from repro_torch.kernels import _build
+    g_cfg, g_params = cut_model(lm, "gemma2-9b", smoke=True,
+                                d_head=WIDE_DH)
+    prompts = serve.make_prompts(g_cfg, WP_BATCH, WP_PROMPT, device=DEVICE,
+                                 seed=SEED)
+    wide = serve_path(f"gemma2_smoke_dh{WIDE_DH}", serve, lm, g_cfg,
+                      g_params, prompts, WP_GEN, counters,
+                      {"flash_attention": g_cfg.n_layers},
+                      {"decode_attention": g_cfg.n_layers},
+                      planted_faults(attn_mod, fa_mod, da_mod,
+                                     g_cfg.n_layers))
+    del g_params
+    z_cfg, z_params = cut_model(lm, "zamba2-2.7b", smoke=True,
+                                d_conv=WP_FL)
+    prompts = serve.make_prompts(z_cfg, WP_BATCH, WP_PROMPT, device=DEVICE,
+                                 seed=SEED)
+    any_fl = serve_path(f"zamba2_smoke_fl{WP_FL}", serve, lm, z_cfg,
+                        z_params, prompts, WP_GEN, counters,
+                        {"conv1d_causal": z_cfg.n_layers,
+                         "flash_attention": z_cfg.n_groups},
+                        {"decode_attention": z_cfg.n_groups},
+                        planted_faults(attn_mod, fa_mod, da_mod,
+                                       z_cfg.n_groups))
+    del z_params
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    times = {}
+    for case in wide_time_cases():
+        kname = case["kernel"]
+        times[kname] = time_lm_case(*lm_kernels[kname], case, torch.bfloat16,
+                                    peaks, flush, gen, plain_reps=3)
+    ptx = {n: {**ptxas_instances(_build.build_log(n), "wide"),
+               **ptxas_instances(_build.build_log(n), "any")}
+           for n in ("flash_attention", "decode_attention", "conv1d")}
+    emit({"phase": "wide_paths",
+          "served": {r["phase"]: {f: r[f] for f in (
+              "launches_per_prefill", "launches_per_decode_step")}
+                     for r in (wide, any_fl)},
+          "ptxas": ptx,
+          "times_bf16": {k: {f: r[f] for f in (
+              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "max_abs_err")} for k, r in times.items()}})
+    return {"wide": wide, "any_fl": any_fl, "ptxas": ptx,
+            "times_bf16": times}
 
 
 def run_bench(baseline: Path) -> dict:
@@ -2524,7 +2648,7 @@ def run_perf_off(serve, lm, counters: dict, base: dict, smi: str) -> dict:
 
     t0 = time.perf_counter()
     with perf.baseline():
-        cfg, params = cut_model(lm, "gemma2-9b", G_LAYERS)
+        cfg, params = cut_model(lm, "gemma2-9b", n_layers=G_LAYERS)
         prompts = serve.make_prompts(cfg, 1, G_PROMPT, device=DEVICE,
                                      seed=SEED)
         rec = serve_path("perf_off gemma2", serve, lm, cfg, params, prompts,
@@ -2564,7 +2688,7 @@ def run_perf_off(serve, lm, counters: dict, base: dict, smi: str) -> dict:
     secs["rwkv6"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    cfg, params = cut_model(lm, "mixtral-8x7b", M_LAYERS)
+    cfg, params = cut_model(lm, "mixtral-8x7b", n_layers=M_LAYERS)
     prompts = serve.make_prompts(cfg, M_BATCH, M_PROMPT, device=DEVICE,
                                  seed=SEED)
     default, _ = lm.prefill(cfg, params, prompts, max_seq=M_PROMPT + M_GEN)
@@ -2850,6 +2974,11 @@ def main() -> int:
     smollm = run_smollm_dh20(serve, lm, attn_mod, fa_mod, da_mod, counters,
                              lm_kernels, peaks, flush)
     t0 = time.perf_counter()
+    wide = run_wide_paths(serve, lm, attn_mod, fa_mod, da_mod, counters,
+                          lm_kernels, peaks, flush)
+    emit({"phase": "wide_paths", "seconds": time.perf_counter() - t0})
+    free()
+    t0 = time.perf_counter()
     train_s = run_train_smollm(lm, fa_mod, counters, peaks)
     free()
     emit({"phase": "train_smollm", "seconds": time.perf_counter() - t0})
@@ -2870,7 +2999,7 @@ def main() -> int:
           "models": models, "zamba2": zamba2, "attn_dh256": dh256,
           "decode_paths": decode_paths, "gemma2": gemma2,
           "mixtral": mixtral, "scheduler": sched, "rwkv6": rwkv6,
-          "smollm_dh20": smollm, "bench": bench,
+          "smollm_dh20": smollm, "wide_paths": wide, "bench": bench,
           "tune": tuned, "report": table2, "train_kernels": train_k,
           "train_smollm": train_s, "train_zamba2": train_z,
           "shard_splits": splits, "sharded": sharded, "perf_off": perf_off})
@@ -2887,7 +3016,9 @@ def main() -> int:
     by_path["zamba2_prefill"] = zamba2["launches_per_prefill"]
     by_path["zamba2_decode"] = zamba2["launches_per_decode_step"]
     for p, r in (("gemma2", gemma2), ("mixtral", mixtral),
-                 ("rwkv6", rwkv6), ("smollm_dh20", smollm)):
+                 ("rwkv6", rwkv6), ("smollm_dh20", smollm),
+                 (f"gemma2_smoke_dh{WIDE_DH}", wide["wide"]),
+                 (f"zamba2_smoke_fl{WP_FL}", wide["any_fl"])):
         by_path[f"{p}_prefill"] = r["launches_per_prefill"]
         by_path[f"{p}_decode"] = r["launches_per_decode_step"]
     by_path["scheduler"] = sched["launches"]
@@ -2950,6 +3081,24 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err")} for n, r_ in decode_paths.items()}}
                if kname == "decode_attention" else {})})
+    # the paths no config has: the wide attention kernels (dh above 256)
+    # and conv1d's runtime-FL kernel, launched by phase wide_paths' served
+    # runs and timed at wide_time_cases
+    for kname, path, what in (
+            ("flash_attention", wide["wide"], f"wide head dim (dh {WIDE_DH})"),
+            ("decode_attention", wide["wide"],
+             f"wide head dim (dh {WIDE_DH})"),
+            ("conv1d_causal", wide["any_fl"], f"runtime FL (FL {WP_FL})")):
+        src, replaces = lm_sources[kname]
+        r = wide["times_bf16"][kname]
+        line.append({
+            "name": f"{kname} {what}", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": path["launches"][kname],
+            "launched_by": path["phase"],
+            **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            "shapes": "one call, bf16: " + json.dumps(
+                {k: v for k, v in r["case"].items() if k != "kernel"})})
     emit({"kernels": line})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,8 @@ and bf16: the three CNN kernels at every call of the batch-1 ResNet-50
 call with the model's epilogue), the three LM kernels at zamba2's serving
 shapes, decode at the mixtral, scheduler and gemma2 serving shapes,
 gemma2's head dim 256 and smollm-360m's smoke head dim 20 (padded to 64 in
-the wrapper).  Per row: the kernel's and its plain version's
+the wrapper), and the paths no config has: the wide attention kernels at
+dh 512 and conv1d at FL 7.  Per row: the kernel's and its plain version's
 (``kernels/ref.py``) cold-L2 device time (``bench.timer``), the max
 difference between the two, the library call's time, and the bound
 max(FLOPs / peak, bytes / bandwidth) with each input read once and each
@@ -232,16 +233,22 @@ def time_cnn_call(kern: Kernels, call: dict, dtype, flush, gen,
 
 
 # ------------------------------------------------------------- LM ------
-def flash_case(b, t, h, kh, dh, window=0, softcap=0.0) -> dict:
+def flash_case(b, t, h, kh, dh, window=0, softcap=0.0, q_offset=0) -> dict:
+    """q_offset: q's first row is that position; k and v hold the
+    q_offset + t keys it can see (a shard of a sharded sequence)."""
     return dict(kernel="flash_attention", b=b, t=t, h=h, kh=kh, dh=dh,
-                window=window, softcap=softcap)
+                window=window, softcap=softcap, q_offset=q_offset)
 
 
-def decode_case(b, s, h, kh, dh, pos, window=0, softcap=0.0, ring=0) -> dict:
+def decode_case(b, s, h, kh, dh, pos, window=0, softcap=0.0, ring=0,
+                k_offset=0, lse=False) -> dict:
     """pos: the model's position per sequence; a ring of ``ring`` slots
-    hands the kernel min(pos, ring - 1) (``kernel_pos``)."""
+    hands the kernel min(pos, ring - 1) (``kernel_pos``); the cache's row 0
+    is key ``k_offset`` (a shard of a sharded cache); ``lse``: the
+    log-sum-exp is returned too."""
     return dict(kernel="decode_attention", b=b, s=s, h=h, kh=kh, dh=dh,
-                pos=pos, window=window, softcap=softcap, ring=ring)
+                pos=pos, window=window, softcap=softcap, ring=ring,
+                k_offset=k_offset, lse=lse)
 
 
 def conv1d_case(b, t, c, fl, row=None, col0=0) -> dict:
@@ -307,7 +314,56 @@ def lm_kernel_cases() -> list[dict]:
         *train_flash_cases(),
         # smollm-360m's smoke config: dh 20, zero-padded to 64
         *dh20_cases(),
+        # filter lengths and head dims no config has
+        *any_fl_cases(), *wide_head_cases(),
     ]
+
+
+def any_fl_cases() -> list[dict]:
+    """conv1d at FL 1 (a template instance) and 5, 7 and 9 (the kernel that
+    takes FL at run time): odd C (one channel a thread), contiguous and
+    strided x, a run of 8 time steps cut short."""
+    c1 = conv1d_case
+    return [case for fl in (1, 5, 7, 9) for case in (
+        c1(2, 33, 131, fl), c1(3, 100, 1000, fl),
+        c1(2, 45, 64, fl, row=80, col0=8))]
+
+
+def wide_head_cases() -> list[dict]:
+    """Flash and decode at head dims above 256 (the wide kernels, dh a
+    runtime argument): dh 272, 384, 512 and 1024, each with GQA, a window,
+    a soft-cap and a query offset (flash), and a position per row, a
+    window over a linear cache, a ring before and after it wraps, a key
+    offset with the log-sum-exp and a cache of one row (decode); and dh
+    301."""
+    fa, da = flash_case, decode_case
+    out = []
+    for dh in (272, 384, 512, 1024):
+        out += [fa(1, 150, 4, 2, dh), fa(2, 77, 6, 3, dh, 40, 30.0),
+                fa(1, 100, 4, 1, dh, 0, 50.0, q_offset=37),
+                fa(1, 65, 2, 2, dh, 17, 0.0, q_offset=5),
+                da(3, 300, 8, 2, dh, (299, 0, 130)),
+                da(2, 1000, 6, 3, dh, (999, 511), window=100, softcap=20.0),
+                da(3, 200, 4, 1, dh, (37, 199, 1000), softcap=30.0,
+                   ring=200),
+                da(2, 200, 4, 2, dh, (300, 150), k_offset=100, lse=True),
+                da(1, 1, 2, 1, dh, (0,))]
+    # a row of 301 elements is no whole number of 16-byte pieces: flash
+    # copies its K/V tiles element by element
+    return out + [fa(1, 70, 4, 2, 301, 20, 30.0), fa(2, 33, 2, 1, 301),
+                  da(2, 90, 4, 2, 301, (89, 40), window=50)]
+
+
+WIDE_DH = 512   # the wide kernels' timed head dim
+
+
+def wide_time_cases() -> list[dict]:
+    """What the wide paths are timed at (no config has them): flash and
+    decode at dh WIDE_DH, 8 heads over 4, over 2048 positions (decode B 4
+    over the whole cache), and conv1d at FL 7 at zamba2's prefill shape."""
+    return [flash_case(1, 2048, 8, 4, WIDE_DH),
+            decode_case(4, 2048, 8, 4, WIDE_DH, (2047,) * 4),
+            conv1d_case(Z_BATCH, Z_PROMPT, 5248, 7, row=10368, col0=5120)]
 
 
 def train_flash_cases() -> list[dict]:
@@ -362,16 +418,23 @@ def lm_operands(case: dict, dtype, gen, pos=None):
     rn = lambda *s: torch.randn(s, device=gen.device, generator=gen)
     if case["kernel"] == "flash_attention":
         b, t, h, kh, dh = (case[k] for k in ("b", "t", "h", "kh", "dh"))
-        args = (rn(b, t, h, dh), rn(b, t, kh, dh), rn(b, t, kh, dh))
-        return (tuple(a.to(dtype) for a in args),
-                {"window": case["window"], "softcap": case["softcap"]})
+        s = t + case.get("q_offset", 0)
+        args = (rn(b, t, h, dh), rn(b, s, kh, dh), rn(b, s, kh, dh))
+        kw = {"window": case["window"], "softcap": case["softcap"]}
+        if case.get("q_offset"):
+            kw["q_offset"] = case["q_offset"]
+        return tuple(a.to(dtype) for a in args), kw
     if case["kernel"] == "decode_attention":
         b, s, h, kh, dh = (case[k] for k in ("b", "s", "h", "kh", "dh"))
         args = (rn(b, h, dh), rn(b, s, kh, dh), rn(b, s, kh, dh))
         p = torch.tensor(kernel_pos(case, pos or case["pos"]),
                          dtype=torch.int32, device=gen.device)
-        return (tuple(a.to(dtype) for a in args) + (p,),
-                {"window": case["window"], "softcap": case["softcap"]})
+        kw = {"window": case["window"], "softcap": case["softcap"]}
+        if case.get("k_offset"):
+            kw["k_offset"] = case["k_offset"]
+        if case.get("lse"):
+            kw["return_lse"] = True
+        return tuple(a.to(dtype) for a in args) + (p,), kw
     b, t, c, fl = (case[k] for k in ("b", "t", "c", "fl"))
     full = rn(b, t, case["row"]).to(dtype)
     return (full[..., case["col0"]:case["col0"] + c], rn(fl, c)), {}
@@ -379,7 +442,8 @@ def lm_operands(case: dict, dtype, gen, pos=None):
 
 def lm_cost(case: dict, dtype, pos) -> tuple[float, float]:
     """(FLOPs, bytes) of one call: each input read once, each output written
-    once; attention counts only the (query, key) pairs its mask lets in."""
+    once; attention counts only the (query, key) pairs its mask lets in
+    (timed cases have no query or key offset)."""
     es = torch.tensor([], dtype=dtype).element_size()
     if case["kernel"] == "flash_attention":
         t, w = case["t"], case["window"]
@@ -532,6 +596,8 @@ def bench_cases() -> list[tuple[str, dict, tuple | None]]:
     rows += [(n, c, None) for n, c in zip(DECODE_PATH_NAMES,
                                           decode_path_cases(), strict=True)]
     rows += [("smollm-360m smoke dh 20", c, None) for c in dh20_cases()]
+    rows += [(f"wide dh {WIDE_DH}" if c["kernel"] != "conv1d_causal"
+              else "zamba2, FL 7", c, None) for c in wide_time_cases()]
     return rows
 
 
@@ -580,6 +646,7 @@ def kernel_table(reps: int = REPS, seed: int = 0) -> tuple:
                             **time_lm_case(wrapper, plain, case, dtype,
                                            peaks, flush, gen, pos, reps)})
             if case["kernel"] != "conv1d_causal" \
+                    and case["dh"] < flash_attention.HEAD_DIMS[-1] \
                     and case["dh"] not in flash_attention.HEAD_DIMS:
                 records[-1]["padding"] = time_padding(case, dtype, flush,
                                                       gen, pos, reps)

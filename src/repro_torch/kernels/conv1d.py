@@ -4,8 +4,10 @@
 x[b, t-FL+1+r, c] * w[r, c]`` summed in fp32, stored in x's dtype.  x may be a
 strided view whose last dimension is contiguous (Mamba2 hands it a column
 slice of the in_proj output); w is read as fp32 whatever its dtype, as the
-Pallas kernel casts it.  The source's header note says which Pallas kernel it
-replaces, what bounds it on the H100 and how its design answers that.
+Pallas kernel casts it.  Any filter length FL >= 1: FL 1-4 run template
+instances (``FLS``), any other a kernel that takes FL at run time.  The
+source's header note says which Pallas kernel it replaces, what bounds it
+on the H100 and how its design answers that.
 
 ``conv1d_causal_plain`` is the plain PyTorch version of the same function.  A
 tensor on the CPU takes it; a CUDA tensor launches the kernel or raises.
@@ -27,7 +29,8 @@ import torch
 from . import _build
 from .ref import conv1d_causal_ref
 
-FLS = (2, 3, 4)     # filter lengths instantiated in csrc/conv1d.cu
+FLS = (1, 2, 3, 4)  # filter lengths csrc/conv1d.cu instantiates; any other
+                    # FL >= 1 runs its runtime-FL kernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"carla_conv1d_causal": [_I, _P, _P, _P] + [_I] * 7 + [_P]}
@@ -55,8 +58,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"on {x.device}, w on {w.device}")
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"conv1d_causal: dtype {x.dtype} not supported")
-    if fl not in FLS:
-        raise ValueError(f"conv1d_causal: FL = {fl}, the kernel takes {FLS}")
+    if fl < 1:
+        raise ValueError(f"conv1d_causal: FL = {fl}, the kernel takes FL >= 1")
     if x.stride(2) != 1:
         raise ValueError("conv1d_causal: x's channels must be contiguous")
     if (b - 1) * x.stride(0) + (t - 1) * x.stride(1) + c >= 2 ** 31 or \

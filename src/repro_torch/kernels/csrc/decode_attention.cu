@@ -87,6 +87,25 @@
 // than an SM has, so that instance (the fp32 wiring checks) streams through
 // a ring of one stage, 137,752 bytes at G = 2: a tile's copy then waits for
 // the last tile's readers and is not overlapped with its compute.
+//
+// Head dims above 256 (no config has one; the Pallas kernel takes any dh):
+// decode_wide_kernel, dh a runtime argument up to DA_WIDE_MAX_DH, fp32 and
+// bf16, on the CUDA cores, with the same splits, workspace, tickets and
+// combine as above and every option (a position per row, window, soft-cap,
+// rings through pos, k_offset, the log-sum-exp). A block owns one query
+// head of one split (grid (n_splits, H, B)), so a split's rows are read
+// once per head of the group, not once per kv head. Its DA_WIDE_WARPS
+// warps take groups of DA_WIDE_KEYS consecutive rows in turn, each warp
+// with its own running max, sum and fp32 output row: a lane holds dims
+// lane + 32 i (i < NJ; NJ 16, 32 and 64 take dh up to 512, 1024 and 2048)
+// of q and of the output, and reads the rows' K and V from device memory,
+// 32 neighbouring elements a load (a row is read by one warp only, so
+// shared memory would only stage it). A score is the lanes' partial
+// products summed by shuffles. The warps' partials are merged in warp
+// order through shared memory into the split's workspace entry, and the
+// last of the (b, kh)'s split x head blocks to finish combines all G heads
+// as the narrow kernel does. Past dh 2048 a lane's q and output would take
+// 128 registers each: the entry point refuses it.
 #include "numeric.cuh"
 #include "ptx.cuh"
 
@@ -370,6 +389,203 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid == 0) *ticket = 0;
 }
 
+constexpr int DA_WIDE_WARPS = 4;      // warps of a block, one head
+constexpr int DA_WIDE_KEYS = 8;       // rows a warp scores at once
+constexpr int DA_WIDE_MAX_DH = 2048;  // the widest head dim it takes
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <typename T, int NJ>
+__global__ void __launch_bounds__(32 * DA_WIDE_WARPS)
+decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ pos,
+                   T* __restrict__ out, float* __restrict__ lse,
+                   float* __restrict__ ws_m, float* __restrict__ ws_l,
+                   float* __restrict__ ws_acc, int* __restrict__ tickets,
+                   DecodeShape s, int DH) {
+  extern __shared__ __align__(16) float dw_smem[];
+  float* part = dw_smem;                           // [warp][DH]
+  float* wm = part + DA_WIDE_WARPS * DH;           // [warp]
+  float* wl = wm + DA_WIDE_WARPS;                  // [warp]
+  __shared__ int last;
+
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / s.G, g = h % s.G;
+  const int p = pos[b] - s.k_offset;   // pos as a row of this cache
+  int kmax = min(p, s.S - 1);
+  int kmin = s.window > 0 ? max(0, p - s.window + 1) : 0;
+  if (kmin > kmax) kmin = 0, kmax = -1;   // no visible row
+  const int split_rows = s.split_tiles * DA_CH;
+  const int first_run = kmin / split_rows;
+  const int n_run = max(1, kmax / split_rows + 1);
+  if (split >= n_run || split < first_run) return;
+  // every row in [r_begin, r_end) is visible
+  const int r_begin = max(split * split_rows, kmin);
+  const int r_end = min(split * split_rows + split_rows, kmax + 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t row_stride = (int64_t)s.KH * DH;
+  const T* kb = k + (int64_t)b * s.S * row_stride + (int64_t)kh * DH;
+  const T* vb = v + (int64_t)b * s.S * row_stride + (int64_t)kh * DH;
+
+  float qr[NJ], acc[NJ];
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    const int d = lane + 32 * i;
+    qr[i] = d < DH ? to_f32(q[((int64_t)b * s.H + h) * DH + d]) : 0.f;
+    acc[i] = 0.f;
+  }
+  float m = DA_NEG_INF, l = 0.f;
+  for (int r0 = r_begin + warp * DA_WIDE_KEYS; r0 < r_end;
+       r0 += DA_WIDE_WARPS * DA_WIDE_KEYS) {
+    float sc[DA_WIDE_KEYS];
+    float mx = DA_NEG_INF;
+#pragma unroll
+    for (int j = 0; j < DA_WIDE_KEYS; ++j) {
+      const int r = r0 + j;
+      float dot = 0.f;
+      if (r < r_end) {
+#pragma unroll
+        for (int i = 0; i < NJ; ++i) {
+          const int d = lane + 32 * i;
+          if (d < DH) dot = fmaf(qr[i], to_f32(kb[r * row_stride + d]), dot);
+        }
+      }
+      float x = warp_sum(dot) * s.scale;
+      if (s.softcap > 0.f) x = s.softcap * tanhf(x / s.softcap);
+      sc[j] = r < r_end ? x : DA_NEG_INF;
+      mx = fmaxf(mx, sc[j]);
+    }
+    const float m_new = fmaxf(m, mx);   // the group has a row: finite
+    const float alpha = expf(m - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int j = 0; j < DA_WIDE_KEYS; ++j) {
+      const int r = r0 + j;
+      if (r >= r_end) break;
+      const float pj = expf(sc[j] - m_new);
+      rs += pj;
+      const float pr = round_to<T>(pj);
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const int d = lane + 32 * i;
+        if (d < DH) acc[i] = fmaf(pr, to_f32(vb[r * row_stride + d]), acc[i]);
+      }
+    }
+    l = l * alpha + rs;
+    m = m_new;
+  }
+
+  // the warps' partials merged in warp order into the split's entry
+  if (lane == 0) {
+    wm[warp] = m;
+    wl[warp] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    const int d = lane + 32 * i;
+    if (d < DH) part[warp * DH + d] = acc[i];
+  }
+  __syncthreads();
+  float M = DA_NEG_INF;
+  for (int w = 0; w < DA_WIDE_WARPS; ++w) M = fmaxf(M, wm[w]);
+  const int64_t wi = ws_index(s, b, kh, split, g);
+  for (int d = threadIdx.x; d < DH; d += 32 * DA_WIDE_WARPS) {
+    float a = 0.f;
+    for (int w = 0; w < DA_WIDE_WARPS; ++w)
+      a += part[w * DH + d] * expf(wm[w] - M);
+    ws_acc[wi * DH + d] = a;
+  }
+  if (threadIdx.x == 0) {
+    float L = 0.f;
+    for (int w = 0; w < DA_WIDE_WARPS; ++w) L += wl[w] * expf(wm[w] - M);
+    ws_m[wi] = M;
+    ws_l[wi] = L;
+  }
+
+  // the last of the (b, kh)'s split x head blocks combines all G heads
+  __threadfence();
+  __syncthreads();
+  int* ticket = tickets + (int64_t)b * s.KH + kh;
+  if (threadIdx.x == 0)
+    last = atomicAdd(ticket, 1) == (n_run - first_run) * s.G - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int o = threadIdx.x; o < s.G * DH; o += 32 * DA_WIDE_WARPS) {
+    const int gg = o / DH;
+    float Mg = DA_NEG_INF;
+    for (int i = first_run; i < n_run; ++i)
+      Mg = fmaxf(Mg, __ldcg(ws_m + ws_index(s, b, kh, i, gg)));
+    float L = 0.f, A = 0.f;
+    for (int i = first_run; i < n_run; ++i) {
+      const int64_t w = ws_index(s, b, kh, i, gg);
+      const float scale = expf(__ldcg(ws_m + w) - Mg);
+      L += __ldcg(ws_l + w) * scale;
+      A += __ldcg(ws_acc + ws_index(s, b, kh, i, 0) * DH + o) * scale;
+    }
+    out[((int64_t)b * s.H + kh * s.G) * DH + o] =
+        from_f32<T>(A / fmaxf(L, 1e-30f));
+    if (lse && o % DH == 0)
+      lse[(int64_t)b * s.H + kh * s.G + gg] = Mg + logf(L);
+  }
+  if (threadIdx.x == 0) *ticket = 0;
+}
+
+// The wide kernel for dims-per-lane NJ: launches it, or writes how many
+// (b, kh, split) units an SM holds at once (its blocks per SM over G, at
+// least 1: a unit is G blocks here).
+template <typename T, int NJ>
+int launch_wide_nj(const void* q, const void* k, const void* v,
+                   const int* pos, void* out, float* lse, float* ws,
+                   int* tickets, const DecodeShape& s, int dh,
+                   cudaStream_t stream, int* blocks_per_sm) {
+  const size_t bytes = sizeof(float) * ((size_t)DA_WIDE_WARPS * dh +
+                                        2 * DA_WIDE_WARPS);
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        decode_wide_kernel<T, NJ>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (blocks_per_sm) {
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, decode_wide_kernel<T, NJ>, 32 * DA_WIDE_WARPS, bytes);
+    *blocks_per_sm = max(1, n / s.G);
+    return (int)err;
+  }
+  const int64_t n_ws = (int64_t)s.B * s.KH * s.n_splits * s.G;
+  decode_wide_kernel<T, NJ><<<dim3(s.n_splits, s.H, s.B),
+                              32 * DA_WIDE_WARPS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), pos, static_cast<T*>(out), lse, ws,
+      ws + n_ws, ws + 2 * n_ws, tickets, s, dh);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, const int* pos,
+                void* out, float* lse, float* ws, int* tickets,
+                const DecodeShape& s, int dh, cudaStream_t stream,
+                int* blocks_per_sm) {
+  if (dh <= 256 || dh > DA_WIDE_MAX_DH) return (int)cudaErrorInvalidValue;
+  if (dh <= 512)
+    return launch_wide_nj<T, 16>(q, k, v, pos, out, lse, ws, tickets, s, dh,
+                                 stream, blocks_per_sm);
+  if (dh <= 1024)
+    return launch_wide_nj<T, 32>(q, k, v, pos, out, lse, ws, tickets, s, dh,
+                                 stream, blocks_per_sm);
+  return launch_wide_nj<T, 64>(q, k, v, pos, out, lse, ws, tickets, s, dh,
+                               stream, blocks_per_sm);
+}
+
 // Launches the kernel; or, with blocks_per_sm given, launches nothing and
 // writes there how many of its blocks an SM holds at once.
 template <typename T, int DH>
@@ -412,7 +628,8 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
                                        s, stream, blocks_per_sm);
     case 256: return launch_dh<T, 256>(q, k, v, pos, out, lse, ws, tickets,
                                        s, stream, blocks_per_sm);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch_wide<T>(q, k, v, pos, out, lse, ws, tickets, s,
+                                   dh, stream, blocks_per_sm);
   }
 }
 
@@ -420,7 +637,8 @@ int launch(const void* q, const void* k, const void* v, const int* pos,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out, contiguous and 16-byte
 // aligned). q and out are (B, H, DH); k and v are (B, S, KH, DH) with H a
-// multiple of KH; pos is (B,) int32, >= 0. window <= 0 and softcap <= 0
+// multiple of KH; DH is 16, 64, 80, 128 or 256 (H / KH * DH at most 2048),
+// or any DH in 257 .. DA_WIDE_MAX_DH (the wide kernel); pos is (B,) int32, >= 0. window <= 0 and softcap <= 0
 // turn those off. k_offset >= 0 is the key of the cache's row 0 (a shard's
 // first row; 0 unsharded). lse: nullptr, or (B, H) fp32 for each head's
 // log-sum-exp (-inf where no row is visible). The cache is read in
@@ -441,7 +659,8 @@ extern "C" int carla_decode_attention(int dtype, const void* q, const void* k,
   if (B == 0 || H == 0) return 0;
   const int64_t split_rows = (int64_t)split_tiles * carla::DA_CH;
   if (S <= 0 || KH <= 0 || H % KH != 0 || n_splits <= 0 ||
-      H / KH * DH > carla::DA_SLOTS * carla::DA_THREADS * 4 ||
+      (DH <= 256 &&
+       H / KH * DH > carla::DA_SLOTS * carla::DA_THREADS * 4) ||
       split_tiles <= 0 || n_splits * split_rows < S ||
       (n_splits - 1) * split_rows >= S || k_offset < 0)
     return (int)cudaErrorInvalidValue;
@@ -462,7 +681,8 @@ extern "C" int carla_decode_attention(int dtype, const void* q, const void* k,
 
 // How many blocks of the launch for H heads over KH kv heads of DH an SM
 // holds at once, written to *blocks_per_sm (an int); the wrapper sizes the
-// splits by it. Returns the CUDA error of the query.
+// splits by it. For DH above 256, how many (b, kh, split) units of H / KH
+// blocks each (at least 1). Returns the CUDA error of the query.
 extern "C" int carla_decode_occupancy(int dtype, int H, int KH, int DH,
                                       void* blocks_per_sm) {
   if (H <= 0 || KH <= 0 || H % KH != 0) return (int)cudaErrorInvalidValue;

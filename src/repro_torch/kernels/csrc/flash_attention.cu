@@ -83,6 +83,27 @@
 // block per SM. The fp32 block needs 223,232 bytes (Q and K transposed, V
 // and P), 9 KB under the 227 KB opt-in. launch_dh returns the opt-in's
 // error if the card refuses it.
+//
+// Head dims above 256 (no config has one; the Pallas kernel takes any dh):
+// flash_wide_kernel, dh a runtime argument up to FA_WIDE_MAX_DH, fp32 and
+// bf16 alike, on the CUDA cores. One warp owns one query row: a block of
+// FA_WIDE_WARPS warps takes FA_WIDE_WARPS consecutive (position, head)
+// rows of the H / KH heads that share one kv head, so each K and V tile it
+// loads serves them all. A lane holds dims lane + 32 i (i < NJ, the
+// instance's dh / 32 ceiling: NJ 16, 32 and 64 take dh up to 512, 1024
+// and 2048) of the row's q and of its fp32 output, so each load of a K or
+// V row from shared memory is 32 neighbouring elements. The lanes' partial
+// products of a tile's keys are summed across the warp by halving
+// exchanges (KT - 1 shuffles for the tile, not 5 a key), which leave the
+// score of key l / (32 / KT) on lane l; then the online softmax of the
+// narrow instances over the tile, p rounded to v's type before the
+// product and handed to the P V loop a key at a time by a shuffle. K and
+// V go through shared memory in tiles of FlashWide::KT keys (32, 16 or 8:
+// two tiles of KT x 32 NJ in T's type within 160 KB), copied 16 bytes at
+// a time by cp.async where dh allows (element by element otherwise), one
+// tile at a time. Past dh 2048 a lane's q and output would take 128
+// registers each, and a tile of 8 fp32 keys at dh 4096 takes 256 KB, more
+// than the 227 KB opt-in: the entry point refuses it.
 #include "numeric.cuh"
 #include "ptx.cuh"
 
@@ -575,6 +596,192 @@ int launch_dh(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+constexpr int FA_WIDE_WARPS = 8;       // query rows of a block
+constexpr int FA_WIDE_MAX_DH = 2048;   // the widest head dim it takes
+
+// The wide instance for dims-per-lane NJ: KT keys a tile, the largest of
+// 32, 16 and 8 whose K and V tiles of KT x 32 NJ in T fit 160 KB.
+template <typename T, int NJ>
+struct FlashWide {
+  static constexpr int ROW = 32 * NJ;   // the widest dh of the instance
+  static constexpr int KT =
+      2 * 32 * ROW * sizeof(T) <= 160 * 1024   ? 32
+      : 2 * 16 * ROW * sizeof(T) <= 160 * 1024 ? 16
+                                                : 8;
+};
+
+template <typename T, int NJ>
+__global__ void __launch_bounds__(32 * FA_WIDE_WARPS)
+flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ out, FlashShape s,
+                  int DH) {
+  constexpr int KT = FlashWide<T, NJ>::KT;
+  constexpr int DUP = 32 / KT;           // lanes that end with one key's score
+  constexpr int VEC = Vec16<T>::N;
+  constexpr int THREADS = 32 * FA_WIDE_WARPS;
+  extern __shared__ __align__(16) unsigned char fw_smem[];
+  T* Ks = reinterpret_cast<T*>(fw_smem);   // [KT][DH]
+  T* Vs = Ks + KT * DH;                    // [KT][DH]
+
+  const int G = s.H / s.KH;
+  const int kh = blockIdx.y, b = blockIdx.z;
+  // rows (position, head of the group), longest first
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * FA_WIDE_WARPS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = row0 + warp;
+  const int t = row / G, h = kh * G + row % G;
+  const bool live = t < s.T;
+  const int apos = s.q_offset + t;   // the row's position in the sequence
+
+  // the keys the block's rows can see
+  const int t_lo = row0 / G;
+  const int t_hi = min(s.T - 1, (row0 + FA_WIDE_WARPS - 1) / G);
+  const int k_last = min(s.q_offset + t_hi, s.S - 1);
+  const int k_first =
+      s.window > 0 ? max(0, s.q_offset + t_lo - s.window + 1) : 0;
+
+  float qr[NJ], acc[NJ];
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    const int d = lane + 32 * i;
+    qr[i] = live && d < DH
+                ? to_f32(q[(((int64_t)b * s.T + t) * s.H + h) * DH + d])
+                : 0.f;
+    acc[i] = 0.f;
+  }
+  float m = FA_NEG_INF, l = 0.f;
+
+  const int64_t kv_row = (int64_t)s.KH * DH;
+  const T* kb = k + (int64_t)b * s.S * kv_row + (int64_t)kh * DH;
+  const T* vb = v + (int64_t)b * s.S * kv_row + (int64_t)kh * DH;
+  const int pieces = DH / VEC;   // 16-byte pieces of a row, if DH allows
+  for (int k0 = (k_first / KT) * KT; k0 <= k_last; k0 += KT) {
+    __syncthreads();  // the previous tile's readers are done
+    if (DH % VEC == 0) {
+      // 16-byte copies, zeros past S
+      for (int e = threadIdx.x; e < KT * pieces; e += THREADS) {
+        const int j = e / pieces, c = (e - j * pieces) * VEC;
+        const bool ok = k0 + j < s.S;
+        const int64_t off = (int64_t)(ok ? k0 + j : 0) * kv_row + c;
+        cp_async16(Ks + j * DH + c, kb + off, ok);
+        cp_async16(Vs + j * DH + c, vb + off, ok);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      for (int e = threadIdx.x; e < KT * DH; e += THREADS) {
+        const int j = e / DH, d = e - j * DH;
+        const bool ok = k0 + j < s.S;
+        const int64_t off = (int64_t)(k0 + j) * kv_row + d;
+        Ks[e] = ok ? kb[off] : from_f32<T>(0.f);
+        Vs[e] = ok ? vb[off] : from_f32<T>(0.f);
+      }
+    }
+    __syncthreads();
+    // a tile the row cannot see: all past it, or all before its window
+    if (!live || k0 > apos ||
+        (s.window > 0 && k0 + KT - 1 <= apos - s.window))
+      continue;
+
+    // the lane's partial products for each key of the tile ...
+    float sc[KT];
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const int d = lane + 32 * i;
+        if (d < DH) dot = fmaf(qr[i], to_f32(Ks[j * DH + d]), dot);
+      }
+      sc[j] = dot;
+    }
+    // ... summed across the warp so that lane l holds the score of key
+    // l / DUP: each step sends half of the lane's sums to its partner and
+    // adds the other half of the partner's (KT - 1 shuffles in all), then
+    // the DUP lanes of a key add theirs
+#pragma unroll
+    for (int n = KT, mask = 16; n > 1; n >>= 1, mask >>= 1) {
+      const bool upper = lane & mask;
+#pragma unroll
+      for (int i = 0; i < n / 2; ++i) {
+        const float send = upper ? sc[i] : sc[i + n / 2];
+        const float keep = upper ? sc[i + n / 2] : sc[i];
+        sc[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+      }
+    }
+    float x = sc[0];
+#pragma unroll
+    for (int mask = DUP / 2; mask > 0; mask >>= 1)
+      x += __shfl_xor_sync(0xffffffffu, x, mask);
+    x *= s.scale;
+    if (s.softcap > 0.f) x = s.softcap * tanhf(x / s.softcap);
+    const int key = k0 + lane / DUP;
+    const bool seen = key <= apos && key < s.S &&
+                      (s.window <= 0 || key > apos - s.window);
+    x = seen ? x : FA_NEG_INF;
+    float mx = x;
+#pragma unroll
+    for (int mask = 16; mask > 0; mask >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, mask));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    // a masked key weighs 0, also while the row has seen none
+    const float p = seen ? expf(x - m_new) : 0.f;
+    // the tile's sum over its KT keys (the DUP copies of a key left out)
+    float rs = p;
+#pragma unroll
+    for (int mask = 16; mask >= DUP; mask >>= 1)
+      rs += __shfl_xor_sync(0xffffffffu, rs, mask);
+    const float pr = round_to<T>(p);
+#pragma unroll
+    for (int i = 0; i < NJ; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const float pj = __shfl_sync(0xffffffffu, pr, j * DUP);
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) {
+        const int d = lane + 32 * i;
+        if (d < DH) acc[i] = fmaf(pj, to_f32(Vs[j * DH + d]), acc[i]);
+      }
+    }
+    l = l * alpha + rs;
+    m = m_new;
+  }
+  if (!live) return;
+  const float den = fmaxf(l, 1e-30f);
+  T* o = out + (((int64_t)b * s.T + t) * s.H + h) * DH;
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    const int d = lane + 32 * i;
+    if (d < DH) o[d] = from_f32<T>(acc[i] / den);
+  }
+}
+
+template <typename T, int NJ>
+int launch_wide_nj(const void* q, const void* k, const void* v, void* out,
+                   const FlashShape& s, int dh, cudaStream_t stream) {
+  const size_t bytes = (size_t)2 * FlashWide<T, NJ>::KT * dh * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wide_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(ceil_div(s.T * (s.H / s.KH), FA_WIDE_WARPS), s.KH, s.B);
+  flash_wide_kernel<T, NJ><<<grid, 32 * FA_WIDE_WARPS, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), s, dh);
+  return (int)cudaGetLastError();
+}
+
+// Head dims above the built ones: the wide instance whose rows hold dh.
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* out,
+                const FlashShape& s, int dh, cudaStream_t stream) {
+  if (dh <= 256 || dh > FA_WIDE_MAX_DH) return (int)cudaErrorInvalidValue;
+  if (dh <= 512) return launch_wide_nj<T, 16>(q, k, v, out, s, dh, stream);
+  if (dh <= 1024) return launch_wide_nj<T, 32>(q, k, v, out, s, dh, stream);
+  return launch_wide_nj<T, 64>(q, k, v, out, s, dh, stream);
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
            const FlashShape& s, int dh, cudaStream_t stream) {
@@ -584,7 +791,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
     case 80: return launch_dh<T, 80>(q, k, v, out, s, stream);
     case 128: return launch_dh<T, 128>(q, k, v, out, s, stream);
     case 256: return launch_dh<T, 256>(q, k, v, out, s, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch_wide<T>(q, k, v, out, s, dh, stream);
   }
 }
 
@@ -592,7 +799,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out, all contiguous and
 // 16-byte aligned). q and out are (B, T, H, DH); k and v are (B, S, KH, DH)
-// with H a multiple of KH. window <= 0 and softcap <= 0 turn those off.
+// with H a multiple of KH. DH is 16, 64, 80, 128 or 256, or any DH in 257
+// .. FA_WIDE_MAX_DH (the wide kernel). window <= 0 and softcap <= 0 turn those off.
 // q_offset >= 0 is the position of q's first row (0 unsharded).
 // Returns cudaGetLastError() (or the error of the shared-memory opt-in).
 extern "C" int carla_flash_attention(int dtype, const void* q, const void* k,

@@ -8,9 +8,11 @@ K/V tiles); fp32 on the fp32 CUDA cores (64-row tiles), an exact fp32
 result.  Any T and S (the Pallas wrapper needs T % 256 == 0); the kernel
 is built at the head dims of ``HEAD_DIMS``, those the full configs use, and
 any narrower head dim runs zero-padded to the next of them
-(``with_padded_head_dim``, the scale kept the unpadded dh's).  The
-source's header note says which Pallas kernel it replaces, what bounds it
-on the H100 and how its design answers that.
+(``with_padded_head_dim``, the scale kept the unpadded dh's).  A head dim
+above 256, up to ``WIDE_MAX_HEAD_DIM``, runs the wide kernel (one warp a
+query row on the CUDA cores, dh a runtime argument) unpadded; a wider one
+raises.  The source's header note says which Pallas kernel it replaces,
+what bounds it on the H100 and how its design answers that.
 
 ``q_offset`` is the position of q's first row: a shard of a sequence
 sharded over a mesh axis holds rows ``q_offset .. q_offset + T - 1`` against
@@ -45,6 +47,8 @@ BQ, BK = 64, 64     # FA_BQ, FA_BK of csrc/flash_attention.cu (fp32)
 MMA_BQ, MMA_BK = 128, 64   # FA_MMA_BQ, FA_MMA_BK (bf16): query rows of a
                            # block, keys of a K/V tile
 HEAD_DIMS = (16, 64, 80, 128, 256)   # instantiated in csrc/*_attention.cu
+WIDE_MAX_HEAD_DIM = 2048   # FA_WIDE_MAX_DH and DA_WIDE_MAX_DH: the wide
+                           # kernels take any dh in 257 .. this
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"carla_flash_attention":
@@ -72,18 +76,24 @@ def flash_attention_plain(q, k, v, *, window: int = 0, softcap: float = 0.0,
 
 
 def padded_head_dim(dh: int) -> int:
-    """The narrowest head dim the kernels are built at that holds dh."""
+    """The narrowest head dim the kernels are built at that holds dh; dh
+    itself above 256 (the wide kernels, unpadded)."""
     for d in HEAD_DIMS:
         if d >= dh:
             return d
-    raise ValueError(f"head dim {dh} above the widest built, {HEAD_DIMS[-1]}")
+    if dh <= WIDE_MAX_HEAD_DIM:
+        return dh
+    raise ValueError(f"head dim {dh} above the widest the kernels take, "
+                     f"{WIDE_MAX_HEAD_DIM}: a lane's q and output row would "
+                     f"take more than 64 registers each")
 
 
 def with_padded_head_dim(fn, q, k, v, *rest, **kw):
     """``fn(q, k, v, *rest, scale=dh ** -0.5, **kw)`` at a head dim the
-    kernels are built at: q, k and v zero-padded along dh to
+    kernels take: q, k and v zero-padded along dh to
     ``padded_head_dim(dh)`` and the output sliced back to dh (the first
-    of a tuple; a log-sum-exp beside it is the unpadded one).  A zero
+    of a tuple; a log-sum-exp beside it is the unpadded one); above 256
+    unpadded.  A zero
     column adds nothing to any q . k, and the padded output columns are
     sums of p x 0; the scale stays the unpadded dh's, or every score would
     be off by sqrt(padded / dh).  The padding copies q, k and v, a KV cache
@@ -105,7 +115,7 @@ FLASH_BWD_ROWS = 512   # query rows per block of the plain backward
 def _launch(q, k, v, window: int, softcap: float,
             q_offset: int = 0) -> torch.Tensor:
     """One launch of csrc/flash_attention.cu (counted), at q's head dim
-    padded to one the kernel is built at."""
+    padded to one the kernel is built at (above 256: the wide kernel)."""
     return with_padded_head_dim(_launch_built, q, k, v, window=window,
                                 softcap=softcap, q_offset=q_offset)
 

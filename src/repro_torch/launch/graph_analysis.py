@@ -32,8 +32,13 @@ Conventions (per device, local shard shapes; ``repro``'s):
   * Collective bytes: all-reduce 2x the result (ring reduce-scatter +
     all-gather); all-gather, all-to-all and broadcast the result;
     reduce-scatter the operand.
-  * Live bytes: results of non-view ops are live until their tensor is
-    freed; the peak over the step estimates its temporary memory.
+  * Live bytes: the result of a non-view op opens a count of its bytes on
+    its storage; every alias of that storage the mode sees (views,
+    ``detach``, ``alias``, in-place results) joins the count, and the bytes
+    are free when the last of them dies.  A storage, not a tensor object,
+    holds memory: ``torch.utils.checkpoint``'s recomputation keeps detached
+    aliases of what it recomputes, which live on after the tensors the ops
+    returned.  The peak over the step estimates its temporary memory.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..models import loops
+from ..models.loops import base_bytes, storage_key
 
 _DOTS = {"mm", "bmm", "addmm", "baddbmm"}
 _COLLECTIVE_NS = ("_c10d_functional", "c10d_functional")
@@ -108,6 +114,8 @@ class GraphCounter(TorchDispatchMode):
         super().__init__()
         self.cost = GraphCost()
         self._live = 0
+        # storage key -> [bytes freed with it, aliases alive]
+        self._counts: dict[int, list] = {}
         self._paused = 0
         self._real_prop = None
         self._fold = (loops.folding(self.repeated) if fold_loops
@@ -118,11 +126,11 @@ class GraphCounter(TorchDispatchMode):
         """The ops inside the block count n times.  The block yields
         ``resident(*kept, during_bytes=0)``: ``kept`` are the tensors each
         of the n steps leaves alive after it ends (its tensors saved for
-        the backward, its slice of the stacked output), so the n - 1 steps
-        not traced hold as many bytes again each, from the block's end
-        until the tensors are freed; ``during_bytes`` are bytes the
-        untraced steps hold only while the block runs (the carry of the
-        step before the last).  The peak is the traced step's own on top
+        the backward, its slice of the stacked output), one per storage, so
+        the n - 1 steps not traced hold as many bytes again each, from the
+        block's end until the last alias of that storage dies;
+        ``during_bytes`` are bytes the untraced steps hold only while the
+        block runs (the carry of the step before the last).  The peak is the traced step's own on top
         of both: the unrolled loop's last step."""
         outer = self.cost
         # the block's own peak, from the bytes live when it starts
@@ -132,18 +140,23 @@ class GraphCounter(TorchDispatchMode):
         def resident(*tensors, during_bytes: int = 0):
             nonlocal beside
             for t in tensors:
-                base = t if t._base is None else t._base
-                kept[id(base)] = base
+                kept[storage_key(t)] = t
             beside += during_bytes
 
         try:
             yield resident
         finally:
             extra = 0
-            for t in kept.values():
-                n_bytes = (n - 1) * t.numel() * t.element_size()
+            for key, t in kept.items():
+                # n - 1 more of the storage, freed with it (a storage not
+                # counted, a step's input, opens a count of them alone)
+                if key not in self._counts:
+                    self._counts[key] = [0, 0]
+                    self._join(t, key)
+                count = self._counts[key]
+                n_bytes = (n - 1) * base_bytes(t)
+                count[0] += n_bytes
                 extra += n_bytes
-                weakref.finalize(t, self._free, n_bytes)
             self._live += extra
             inner = self.cost
             inner.peak_live_bytes = max(
@@ -174,8 +187,17 @@ class GraphCounter(TorchDispatchMode):
         self._fold.__exit__(*exc)
         return super().__exit__(*exc)
 
-    def _free(self, n: int) -> None:
-        self._live -= n
+    def _join(self, t: torch.Tensor, key: int) -> None:
+        """t aliases the counted storage ``key``: it holds the bytes too."""
+        self._counts[key][1] += 1
+        weakref.finalize(t, self._leave, key)
+
+    def _leave(self, key: int) -> None:
+        count = self._counts[key]
+        count[1] -= 1
+        if not count[1]:
+            self._live -= count[0]
+            del self._counts[key]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -194,6 +216,7 @@ class GraphCounter(TorchDispatchMode):
         c = self.cost
         if ns in _COLLECTIVE_NS:
             if name in _FREE:
+                self._track(outs, ins, alias=True)
                 return
             base = name.rstrip("_").removesuffix("_coalesced")
             if base.startswith("all_reduce"):
@@ -212,7 +235,10 @@ class GraphCounter(TorchDispatchMode):
             c.ops += 1
             self._track(outs, ins)
             return
-        if func.is_view or name in _FREE or ns == "prim" or not ins:
+        if func.is_view or name in _FREE:
+            self._track(outs, ins, alias=True)
+            return
+        if ns == "prim" or not ins:
             return
         if name in _DOTS:
             c.flops += _dot_flops(name, args, outs[0])
@@ -224,14 +250,19 @@ class GraphCounter(TorchDispatchMode):
         c.ops += 1
         self._track(outs, ins)
 
-    def _track(self, outs, ins) -> None:
-        """Results that are new tensors stay live until they are freed."""
+    def _track(self, outs, ins, alias: bool = False) -> None:
+        """A result on a counted storage joins its count (an alias, or an
+        in-place result); a non-view op's result on a storage none of its
+        operands has opens a count of its bytes."""
+        in_keys = {storage_key(i) for i in ins}
         for t in outs:
-            if any(t is i for i in ins):     # in place: nothing new
-                continue
-            n = t.numel() * t.element_size()
-            self._live += n
-            weakref.finalize(t, self._free, n)
+            key = storage_key(t)
+            if key in self._counts:
+                self._join(t, key)
+            elif not alias and key not in in_keys:
+                self._counts[key] = [t.numel() * t.element_size(), 0]
+                self._live += self._counts[key][0]
+                self._join(t, key)
         self.cost.peak_live_bytes = max(self.cost.peak_live_bytes,
                                         self._live)
 

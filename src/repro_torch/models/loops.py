@@ -59,6 +59,18 @@ def scan(step, carry, xs: tuple, consts: tuple = ()):
     return carry, y.unsqueeze(1).expand(shape).contiguous()
 
 
+def storage_key(t: torch.Tensor) -> int:
+    """The identity of t's storage, the same for every alias of it (a fresh
+    ``UntypedStorage`` wrapper object is made on each call: no key)."""
+    return t.untyped_storage()._cdata
+
+
+def base_bytes(t: torch.Tensor) -> int:
+    """The bytes of t, or of the tensor t is a view of."""
+    base = t if t._base is None else t._base
+    return base.numel() * base.element_size()
+
+
 _CHECKPOINTED: contextvars.ContextVar = contextvars.ContextVar(
     "checkpointed", default=False)
 
@@ -117,15 +129,13 @@ class _Folded(torch.autograd.Function):
                 # what each unrolled step leaves alive: its output slice
                 # until the stack is made, the tensors its backward saved
                 # (not the loop's own slices of xs and constants) and its
-                # carry, which the next step saves
-                ins_ids = {id(a) for a in ins}
-                kept = {id(b): b for b in (
-                    t if t._base is None else t._base for t in saved)
-                    if id(b) not in ins_ids}
+                # carry, which the next step saves; one of each storage
+                ins_keys = {storage_key(a) for a in ins}
+                kept = {storage_key(t): t for t in saved
+                        if storage_key(t) not in ins_keys}
                 if carry.requires_grad:
-                    kept[id(carry)] = carry
-                ctx.step_bytes = sum(t.numel() * t.element_size()
-                                     for t in kept.values())
+                    kept[storage_key(carry)] = carry
+                ctx.step_bytes = sum(base_bytes(t) for t in kept.values())
                 # a checkpointed forward keeps none of them (the backward
                 # recomputes them), nor does a forward without a backward:
                 # then the last step runs beside the carry of the step
@@ -136,30 +146,34 @@ class _Folded(torch.autograd.Function):
                 else:
                     resident(y_out, during_bytes=carry.numel()
                              * carry.element_size())
-        ctx.n, ctx.repeat, ctx.ins, ctx.outs = n, repeat, ins, (carry, y)
-        carry_out = carry.detach()
-        # a detached view shares its tensor's storage: keep the tensors the
-        # counter tracks alive as long as the views the loop returns
-        carry_out._traced, y_out._traced = carry, y
-        return carry_out, y_out
+        ctx.n, ctx.repeat, ctx.ins, ctx.carry = n, repeat, ins, carry
+        # the step's output is reached through its graph's edge, not held:
+        # the loop frees its output slices once the stack is made, and the
+        # counter frees a storage with its last alias (y_out)
+        ctx.y_edge = (torch.autograd.graph.get_gradient_edge(y)
+                      if y.requires_grad else None)
+        return carry.detach(), y_out
 
     @staticmethod
     def backward(ctx, carry_grad, y_grad):
-        carry, y = ctx.outs
+        carry = ctx.carry
         if carry_grad is None and carry.requires_grad:
             # inside the loop the carry always has a gradient, the next
             # step's: the folded step stands for those steps
             carry_grad = torch.zeros_like(carry)
-        pairs = [(o, g) for o, g in ((carry, carry_grad), (y, y_grad))
-                 if g is not None and o.requires_grad]
+        pairs = [(o, g) for o, g in ((carry if carry.requires_grad else None,
+                                      carry_grad), (ctx.y_edge, y_grad))
+                 if g is not None and o is not None]
         want = [t for t in ctx.ins if t.requires_grad]
         got = [None] * len(want)
         if pairs and want:
             with ctx.repeat(ctx.n) as resident:
                 if ctx.checkpointed:
-                    # the checkpoint recomputed the n steps for this
-                    # backward: the n - 1 untraced ones hold their saved
-                    # tensors while it runs
+                    # the unrolled loop's checkpoint recomputes the n steps
+                    # for this backward; the folded step is not recomputed
+                    # (it saves nothing through the checkpoint's hooks, and
+                    # its graph lives in ctx), so the n - 1 untraced steps'
+                    # saved tensors are counted here while it runs
                     resident(during_bytes=(ctx.n - 1) * ctx.step_bytes)
                 got = torch.autograd.grad(
                     [o for o, _ in pairs], want, [g for _, g in pairs],

@@ -388,3 +388,22 @@ def test_kernel_bench_costs_and_cases():
     assert "smollm-360m smoke dh 20" in names
     assert {c["dh"] for c in kernel_bench.dh20_cases()} == {20}
     assert kernel_bench.dh20_cases()[0] in kernel_bench.lm_kernel_cases()
+    # the paths no config has: conv1d at FL 1, 5, 7, 9; attention above dh
+    # 256 with offsets (k and v hold the keys a query offset sees) and the
+    # log-sum-exp
+    cases = kernel_bench.lm_kernel_cases()
+    assert {c["fl"] for c in cases if c["kernel"] == "conv1d_causal"} >= \
+        {1, 5, 7, 9}
+    assert {c["dh"] for c in cases if c["kernel"] != "conv1d_causal"} >= \
+        {272, 384, 512, 1024}
+    gen = torch.Generator().manual_seed(0)
+    (q, k, _), kw = kernel_bench.lm_operands(
+        kernel_bench.flash_case(1, 5, 2, 1, 272, q_offset=3), torch.float32,
+        gen)
+    assert (q.shape[1], k.shape[1], kw["q_offset"]) == (5, 8, 3)
+    _, kw = kernel_bench.lm_operands(
+        kernel_bench.decode_case(1, 6, 2, 1, 272, (9,), k_offset=4, lse=True),
+        torch.float32, gen)
+    assert (kw["k_offset"], kw["return_lse"]) == (4, True)
+    assert "q_offset" not in kernel_bench.lm_operands(fa, torch.float32,
+                                                      gen)[1]

@@ -4,9 +4,11 @@ this process, under ``FakeTensorMode``: exact hand counts of a sharded
 matmul's FLOPs (the local product, not the global one a mode above DTensor
 would see), each collective's bytes by ``repro``'s conventions, a stack of
 12 groups counting 12 times one group, and a smoke dry-run cell on both
-production meshes with ``repro``'s record keys; the per-token WKV folded
-(one step counted T times) against the unrolled loop: equal counts for a
-forward, within 1 % with the backward."""
+production meshes with ``repro``'s record keys and pinned counts;
+the per-token WKV folded (one step counted T times) against the unrolled
+loop: equal counts for a forward, within 1 % with the backward; live bytes
+counted by storage: a checkpointed region's recomputation, and a view that
+outlives its base."""
 import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -88,10 +90,20 @@ def test_twelve_groups_count_twelve_times():
     assert twelve - one == 11 * group
 
 
+# The smoke train cell's per-device counts before live bytes were counted by
+# storage (flops, bytes, collective bytes, ops): the storage count moves
+# only the peak of live bytes
+SMOKE_TRAIN_COUNTS = {False: (2009277.0, 3232004.0, 513832.0, 1234),
+                      True: (2013373.0, 3256580.0, 513832.0, 1234)}
+
+
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_smoke_dry_run_cell(multi_pod):
     rec = dryrun.lower_cell("smollm-135m", "train_4k", multi_pod,
                             smoke=True)
+    assert tuple(rec["hlo"][k] for k in (
+        "flops_per_dev", "bytes_per_dev", "collective_bytes_per_dev",
+        "ops_per_dev")) == SMOKE_TRAIN_COUNTS[multi_pod]
     assert rec["n_devices"] == (512 if multi_pod else 256)
     assert rec["mesh"] == ("2x16x16" if multi_pod else "16x16")
     for key in ("arch", "shape", "kind", "optimizer", "seq_len",
@@ -268,3 +280,73 @@ def test_checkpoint_marks_the_recomputation_too():
     marks = []
     _wkv_cost(False, True, 4, checkpointed=True, marks=marks)
     assert marks == [True, True]
+
+
+# ------------------------------------------------ live bytes by storage --
+@pytest.mark.parametrize("t", [24, 96])
+def test_unrolled_wkv_under_checkpoint_counts_the_recomputation(t):
+    """The unrolled per-token WKV under ``loops.checkpoint`` with its
+    backward: the recomputation holds every step's saved tensors (as the
+    checkpoint's detached aliases) until the backward uses them, so its
+    peak is the unrolled loop's without the checkpoint, within
+    ``PEAK_TOL`` (110,096 B against 643,600 at T 24 while tensor objects
+    were counted)."""
+    ck = _wkv_cost(False, True, t, checkpointed=True).peak_live_bytes
+    plain = _wkv_cost(False, True, t).peak_live_bytes
+    assert abs(ck - plain) <= PEAK_TOL * plain, (ck, plain)
+
+
+def _chain_peak(m: int, k: int, checkpointed: bool) -> float:
+    from repro_torch.models import loops
+
+    def region(x, w1, w2, w3):
+        return torch.tanh(torch.tanh(torch.tanh(x @ w1) @ w2) @ w3)
+
+    with FakeTensorMode():
+        x = torch.empty(m, k).requires_grad_()
+        ws = [torch.empty(k, k).requires_grad_() for _ in range(3)]
+        with GraphCounter() as c:
+            out = (loops.checkpoint(region, x, *ws) if checkpointed
+                   else region(x, *ws))
+            torch.autograd.grad(out.sum(), [x, *ws])
+    return c.cost.peak_live_bytes
+
+
+@pytest.mark.parametrize("checkpointed", [False, True])
+def test_checkpointed_chain_counts_its_recomputed_activations(checkpointed):
+    """Three fp32 (M x K)·(K x K) matmul + tanh layers, M 256, K 64, the
+    loss their output's sum, x and the weights leaves made outside the
+    counter (not counted).  Under ``loops.checkpoint`` the backward first
+    needs the last tanh's output, so the region runs again and the
+    checkpoint keeps detached aliases of what it saves: h1', h2' and h3'
+    (each M x K) beside the output h3, which the caller holds.  The peak
+    comes in the third layer's backward: h3, h1', h2' (h3' is freed once
+    its tanh backward ran), the gradient of a3 and of h2 (M x K each) and
+    of W3 (K x K), and the loss with its seed gradient (4 B each): 5 M K
+    4 + K^2 4 + 8 = 344,072 B.  Without the checkpoint the forward saves
+    h1, h2 and h3 itself and the same moment holds the same bytes.  (While
+    tensor objects were counted, the recomputed aliases went uncounted:
+    245,768 B.)"""
+    m, k = 256, 64
+    assert _chain_peak(m, k, checkpointed) == 5 * m * k * 4 + k * k * 4 + 8
+
+
+@pytest.mark.parametrize("alias", ["slice", "detach", "view_of_a_view"])
+def test_alias_that_outlives_its_base_keeps_its_bytes(alias):
+    """base (8 KB) dies while an alias of it lives: the bytes stay live
+    until the alias dies, then are free.  b beside the alias reads 16 KB;
+    after the alias dies, d and e beside b read 24 KB, not 32."""
+    make = {"slice": lambda t: t[:4], "detach": lambda t: t.detach(),
+            "view_of_a_view": lambda t: t.view(-1)[8:].view(-1, 4)}[alias]
+    with FakeTensorMode():
+        a = torch.empty(64, 32)
+        with GraphCounter() as c:
+            base = a + 1
+            view = make(base)
+            del base
+            b = a * 2
+            assert c.cost.peak_live_bytes == 2 * 8192
+            del view
+            d, e = a * 3, a * 4
+    assert c.cost.peak_live_bytes == 3 * 8192
+    del b, d, e

@@ -1,7 +1,8 @@
 """Head dims the attention kernels are not built at (``HEAD_DIMS``): the
 wrappers zero-pad q, k and v to the next built width, launch with the
 unpadded dh's scale and slice the output back
-(``kernels.flash_attention.with_padded_head_dim``).  On the CPU the helper
+(``kernels.flash_attention.with_padded_head_dim``); above 256 they launch
+the wide kernels unpadded, up to ``WIDE_MAX_HEAD_DIM``.  On the CPU the helper
 is driven through the kernels' plain versions, which take any head dim:
 padded and sliced must equal unpadded, and the scale of the padded width
 must not.  smollm-360m's smoke config (dh 20) is the case the configs
@@ -28,14 +29,19 @@ def _qkv(b, t, h, kh, dh, dtype, seed=0):
 
 @pytest.mark.parametrize("dh,wide", [(20, 64), (16, 16), (17, 64), (64, 64),
                                      (65, 80), (80, 80), (100, 128),
-                                     (129, 256), (256, 256)])
+                                     (129, 256), (256, 256),
+                                     # the wide kernels: dh itself
+                                     (257, 257), (272, 272), (384, 384),
+                                     (1024, 1024), (2048, 2048)])
 def test_padded_head_dim(dh, wide):
     assert fa.padded_head_dim(dh) == wide
 
 
-def test_padded_head_dim_refuses_wider_than_built():
-    with pytest.raises(ValueError, match="above the widest"):
-        fa.padded_head_dim(257)
+def test_padded_head_dim_refuses_wider_than_the_wide_kernels():
+    assert fa.WIDE_MAX_HEAD_DIM == 2048
+    with pytest.raises(ValueError, match="above the widest the kernels "
+                                         "take, 2048"):
+        fa.padded_head_dim(2049)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -121,6 +127,49 @@ def test_decode_launch_pads_to_a_built_width():
     assert seen == {"dh": 64, "scale": 20 ** -0.5}
     assert torch.allclose(out, da.decode_attention_plain(q, ck, cv, pos),
                           atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dh", [272, 384, 1024])
+def test_flash_launch_takes_wide_head_dims_unpadded(monkeypatch, dh):
+    """Above 256 ``_launch`` hands the launch q, k and v as they are, at
+    dh's own scale."""
+    seen = {}
+
+    def launch_built(q, k, v, *, window, softcap, q_offset, scale):
+        seen.update(dh=q.shape[-1], scale=scale)
+        return fa.flash_attention_plain(q, k, v, window=window,
+                                        softcap=softcap, q_offset=q_offset,
+                                        scale=scale)
+
+    monkeypatch.setattr(fa, "_launch_built", launch_built)
+    q, k, v = _qkv(1, 9, 2, 1, dh, torch.float32)
+    out = fa._launch(q, k, v, 0, 0.0)
+    assert seen == {"dh": dh, "scale": dh ** -0.5}
+    assert torch.equal(out, fa.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("dh", [272, 512])
+def test_decode_launch_takes_wide_head_dims_unpadded(dh):
+    seen = {}
+
+    def launch(q, ck, cv, pos, *, window, softcap, k_offset, return_lse,
+               scale):
+        seen.update(dh=q.shape[-1], scale=scale)
+        return da.decode_attention_plain(q, ck, cv, pos, window=window,
+                                         softcap=softcap, k_offset=k_offset,
+                                         return_lse=return_lse, scale=scale)
+
+    g = torch.Generator().manual_seed(3)
+    q, ck, cv = (torch.randn(s, generator=g)
+                 for s in ((2, 4, dh), (2, 40, 2, dh), (2, 40, 2, dh)))
+    pos = torch.tensor([39, 7], dtype=torch.int32)
+    out, lse = fa.with_padded_head_dim(launch, q, ck, cv, pos, window=8,
+                                       softcap=30.0, k_offset=0,
+                                       return_lse=True)
+    assert seen == {"dh": dh, "scale": dh ** -0.5}
+    want, want_lse = da.decode_attention_plain(q, ck, cv, pos, window=8,
+                                               softcap=30.0, return_lse=True)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
 
 
 def test_smollm_360m_smoke_config_has_an_unbuilt_head_dim():

@@ -61,7 +61,11 @@ def _err(got_t, want_j) -> float:
 
 
 # ------------------------------- conv1d --------------------------------------
-CONV1D_CASES = [(1, 16, 32, 4), (2, 33, 96, 4), (2, 64, 513, 2), (1, 8, 8, 3)]
+CONV1D_CASES = [(1, 16, 32, 4), (2, 33, 96, 4), (2, 64, 513, 2), (1, 8, 8, 3),
+                # filter lengths no config has: the FL 1 instance and the
+                # kernel that takes FL at run time
+                (1, 16, 32, 1), (2, 33, 96, 5), (1, 40, 131, 7),
+                (2, 17, 24, 9)]
 
 
 @pytest.mark.parametrize("b,t,c,fl", CONV1D_CASES)
@@ -110,7 +114,10 @@ def test_conv1d_span_matches_repro():
 
 # --------------------------- decode attention --------------------------------
 DECODE_CASES = [(2, 256, 8, 2, 32, 64), (1, 1000, 4, 4, 64, 256),
-                (2, 64, 6, 3, 16, 64), (2, 128, 4, 2, 256, 64)]
+                (2, 64, 6, 3, 16, 64), (2, 128, 4, 2, 256, 64),
+                # head dims above 256: the wide kernel, unpadded
+                (2, 128, 4, 2, 272, 64), (1, 200, 2, 1, 384, 64),
+                (2, 96, 4, 4, 512, 32)]
 
 
 @pytest.mark.parametrize("b,s,h,kh,dh,bs", DECODE_CASES)
@@ -131,7 +138,10 @@ def test_decode_attention_matches_pallas(b, s, h, kh, dh, bs, dtype):
 # ---------------------------- flash attention --------------------------------
 FLASH_CASES = [(1, 512, 4, 2, 32, 0, 0.0), (2, 512, 8, 4, 64, 128, 0.0),
                (1, 512, 4, 2, 32, 0, 30.0), (1, 256, 6, 3, 16, 0, 0.0),
-               (1, 256, 4, 2, 256, 64, 50.0)]   # gemma2's head dim
+               (1, 256, 4, 2, 256, 64, 50.0),   # gemma2's head dim
+               # head dims above 256: the wide kernel, unpadded
+               (1, 128, 4, 2, 272, 0, 0.0), (1, 128, 2, 2, 384, 32, 30.0),
+               (1, 128, 4, 1, 512, 0, 50.0)]
 
 
 @pytest.mark.parametrize("b,t,h,kh,dh,win,cap", FLASH_CASES)
@@ -252,6 +262,11 @@ def test_python_constants_match_the_sources():
     assert _switch_cases("flash_attention.cu") == t_flash.HEAD_DIMS
     assert _switch_cases("decode_attention.cu") == t_flash.HEAD_DIMS
     assert _switch_cases("conv1d.cu") == t_conv1d.FLS
+    # the wide kernels' widest head dim, in both sources
+    assert _constant("flash_attention.cu", "FA_WIDE_MAX_DH") == \
+        t_flash.WIDE_MAX_HEAD_DIM
+    assert _constant("decode_attention.cu", "DA_WIDE_MAX_DH") == \
+        t_flash.WIDE_MAX_HEAD_DIM
 
 
 def test_decode_workspace_covers_every_chunk():
