@@ -13,7 +13,13 @@ printing one JSON line:
              registers and spills, and per library the tensor-core
              instructions in its SASS (``cuobjdump -sass``: HMMA for
              mma.sync, HGMMA for wgmma), which shows the bf16 flash kernel
-             on the tensor cores.
+             on the tensor cores; each of the three bf16 wide flash
+             instances (dh above 256) must hold HMMA.  Then one wide
+             decode call at its timed shape (dh 512, B 4, 8 heads over 4)
+             under the profiler, in a process of its own, whose trace
+             gives the launch's grid: it
+             must be B x KH x splits blocks (one per kv head), not B x H x
+             splits (one per query head).
 3. shapes  — a traced forward (plain engine) of each CNN records the
              shapes and epilogues the main path gives each kernel.
 4. checks  — every CNN kernel against its plain PyTorch version on the card,
@@ -36,10 +42,11 @@ printing one JSON line:
              the kernel given min(pos, W - 1)), FL 2-4, odd C, strided
              input; dh 20, padded to 64 in the wrappers; the paths no
              config has: conv1d at FL 1, 5, 7 and 9 (odd C, strided and
-             contiguous x) and flash and decode at dh 272, 384, 512 and
-             1024 (the wide kernels: GQA, windows, soft-caps, query and key
-             offsets, a position per row, rings, the log-sum-exp, a cache
-             of one row)), and at the other
+             contiguous x) and flash and decode at dh 272, 301, 384, 512,
+             1024 and 2048 (the wide kernels: GQA, windows, soft-caps,
+             query and key offsets, a position per row, rings, the
+             log-sum-exp, a cache of one row, groups of 16 and 18 heads)),
+             and at the other
              LM paths' main-path shapes: mixtral's
              prefill flash (T 5120 past its window of 4096), decode at the
              mixtral, scheduler (B 4, a position per row) and gemma2
@@ -69,7 +76,12 @@ printing one JSON line:
              in its source (``FLASH_BF16_FAULTS``: text edits of
              csrc/flash_attention.cu, each built apart in a temporary
              directory, in parallel with phase 2) and the bf16 flash cases
-             above, at the same tolerance, must fail on every one.
+             above, at the same tolerance, must fail on every one: three in
+             flash_mma_kernel, two in the wide kernel (a dh slice of the
+             scores left out, a column slice of the output not rescaled).
+   decode_wide_faults — the same for the wide decode kernel
+             (``DECODE_WIDE_FAULTS``: a head of the group scored with
+             another head's q), through the bf16 wide-head decode cases.
 5. times   — each CNN kernel, its plain version and the one PyTorch library
              call (cuDNN conv / cuBLAS GEMM with TF32 off, epilogue not
              included) at the fp32 main-path shapes, and each LM kernel at
@@ -108,8 +120,10 @@ printing one JSON line:
              main-path call's tuned output held to its plain version (the
              checks' tolerance) and timed against the analytic plan (cold
              L2), forward medians tuner on and off, and how many layers
-             changed plan.  A committed table (kernels/tuned/) must not be
-             stale.
+             changed plan; and the CLI with ``repro``'s options
+             (``--net smoke --batch 2 --reps 2 --candidates 3 --out``),
+             whose table must hold exactly the smoke net's batch-2 keys.  A
+             committed table (kernels/tuned/) must not be stale.
    bench   — (before tune) the bench record at full size
              (``repro_torch.bench.telemetry_report.collect_bench`` over
              ``bench.run``'s networks: ResNet-50 and VGG-16 unfused and
@@ -194,8 +208,14 @@ printing one JSON line:
              kernel).  Then flash and decode at dh 512 (8 heads over 4, T
              and S 2048) and conv1d at FL 7 (zamba2's prefill shape) in
              bf16, cold L2, beside the bound, the plain version and SDPA /
-             depthwise F.conv1d, and the wide instances' registers and
-             spills.
+             depthwise F.conv1d (flash and decode also in fp32, and a
+             device copy of decode's K cache, as many bytes as decode
+             reads), and the wide instances' registers and
+             spills (none may spill), and the wide decode launch's grid
+             that phase build read.  Beside the wide decode
+             kernel, in turns, its yardsticks (``DECODE_WIDE_VARIANTS``,
+             built with the planted faults): the ring of bulk copies
+             alone, and the one instance of 8 heads at groups of 2 and 1.
    scheduler — ``serving.ContinuousBatcher`` on mixtral's weights: 4
              slots, 8 requests (prompts of 512-6144 tokens, budgets of 4-16,
              drawn from the seed); exact launches, each request admitted
@@ -417,11 +437,12 @@ LM_COMPARE, LM_TIMED = 8, 3
 # its fp32 wiring gate at (batch, T)
 PO_COMPARE, PO_TIMED = 2, 1
 PO_RWKV_PROFILE_T, PO_RWKV_GATE = 256, (1, 256)
-# Faults planted in the bf16 flash kernel (flash_mma_kernel), name -> (text
-# of csrc/flash_attention.cu, its replacement); the bf16 flash cases must
-# catch each.  The first two touch only rows from 1024 on, which only the
-# zamba2-shaped case has: long rows, where one key or one tile moves the
-# output least.
+# Faults planted in the bf16 flash kernels (flash_mma_kernel and, above dh
+# 256, flash_wide_mma_kernel), name -> (text of csrc/flash_attention.cu, its
+# replacement); the bf16 flash cases must catch each.  The first two touch
+# only rows from 1024 on, which only the zamba2-shaped case has: long rows,
+# where one key or one tile moves the output least.  The last two touch
+# only the wide kernel, which the wide-head cases reach.
 FLASH_BF16_FAULTS = {
     "long_rows_skip_a_tile": (       # keys 192-255
         "      continue;\n\n    // The tile's work",
@@ -432,6 +453,25 @@ FLASH_BF16_FAULTS = {
         "              const bool ok = (key < t || (key == t && t < 1024)) "
         "&& key < s.S &&"),
     "row_sum_not_rescaled": ("          l[mt][r] *= alpha;\n", ""),
+    # the wide kernel's scores leave out the last warp's slice of dh
+    "wide_skips_a_dh_slice_of_s": (
+        "      for (int j = 1; j < CS; ++j) {",
+        "      for (int j = 1; j < CS - 1; ++j) {"),
+    # the last column slice of the wide kernel's output keeps its old scale
+    "wide_column_slice_not_rescaled": (
+        "        o[d][2 * r] *= alpha;\n        o[d][2 * r + 1] *= alpha;\n",
+        "        if (cs != CS - 1) o[d][2 * r] *= alpha;\n"
+        "        if (cs != CS - 1) o[d][2 * r + 1] *= alpha;\n"),
+}
+# Faults planted in the wide decode kernel (decode_wide_kernel), name ->
+# (text of csrc/decode_attention.cu, its replacement); the wide-head decode
+# cases (bf16) must catch each.
+DECODE_WIDE_FAULTS = {
+    # the group's second head is scored with the first head's q
+    "wide_decode_head_scored_with_another_q": (
+        "*reinterpret_cast<const float4*>(qs + g * DP + c * VEC + e4);",
+        "*reinterpret_cast<const float4*>(qs + (g == 1 ? 0 : g) * DP + "
+        "c * VEC + e4);"),
 }
 # Faults planted in the CNN kernels' loop (csrc/gemm_pipe.cuh), name ->
 # (text, its replacement), each built into a conv2d and a matmul library;
@@ -451,10 +491,37 @@ CNN_FAULTS = {
                                  "c == s.C - 1 ? NO_TAP << 16 "
                                  ": (rr << 16) | tt);"),
 }
-# Where each planted fault goes: its dict, the file it edits, the sources
+# Yardsticks of the wide decode kernel, built as the planted faults are
+# (name -> text of csrc/decode_attention.cu, its replacement) and timed
+# beside it in phase wide_paths (``time_decode_variants``).
+DECODE_WIDE_VARIANTS = {
+    # the ring of bulk copies alone: every tile is copied and waited for,
+    # and no score, softmax or V pass runs (the output is not the
+    # function's)
+    "wide_decode_stream_only": (
+        "    const int nrows = min(R, r_end - (r_begin + it * R));\n",
+        "    const int nrows = min(R, r_end - (r_begin + it * R));\n"
+        "    if (nrows > 0) continue;\n"),
+    # every group on the one instance of DW_HEADS heads, in place of the
+    # instance of the fewest heads that cover it
+    "wide_decode_one_instance": (
+        "  if (dh <= 256 || dh > DA_WIDE_MAX_DH) return (int)cudaErrorInvalidValue;"
+        "\n",
+        "  if (dh <= 256 || dh > DA_WIDE_MAX_DH) return (int)cudaErrorInvalidValue;"
+        "\n  return launch_wide_gh<T, DW_HEADS>(q, k, v, pos, out, lse, ws, "
+        "tickets, s, dh, stream, blocks_per_sm);\n"),
+}
+# What each edited build holds: its dict, the file it edits, the sources
 # built with it.
 PLANTED = ((FLASH_BF16_FAULTS, "flash_attention.cu", ("flash_attention.cu",)),
-           (CNN_FAULTS, "gemm_pipe.cuh", ("conv2d.cu", "matmul.cu")))
+           (DECODE_WIDE_FAULTS, "decode_attention.cu",
+            ("decode_attention.cu",)),
+           (CNN_FAULTS, "gemm_pipe.cuh", ("conv2d.cu", "matmul.cu")),
+           (DECODE_WIDE_VARIANTS, "decode_attention.cu",
+            ("decode_attention.cu",)))
+# The bf16 wide flash instances (csrc/flash_attention.cu, launch_wide): one
+# per dh ceiling, each of which must hold HMMA instructions in its SASS
+WIDE_MMA_INSTANCES = 3
 
 
 def emit(obj: dict) -> None:
@@ -694,6 +761,37 @@ def device_kernels(fn, tries: int = 3) -> int:
     return 0
 
 
+def launch_grids(fn, kernel: str, tries: int = 4) -> tuple[list, list]:
+    """The launches of one call of fn whose kernel's name holds
+    ``kernel``, as the profiler's trace records them (name, grid and
+    block), and the names of every kernel the last trace holds.  A trace
+    without such a launch is taken again, up to ``tries`` times, with
+    host activity recorded and without it in turns (the profiler loses
+    its events now and then; ``device_kernels``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    found, seen = [], []
+    for i in range(tries):
+        acts = ([ProfilerActivity.CPU] if i % 2 == 0 else []) + [
+            ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = Path(d) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        seen = [e.get("name", "")[:80] for e in kernels]
+        found = [{"name": e["name"], "grid": e["args"].get("grid"),
+                  "block": e["args"].get("block")}
+                 for e in kernels if kernel in e.get("name", "")]
+        if found:
+            break
+    return found, seen
+
+
 def host_profile(fn, reps: int = PROFILE_REPS) -> dict:
     """Where the host's time per call of fn goes: cProfile, top functions.
 
@@ -866,10 +964,11 @@ def check_shard_splits(chk: Checker, lm_kernels: dict, da_mod,
 
 def build_with_faults(_build) -> tuple[float, dict]:
     """Phase 2: every source (``_build.build_all``) and, beside it, one nvcc
-    per planted fault of ``PLANTED``, each building its source against a
-    copy of csrc/ in a temporary directory with the one edit made.  Returns
-    the main build's nvcc seconds and (name, source stem) -> the faulty
-    library's path (in a directory that lives as long as the process)."""
+    per planted fault and yardstick of ``PLANTED``, each building its
+    source against a copy of csrc/ in a temporary directory with the one
+    edit made.  Returns the main build's nvcc seconds and (name, source
+    stem) -> the edited library's path (in a directory that lives as long
+    as the process)."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_faults_"))
     atexit.register(shutil.rmtree, tmp, True)
     procs, libs = {}, {}
@@ -878,7 +977,7 @@ def build_with_faults(_build) -> tuple[float, dict]:
             text = (_build.CSRC / edited).read_text()
             for name, (old, new) in faults.items():
                 if text.count(old) != 1:
-                    raise SystemExit(f"planted fault {name}: its text is not "
+                    raise SystemExit(f"edited build {name}: its text is not "
                                      f"in csrc/{edited} exactly once")
                 csrc = tmp / name
                 shutil.copytree(_build.CSRC, csrc)
@@ -897,7 +996,7 @@ def build_with_faults(_build) -> tuple[float, dict]:
         for tag, proc in procs.items():
             if proc.wait() != 0:
                 log = (tmp / f"{tag}.log").read_text()
-                raise SystemExit(f"planted fault {tag}: nvcc failed: "
+                raise SystemExit(f"edited build {tag}: nvcc failed: "
                                  f"{log[-2000:]}")
     finally:
         for proc in procs.values():
@@ -941,6 +1040,51 @@ def check_flash_faults(_build, fa_mod, libs: dict, gen) -> dict:
         raise SystemExit(f"the bf16 flash checks miss planted faults "
                          f"{missed}: {out}")
     return out
+
+
+def check_decode_faults(_build, da_mod, libs: dict, gen) -> dict:
+    """Each DECODE_WIDE_FAULTS library through the decode wrapper on the
+    bf16 wide-head decode cases of lm_kernel_cases, at their tolerance:
+    how many cases fail and the worst err / tol.  Raises unless every
+    fault fails one."""
+    cases = [c for c in lm_kernel_cases()
+             if c["kernel"] == "decode_attention" and c["dh"] > 256]
+    plain = da_mod.decode_attention_plain
+    out = {}
+    for name in DECODE_WIDE_FAULTS:
+        lib = load_fault(libs[name, "decode_attention"], da_mod._SIGNATURES)
+        chk = Checker()
+        with mock.patch.object(_build, "load", lambda *_: lib):
+            for case in cases:
+                args, kw = lm_operands(case, torch.bfloat16, gen)
+                got, want = da_mod.decode_attention(*args, **kw), \
+                    plain(*args, **kw)
+                if isinstance(got, tuple):
+                    got, want = got[0], want[0]
+                chk.add("decode_attention", case, got, want, case["dh"],
+                        _attn_tol(want, plain, args, kw))
+        torch.cuda.synchronize()
+        out[name] = {"cases_failed": len(chk.failures()), "of": len(cases),
+                     "max_err_over_tol": max(c["err_over_tol"]
+                                             for c in chk.cases)}
+    missed = [n for n, r in out.items() if not r["cases_failed"]]
+    if missed:
+        raise SystemExit(f"the wide decode checks miss planted faults "
+                         f"{missed}: {out}")
+    return out
+
+
+def wide_mma_hmma(tc: dict | str) -> dict:
+    """HMMA and HGMMA counts of the bf16 wide flash instances in the flash
+    library's SASS (``tensor_core_counts``); raises unless each of the
+    WIDE_MMA_INSTANCES has tensor-core instructions."""
+    found = ({} if isinstance(tc, str) else
+             {n: c for n, c in tc["by_kernel"].items()
+              if "flash_wide_mma_kernel" in n})
+    if len(found) != WIDE_MMA_INSTANCES:
+        raise SystemExit(f"build: the bf16 wide flash instances are not on "
+                         f"the tensor cores: {found or tc}")
+    return found
 
 
 def check_cnn_faults(kern, _build, libs: dict, calls: list, gen) -> dict:
@@ -1691,7 +1835,8 @@ def run_smollm_dh20(serve, lm, attn_mod, fa_mod, da_mod, counters: dict,
 
 
 def run_wide_paths(serve, lm, attn_mod, fa_mod, da_mod, counters: dict,
-                   lm_kernels: dict, peaks: dict, flush) -> dict:
+                   lm_kernels: dict, peaks: dict, flush, libs: dict,
+                   grid: dict) -> dict:
     """Phase wide_paths: the paths no config has, served through
     ``launch.serve`` as phase zamba2 (``serve_path``).  gemma2-9b's smoke
     config with 4 heads over 2 of dh WIDE_DH (the wide attention kernels,
@@ -1702,8 +1847,11 @@ def run_wide_paths(serve, lm, attn_mod, fa_mod, da_mod, counters: dict,
     kernel): a conv1d launch per layer and a flash launch per group per
     prefill, a decode launch per group per step.  Each with the three
     faults of ``planted_faults``.  Then each of ``wide_time_cases`` in
-    bf16, cold L2, beside its bound, plain version and library call, and
-    the wide instances' registers and spills."""
+    bf16, cold L2, beside its bound, plain version and library call; the
+    wide decode launch's grid at its timed shape (``wide_decode_grid``,
+    read in phase build); the wide decode kernel beside its yardsticks (``time_decode_variants``);
+    and the wide instances' registers and spills, none of which may
+    spill."""
     from repro_torch.kernels import _build
     g_cfg, g_params = cut_model(lm, "gemma2-9b", smoke=True,
                                 d_head=WIDE_DH)
@@ -1729,24 +1877,125 @@ def run_wide_paths(serve, lm, attn_mod, fa_mod, da_mod, counters: dict,
                                        z_cfg.n_groups))
     del z_params
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    times = {}
+    times, times_fp32 = {}, {}
     for case in wide_time_cases():
         kname = case["kernel"]
         times[kname] = time_lm_case(*lm_kernels[kname], case, torch.bfloat16,
                                     peaks, flush, gen, plain_reps=3)
+        if kname == "decode_attention":
+            # a yardstick of the memory system, not a bound: a device copy
+            # of the K cache moves as many bytes as decode reads
+            args, _ = lm_operands(case, torch.bfloat16, gen)
+            times[kname]["cache_copy_ms"] = cold_time_ms(args[1].clone, flush)
+            del args
+        if kname != "conv1d_causal":
+            # the fp32 instances (the CUDA cores; TF32 stays off) beside
+            times_fp32[kname] = time_lm_case(
+                *lm_kernels[kname], case, torch.float32, peaks, flush, gen,
+                reps=5, plain_reps=1)
     ptx = {n: {**ptxas_instances(_build.build_log(n), "wide"),
                **ptxas_instances(_build.build_log(n), "any")}
            for n in ("flash_attention", "decode_attention", "conv1d")}
-    emit({"phase": "wide_paths",
+    spilled = {k: r for n in ("flash_attention", "decode_attention")
+               for k, r in ptx[n].items() if r.get("spill_store_bytes")
+               or r.get("spill_load_bytes")}
+    variants = time_decode_variants(_build, da_mod, libs,
+                                    wide_time_cases()[1], flush, gen)
+    emit({"phase": "wide_paths", "decode_grid": grid,
+          "decode_variants": variants,
           "served": {r["phase"]: {f: r[f] for f in (
               "launches_per_prefill", "launches_per_decode_step")}
                      for r in (wide, any_fl)},
           "ptxas": ptx,
           "times_bf16": {k: {f: r[f] for f in (
               "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-              "max_abs_err")} for k, r in times.items()}})
+              "max_abs_err", "cache_copy_ms") if f in r}
+                         for k, r in times.items()},
+          "times_fp32": {k: {f: r[f] for f in (
+              "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+                         for k, r in times_fp32.items()}})
+    if spilled:
+        raise SystemExit(f"wide_paths: wide instances that spill {spilled}")
     return {"wide": wide, "any_fl": any_fl, "ptxas": ptx,
-            "times_bf16": times}
+            "times_bf16": times, "times_fp32": times_fp32,
+            "decode_grid": grid, "decode_variants": variants}
+
+
+def wide_decode_grid() -> dict:
+    """``print_decode_grid`` in a process of its own, which prints the wide
+    decode launch's grid as its last line.  Not in this process: here,
+    profiler sessions after one whose trace was exported recorded no
+    device activity, and a trace taken late in the run held no kernel."""
+    code = (f"import sys; sys.path[:0] = [{str(HERE / 'src')!r}, "
+            f"{str(HERE)!r}]; import chip_smoke; "
+            f"chip_smoke.print_decode_grid()")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode:
+        raise SystemExit(f"build: the wide decode grid's process failed: "
+                         f"{out.stdout[-1000:]} {out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def print_decode_grid() -> None:
+    """Prints the wide decode launch at its timed shape
+    (``wide_time_cases``), bf16, as the profiler's trace of one wrapper
+    call records it (``launch_grids``), beside the splits the wrapper
+    planned: its blocks must be B x KH x splits (one per kv head, the
+    group's heads scored together), not B x H x splits (one per query
+    head)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da_mod
+    case = wide_time_cases()[1]
+    b, s, h, kh, dh = (case[k] for k in ("b", "s", "h", "kh", "dh"))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    args, kw = lm_operands(case, torch.bfloat16, gen)
+    launches, seen = launch_grids(
+        lambda: da_mod.decode_attention(*args, **kw), "decode_wide_kernel")
+    lib = _build.load("decode_attention", da_mod._SIGNATURES)
+    slots = da_mod._resident_blocks(lib, torch.device(DEVICE), 1, h, kh, dh)
+    plan = da_mod.launch_plan(b, s, h, kh, dh, slots)
+    emit({"launches": launches, "slots": slots, "splits": plan.splits,
+          "split_tiles": plan.split_tiles,
+          "blocks": (math.prod(launches[0]["grid"])
+                     if len(launches) == 1 and launches[0]["grid"] else None),
+          "b_kh_splits": b * kh * plan.splits,
+          "b_h_splits": b * h * plan.splits,
+          **({} if launches else {"traced_kernels": seen})})
+
+
+def time_decode_variants(_build, da_mod, libs: dict, case: dict, flush,
+                         gen) -> dict:
+    """The wide decode kernel beside its yardsticks (``DECODE_WIDE_VARIANTS``)
+    through the wrapper, bf16, cold L2, in turns (kernel, variant, variant,
+    kernel): the stream alone at the case's shape, and the one instance of
+    DW_HEADS heads at the case's group and at a group of one (H = KH, the
+    same cache), with the largest difference of its output from the
+    kernel's."""
+    base = _build.load("decode_attention", da_mod._SIGNATURES)
+
+    def run(lib, fn, timed: bool):
+        with mock.patch.object(_build, "load", lambda *_: lib), \
+                mock.patch.dict(da_mod._slots, clear=True):
+            return cold_time_ms(fn, flush) if timed else fn()
+
+    out = {}
+    for name, groups in (("wide_decode_stream_only", (case["h"] // case["kh"],)),
+                         ("wide_decode_one_instance",
+                          (case["h"] // case["kh"], 1))):
+        lib = load_fault(libs[name, "decode_attention"], da_mod._SIGNATURES)
+        for g in groups:
+            c = {**case, "h": case["kh"] * g}
+            args, kw = lm_operands(c, torch.bfloat16, gen)
+            fn = lambda: da_mod.decode_attention(*args, **kw)
+            ms = [run(l, fn, True) for l in (base, lib, lib, base)]
+            row = {"kernel_ms": [ms[0], ms[3]], "variant_ms": [ms[1], ms[2]]}
+            if name == "wide_decode_one_instance":
+                row["max_abs_diff"] = (run(lib, fn, False).float()
+                                       - run(base, fn, False).float()
+                                       ).abs().max().item()
+            out[f"{name} G {g}"] = row
+    return out
 
 
 def run_bench(baseline: Path) -> dict:
@@ -1838,6 +2087,16 @@ def run_tune(kern, calls: dict, paths: dict, x, counters: dict,
     tune_s = time.perf_counter() - t0
     autotune.save_user_cache(entries)
     autotune.reset()
+    # the CLI with repro's batch and budget options: the smoke net at batch
+    # 2 into a table of its own, whose keys must be the batch-2 keys
+    b2_path = os.path.join(tmp, "smoke_batch2.json")
+    tune.main(["--net", "smoke", "--batch", "2", "--reps", "2",
+               "--candidates", "3", "--out", b2_path])
+    with open(b2_path) as f:
+        b2_keys = sorted(json.load(f)["entries"])
+    cli_batch2 = {"keys": len(b2_keys), "match": b2_keys == sorted(
+        {tune.layer_key(l, 2) for l in tune.net_layers("smoke")}),
+                  "first_key": b2_keys[0] if b2_keys else None}
     changed = {k: [records[k][0]["short"], e.config.short, e.default_ms,
                    e.tuned_ms]
                for k, e in entries.items() if e.config != records[k][0][
@@ -1918,7 +2177,10 @@ def run_tune(kern, calls: dict, paths: dict, x, counters: dict,
         autotune.disable()
         autotune.reset()
         del os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    if not cli_batch2["match"]:
+        problems.append("cli --batch 2")
     rec = {"phase": "tune", "keys": len(entries), "tune_seconds": tune_s,
+           "cli_batch2": cli_batch2,
            "changed_plan": len(changed), "changed": changed,
            "committed_tables_stale": stale, "per_net": per_net}
     emit(rec)
@@ -2759,13 +3021,20 @@ def main() -> int:
                         for line in _build.build_log(src.stem).splitlines()
                         if "registers" in line or "spill" in line]
              for src in _build.sources()}
+    tc_sass = {src.stem: tensor_core_counts(_build.build_dir()
+                                            / f"lib{src.stem}.so")
+               for src in _build.sources()}
+    wide_hmma = wide_mma_hmma(tc_sass["flash_attention"])
+    decode_grid = wide_decode_grid()
     emit({"phase": "build", "nvcc_seconds": nvcc_s,
           "seconds": time.perf_counter() - t0,
           "ptxas": {n: ptxas_summary(lines) for n, lines in ptxas.items()},
-          "tensor_core_sass": {
-              src.stem: tensor_core_counts(_build.build_dir()
-                                           / f"lib{src.stem}.so")
-              for src in _build.sources()}})
+          "tensor_core_sass": tc_sass, "wide_flash_bf16_hmma": wide_hmma,
+          "wide_decode_grid": decode_grid})
+    if (decode_grid["blocks"] != decode_grid["b_kh_splits"]
+            or decode_grid["blocks"] == decode_grid["b_h_splits"]):
+        raise SystemExit(f"build: the wide decode launch's grid is not one "
+                         f"block per kv head: {decode_grid}")
 
     # 3. main-path shapes (plain engine, traced: no kernel launch)
     gen = torch.Generator().manual_seed(SEED)
@@ -2863,6 +3132,10 @@ def main() -> int:
     t0 = time.perf_counter()
     emit({"phase": "flash_bf16_faults",
           **check_flash_faults(_build, fa_mod, fault_libs, dgen),
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "decode_wide_faults",
+          **check_decode_faults(_build, da_mod, fault_libs, dgen),
           "seconds": time.perf_counter() - t0})
     train_k = check_train_kernels(fa_mod, c1_mod, dgen)
 
@@ -2975,7 +3248,7 @@ def main() -> int:
                              lm_kernels, peaks, flush)
     t0 = time.perf_counter()
     wide = run_wide_paths(serve, lm, attn_mod, fa_mod, da_mod, counters,
-                          lm_kernels, peaks, flush)
+                          lm_kernels, peaks, flush, fault_libs, decode_grid)
     emit({"phase": "wide_paths", "seconds": time.perf_counter() - t0})
     free()
     t0 = time.perf_counter()
@@ -3091,6 +3364,9 @@ def main() -> int:
             ("conv1d_causal", wide["any_fl"], f"runtime FL (FL {WP_FL})")):
         src, replaces = lm_sources[kname]
         r = wide["times_bf16"][kname]
+        stem = Path(src).stem
+        tag = {"flash_attention": "flash_wide", "decode_attention":
+               "decode_wide", "conv1d_causal": "any"}[kname]
         line.append({
             "name": f"{kname} {what}", "route": "cuda", "source": src,
             "replaces": replaces, "launches": path["launches"][kname],
@@ -3098,7 +3374,18 @@ def main() -> int:
             **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
             "shapes": "one call, bf16: " + json.dumps(
-                {k: v for k, v in r["case"].items() if k != "kernel"})})
+                {k: v for k, v in r["case"].items() if k != "kernel"}),
+            "ptxas": {n: v for n, v in wide["ptxas"][stem].items()
+                      if tag in n},
+            **({"hmma": wide_hmma} if kname == "flash_attention" else {}),
+            **({"fp32": {f: wide["times_fp32"][kname][f] for f in (
+                "ms", "plain_ms", "bound_ms", "max_abs_err")}}
+               if kname in wide["times_fp32"] else {}),
+            **({"cache_copy_ms": r["cache_copy_ms"]}
+               if "cache_copy_ms" in r else {}),
+            **({"grid": wide["decode_grid"],
+                "yardsticks": wide["decode_variants"]}
+               if kname == "decode_attention" else {})})
     emit({"kernels": line})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -334,8 +334,10 @@ def wide_head_cases() -> list[dict]:
     runtime argument): dh 272, 384, 512 and 1024, each with GQA, a window,
     a soft-cap and a query offset (flash), and a position per row, a
     window over a linear cache, a ring before and after it wraps, a key
-    offset with the log-sum-exp and a cache of one row (decode); and dh
-    301."""
+    offset with the log-sum-exp and a cache of one row (decode); dh 301;
+    dh 2048, the widest (bf16: one warp group of 16 query rows, 16 keys a
+    tile); and groups of more heads than a wide block holds (decode: 16 over
+    1 at dh 520, two blocks per kv head; flash: 18 over 1 at dh 600)."""
     fa, da = flash_case, decode_case
     out = []
     for dh in (272, 384, 512, 1024):
@@ -351,7 +353,13 @@ def wide_head_cases() -> list[dict]:
     # a row of 301 elements is no whole number of 16-byte pieces: flash
     # copies its K/V tiles element by element
     return out + [fa(1, 70, 4, 2, 301, 20, 30.0), fa(2, 33, 2, 1, 301),
-                  da(2, 90, 4, 2, 301, (89, 40), window=50)]
+                  da(2, 90, 4, 2, 301, (89, 40), window=50),
+                  fa(1, 40, 4, 2, 2048), fa(1, 33, 2, 1, 2048, 9, 30.0,
+                                             q_offset=3),
+                  da(2, 300, 4, 2, 2048, (299, 77)),
+                  da(2, 700, 4, 1, 2048, (699, 300), softcap=20.0, lse=True),
+                  da(1, 200, 16, 1, 520, (150,), window=60),
+                  fa(1, 70, 18, 1, 600)]
 
 
 WIDE_DH = 512   # the wide kernels' timed head dim

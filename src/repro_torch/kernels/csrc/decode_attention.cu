@@ -90,22 +90,39 @@
 //
 // Head dims above 256 (no config has one; the Pallas kernel takes any dh):
 // decode_wide_kernel, dh a runtime argument up to DA_WIDE_MAX_DH, fp32 and
-// bf16, on the CUDA cores, with the same splits, workspace, tickets and
-// combine as above and every option (a position per row, window, soft-cap,
-// rings through pos, k_offset, the log-sum-exp). A block owns one query
-// head of one split (grid (n_splits, H, B)), so a split's rows are read
-// once per head of the group, not once per kv head. Its DA_WIDE_WARPS
-// warps take groups of DA_WIDE_KEYS consecutive rows in turn, each warp
-// with its own running max, sum and fp32 output row: a lane holds dims
-// lane + 32 i (i < NJ; NJ 16, 32 and 64 take dh up to 512, 1024 and 2048)
-// of q and of the output, and reads the rows' K and V from device memory,
-// 32 neighbouring elements a load (a row is read by one warp only, so
-// shared memory would only stage it). A score is the lanes' partial
-// products summed by shuffles. The warps' partials are merged in warp
-// order through shared memory into the split's workspace entry, and the
-// last of the (b, kh)'s split x head blocks to finish combines all G heads
-// as the narrow kernel does. Past dh 2048 a lane's q and output would take
-// 128 registers each: the entry point refuses it.
+// bf16, with the same splits, workspace, tickets and combine as above and
+// every option (a position per row, window, soft-cap, rings through pos,
+// k_offset, the log-sum-exp). Bound by bytes as the narrow kernel is (at B
+// 4, S 2048, 8 heads over 4 of dh 512: 67 MB of bf16 cache, 0.020 ms). As
+// the narrow kernel, one block per (split, kv head, batch), grid
+// (n_splits, KH, B), scores all G query heads of the group against each row
+// it streams, so each byte of K and V is read once per kv head. A block
+// holds GH heads, a template parameter (1, 2, 4 or DW_HEADS = 8: the
+// fewest that cover the group; heads past the group's have zero q and are
+// never written), so every loop over heads is straight-line code; a group
+// of more than 8 heads (no config has one above dh 256) takes ceil(G / 8)
+// blocks per (split, kv head), each reading the split's rows for its heads,
+// and the tickets count them. The rows go through a ring of DW_SLOTS tiles
+// in shared memory, as many rows a tile as DW_SMEM leaves room for (32 at
+// dh 512 in bf16, 64 KB of K and V; 8 at dh 2048), filled by Hopper's bulk
+// copies (cp.async.bulk, the Tensor Memory Accelerator): a lane of warp 0
+// copies one K and one V row in one instruction each, and the tile's bytes
+// complete a transaction barrier (mbarrier) that the block waits on (the
+// rows marked evict-first in the L2: each is read once a step), so
+// DW_SLOTS - 1 tiles (128 KB at dh 512) are in flight while one is computed
+// and no thread spends registers or issue slots on the copy. Where dh is
+// no multiple of 16 bytes (301) every thread copies elements instead,
+// zero-filled to the next piece. Scores: a warp takes two rows at a time,
+// its lanes the rows' 16-byte pieces, each piece read once from shared
+// memory for all GH heads (q in shared memory as fp32), the sums reduced by
+// shuffles. The online softmax is one warp per head, in shared memory. The
+// V pass gives each thread one 16-byte piece (two in fp32 at dh above 1024)
+// of a group of rows, read once for all heads, and keeps the GH partial
+// outputs of that piece in registers across tiles; the row groups'
+// partials are summed in a fixed order at the end. The last block of a
+// (b, kh) combines the splits as the narrow kernel does, but takes each
+// head's max and split weights once, in shared memory, instead of once per
+// output column.
 #include "numeric.cuh"
 #include "ptx.cuh"
 
@@ -146,7 +163,7 @@ struct DecodeSmem {
   // split over this many groups of them; thread t owns units t + j *
   // DA_THREADS, j < DA_SLOTS, unit u being row group u / items of item
   // u % items.
-  __host__ __device__ static int row_groups(int G) {
+  __host__ __device__ static constexpr int row_groups(int G) {
     const int items = G * PIECES;
     return items >= DA_THREADS ? 1 : DA_THREADS / items;
   }
@@ -389,9 +406,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (tid == 0) *ticket = 0;
 }
 
-constexpr int DA_WIDE_WARPS = 4;      // warps of a block, one head
-constexpr int DA_WIDE_KEYS = 8;       // rows a warp scores at once
 constexpr int DA_WIDE_MAX_DH = 2048;  // the widest head dim it takes
+constexpr int DW_THREADS = 256;       // threads of a wide block
+constexpr int DW_WARPS = DW_THREADS / 32;
+constexpr int DW_HEADS = 8;           // heads of the group a block holds
+constexpr int DW_SLOTS = 3;           // tiles of the ring
+constexpr int DW_SMEM = 220 * 1024;   // shared memory a block may take
+constexpr int DW_MAX_ROWS = 32;       // rows of a tile (a lane each)
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -400,22 +421,134 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(32 * DA_WIDE_WARPS)
+// The 32 lanes' x added in lane order (lane 0 first), on lane 0: a sum
+// that does not depend on how the values were spread over the lanes.
+__device__ __forceinline__ float warp_sum_ordered(float x) {
+  float sum = 0.f;
+  for (int i = 0; i < 32; ++i) sum += __shfl_sync(0xffffffffu, x, i);
+  return sum;
+}
+
+// Hopper's bulk copies (the Tensor Memory Accelerator) and transaction
+// barriers, for the wide kernel's ring: one instruction moves a whole row
+// from device memory to shared memory and counts its bytes on an mbarrier
+// in shared memory, so no thread holds the copy.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+// Makes the barriers' initialisation visible to the bulk copies.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// The one arrival of a phase, which also expects `bytes` of copies.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Waits until the phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// bytes (a multiple of 16, both ends 16-byte aligned) from src to dst,
+// counted on bar. The cache is read once a step, so its lines are the L2's
+// first to go (evict_first), not the lines other work left there.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// The wide kernel's layout for T, GH heads held (a power of 2, the
+// group's heads or DW_HEADS), at head dim dh: rows of DP elements (dh
+// rounded up to whole 16-byte pieces); shared memory: fp32 q [GH][DP]
+// (zero rows past the group's heads), scores / rounded p [GH][R], max,
+// sum and rescale [3][GH], then the ring [DW_SLOTS][K, V][R][DP] of T
+// (after the walk, the row groups' partial outputs, fp32), its tiles of R
+// rows as many as DW_SMEM leaves room for (a multiple of 8 where 8 fit, at
+// most DW_MAX_ROWS).
+template <typename T, int GH>
+struct DecodeWide {
+  static constexpr int VEC = Vec16<T>::N;
+  // 16-byte pieces of a row a thread holds in the V pass: 1 (bf16), 2 (fp32)
+  static constexpr int PSLOTS = DA_WIDE_MAX_DH / VEC / DW_THREADS;
+  __host__ __device__ static constexpr int row_elems(int dh) {
+    return (dh + VEC - 1) / VEC * VEC;
+  }
+  // bytes before the ring, rounded up to 16 for its 16-byte copies
+  __host__ __device__ static constexpr int head_bytes(int dh) {
+    return ((int)sizeof(float) * GH * (row_elems(dh) + DW_MAX_ROWS + 3) +
+            15) / 16 * 16;
+  }
+  __host__ __device__ static constexpr int tile_rows(int dh) {
+    const int r = (DW_SMEM - head_bytes(dh)) /
+                  (DW_SLOTS * 2 * row_elems(dh) * (int)sizeof(T));
+    return r >= DW_MAX_ROWS ? DW_MAX_ROWS : r >= 8 ? r / 8 * 8 : r;
+  }
+  // row groups of the V pass: threads over the row's pieces
+  __host__ __device__ static constexpr int row_groups(int dh) {
+    const int pieces = row_elems(dh) / VEC;
+    return pieces >= DW_THREADS ? 1 : DW_THREADS / pieces;
+  }
+  __host__ __device__ static constexpr int ring_bytes(int dh) {
+    const int ring =
+        DW_SLOTS * 2 * tile_rows(dh) * row_elems(dh) * (int)sizeof(T);
+    const int part =
+        (int)sizeof(float) * row_groups(dh) * GH * row_elems(dh);
+    return ring > part ? ring : part;
+  }
+  __host__ __device__ static constexpr size_t bytes(int dh) {
+    return (size_t)head_bytes(dh) + ring_bytes(dh);
+  }
+};
+
+// the softmax takes a tile's rows one a lane, all 32 lanes writing
+static_assert(DW_MAX_ROWS == 32);
+// the widest rows leave room for a tile of at least one row
+static_assert(DecodeWide<float, DW_HEADS>::tile_rows(DA_WIDE_MAX_DH) >= 1);
+
+template <typename T, int GH>
+__global__ void __launch_bounds__(DW_THREADS, 1)
 decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ pos,
                    T* __restrict__ out, float* __restrict__ lse,
                    float* __restrict__ ws_m, float* __restrict__ ws_l,
                    float* __restrict__ ws_acc, int* __restrict__ tickets,
                    DecodeShape s, int DH) {
-  extern __shared__ __align__(16) float dw_smem[];
-  float* part = dw_smem;                           // [warp][DH]
-  float* wm = part + DA_WIDE_WARPS * DH;           // [warp]
-  float* wl = wm + DA_WIDE_WARPS;                  // [warp]
+  using W = DecodeWide<T, GH>;
+  constexpr int VEC = W::VEC, PSLOTS = W::PSLOTS;
+  const int DP = W::row_elems(DH), PIECES = DP / VEC, R = W::tile_rows(DH);
+  const int n_chunks = ceil_div(s.G, GH);
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  float* qs = reinterpret_cast<float*>(dw_smem);
+  float* ps = qs + GH * DP;
+  float* m_s = ps + GH * DW_MAX_ROWS;
+  float* l_s = m_s + GH;
+  float* alpha_s = l_s + GH;
+  T* ring = reinterpret_cast<T*>(dw_smem + W::head_bytes(DH));
   __shared__ int last;
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / s.G, g = h % s.G;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kh = blockIdx.y / n_chunks;
+  const int g0 = (blockIdx.y - kh * n_chunks) * GH;   // the block's heads
+  const int ng = min(GH, s.G - g0);
   const int p = pos[b] - s.k_offset;   // pos as a row of this cache
   int kmax = min(p, s.S - 1);
   int kmin = s.window > 0 ? max(0, p - s.window + 1) : 0;
@@ -427,163 +560,306 @@ decode_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // every row in [r_begin, r_end) is visible
   const int r_begin = max(split * split_rows, kmin);
   const int r_end = min(split * split_rows + split_rows, kmax + 1);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_tiles = ceil_div(max(0, r_end - r_begin), R);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t row_stride = (int64_t)s.KH * DH;
-  const T* kb = k + (int64_t)b * s.S * row_stride + (int64_t)kh * DH;
-  const T* vb = v + (int64_t)b * s.S * row_stride + (int64_t)kh * DH;
+  const int64_t base = (int64_t)b * s.S * row_stride + (int64_t)kh * DH;
+  const bool vec = DH % VEC == 0;
 
-  float qr[NJ], acc[NJ];
-#pragma unroll
-  for (int i = 0; i < NJ; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = d < DH ? to_f32(q[((int64_t)b * s.H + h) * DH + d]) : 0.f;
-    acc[i] = 0.f;
-  }
-  float m = DA_NEG_INF, l = 0.f;
-  for (int r0 = r_begin + warp * DA_WIDE_KEYS; r0 < r_end;
-       r0 += DA_WIDE_WARPS * DA_WIDE_KEYS) {
-    float sc[DA_WIDE_KEYS];
-    float mx = DA_NEG_INF;
-#pragma unroll
-    for (int j = 0; j < DA_WIDE_KEYS; ++j) {
-      const int r = r0 + j;
-      float dot = 0.f;
-      if (r < r_end) {
-#pragma unroll
-        for (int i = 0; i < NJ; ++i) {
-          const int d = lane + 32 * i;
-          if (d < DH) dot = fmaf(qr[i], to_f32(kb[r * row_stride + d]), dot);
-        }
-      }
-      float x = warp_sum(dot) * s.scale;
-      if (s.softcap > 0.f) x = s.softcap * tanhf(x / s.softcap);
-      sc[j] = r < r_end ? x : DA_NEG_INF;
-      mx = fmaxf(mx, sc[j]);
-    }
-    const float m_new = fmaxf(m, mx);   // the group has a row: finite
-    const float alpha = expf(m - m_new);
-    float rs = 0.f;
-#pragma unroll
-    for (int i = 0; i < NJ; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int j = 0; j < DA_WIDE_KEYS; ++j) {
-      const int r = r0 + j;
-      if (r >= r_end) break;
-      const float pj = expf(sc[j] - m_new);
-      rs += pj;
-      const float pr = round_to<T>(pj);
-#pragma unroll
-      for (int i = 0; i < NJ; ++i) {
-        const int d = lane + 32 * i;
-        if (d < DH) acc[i] = fmaf(pr, to_f32(vb[r * row_stride + d]), acc[i]);
-      }
-    }
-    l = l * alpha + rs;
-    m = m_new;
-  }
-
-  // the warps' partials merged in warp order into the split's entry
-  if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
-  }
-#pragma unroll
-  for (int i = 0; i < NJ; ++i) {
-    const int d = lane + 32 * i;
-    if (d < DH) part[warp * DH + d] = acc[i];
+  // the ring's barriers: tile it has landed in slot it % DW_SLOTS when
+  // phase it / DW_SLOTS of full[it % DW_SLOTS] completes
+  __shared__ __align__(8) uint64_t full[DW_SLOTS];
+  if (tid == 0) {
+    for (int i = 0; i < DW_SLOTS; ++i) mbar_init(full + i);
+    mbar_init_fence();
   }
   __syncthreads();
-  float M = DA_NEG_INF;
-  for (int w = 0; w < DA_WIDE_WARPS; ++w) M = fmaxf(M, wm[w]);
-  const int64_t wi = ws_index(s, b, kh, split, g);
-  for (int d = threadIdx.x; d < DH; d += 32 * DA_WIDE_WARPS) {
-    float a = 0.f;
-    for (int w = 0; w < DA_WIDE_WARPS; ++w)
-      a += part[w * DH + d] * expf(wm[w] - M);
-    ws_acc[wi * DH + d] = a;
+
+  // tile `it` (rows r_begin + R it ..) into slot it % DW_SLOTS: K rows,
+  // then V rows, of DP elements. Rows of whole 16-byte pieces: warp 0's
+  // lanes each copy a row of K and of V in one bulk copy; otherwise every
+  // thread copies elements (zeros past dh), seen after the next barrier.
+  auto load_tile = [&](int it) {
+    if (it >= n_tiles) return;
+    const int r0 = r_begin + it * R;
+    const int nrows = min(R, r_end - r0);
+    T* ks = ring + (it % DW_SLOTS) * 2 * R * DP;
+    T* vs = ks + R * DP;
+    if (vec) {
+      if (warp != 0) return;
+      uint64_t* bar = full + it % DW_SLOTS;
+      const uint32_t row_bytes = DH * sizeof(T);
+      if (lane == 0) mbar_expect(bar, 2 * nrows * row_bytes);
+      __syncwarp();
+      for (int r = lane; r < nrows; r += 32) {
+        const int64_t off = base + (int64_t)(r0 + r) * row_stride;
+        bulk_copy(ks + r * DP, k + off, row_bytes, bar);
+        bulk_copy(vs + r * DP, v + off, row_bytes, bar);
+      }
+    } else {
+      for (int i = tid; i < nrows * DP; i += DW_THREADS) {
+        const int r = i / DP, c = i - r * DP;
+        const int64_t off = base + (int64_t)(r0 + r) * row_stride + c;
+        ks[i] = c < DH ? k[off] : from_f32<T>(0.f);
+        vs[i] = c < DH ? v[off] : from_f32<T>(0.f);
+      }
+    }
+  };
+#pragma unroll
+  for (int it = 0; it < DW_SLOTS - 1; ++it) load_tile(it);
+  // q of the block's heads; heads past the group's are zeros, scored and
+  // summed like the others but never written
+  for (int i = tid; i < GH * DP; i += DW_THREADS) {
+    const int g = i / DP, d = i - g * DP;
+    qs[i] = g < ng && d < DH
+                ? to_f32(q[((int64_t)b * s.H + kh * s.G + g0 + g) * DH + d])
+                : 0.f;
   }
-  if (threadIdx.x == 0) {
-    float L = 0.f;
-    for (int w = 0; w < DA_WIDE_WARPS; ++w) L += wl[w] * expf(wm[w] - M);
-    ws_m[wi] = M;
-    ws_l[wi] = L;
+  if (tid < GH) {
+    m_s[tid] = DA_NEG_INF;
+    l_s[tid] = 0.f;
   }
 
-  // the last of the (b, kh)'s split x head blocks combines all G heads
+  // the V pass's units of this thread: piece u % PIECES of row group
+  // u / PIECES, its heads' partial outputs kept in registers across tiles
+  const int groups = W::row_groups(DH);
+  float a[PSLOTS][GH][VEC];
+#pragma unroll
+  for (int j = 0; j < PSLOTS; ++j)
+#pragma unroll
+    for (int g = 0; g < GH; ++g)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) a[j][g][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (vec) mbar_wait(full + it % DW_SLOTS, (it / DW_SLOTS) & 1);
+    __syncthreads();   // tile it has landed; tile it - 1 is consumed
+    load_tile(it + DW_SLOTS - 1);   // into tile it - 1's slot
+    const T* ks = ring + (it % DW_SLOTS) * 2 * R * DP;
+    const T* vs = ks + R * DP;
+    const int nrows = min(R, r_end - (r_begin + it * R));
+
+    // scores: a warp takes rows r and r + DW_WARPS, its lanes their
+    // pieces; each piece of K is read once for all GH heads
+    for (int r = warp; r < nrows; r += 2 * DW_WARPS) {
+      const int r2 = min(r + DW_WARPS, nrows - 1);   // r again past the tile
+      float dot[2][GH];
+#pragma unroll
+      for (int g = 0; g < GH; ++g) dot[0][g] = dot[1][g] = 0.f;
+      for (int c = lane; c < PIECES; c += 32) {
+        float f[2][VEC];
+        load16(ks + r * DP + c * VEC, f[0]);
+        load16(ks + r2 * DP + c * VEC, f[1]);
+#pragma unroll
+        for (int g = 0; g < GH; ++g) {
+#pragma unroll
+          for (int e4 = 0; e4 < VEC; e4 += 4) {
+            const float4 qq =
+                *reinterpret_cast<const float4*>(qs + g * DP + c * VEC + e4);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              dot[i][g] = fmaf(f[i][e4], qq.x, dot[i][g]);
+              dot[i][g] = fmaf(f[i][e4 + 1], qq.y, dot[i][g]);
+              dot[i][g] = fmaf(f[i][e4 + 2], qq.z, dot[i][g]);
+              dot[i][g] = fmaf(f[i][e4 + 3], qq.w, dot[i][g]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GH; ++g) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float x = warp_sum(dot[i][g]) * s.scale;
+          if (s.softcap > 0.f) x = s.softcap * tanhf(x / s.softcap);
+          if (lane == 0) ps[g * DW_MAX_ROWS + (i ? r2 : r)] = x;
+        }
+      }
+    }
+    __syncthreads();
+
+    // the online softmax, one warp per head (a lane per row)
+    for (int g = warp; g < GH; g += DW_WARPS) {
+      const float x = lane < nrows ? ps[g * DW_MAX_ROWS + lane] : DA_NEG_INF;
+      float mx = x;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = m_s[g];
+      const float m_new = fmaxf(m_old, mx);   // the tile has a row: finite
+      const float pr = lane < nrows ? expf(x - m_new) : 0.f;
+      const float sum = warp_sum(pr);
+      ps[g * DW_MAX_ROWS + lane] = round_to<T>(pr);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        alpha_s[g] = alpha;
+        l_s[g] = l_s[g] * alpha + sum;
+        m_s[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // the unnormalised outputs, rescaled to the new max; each row's piece
+    // read once for all heads
+#pragma unroll
+    for (int j = 0; j < PSLOTS; ++j) {
+      const int u = tid + j * DW_THREADS;
+      if (u < PIECES * groups) {
+        const int c = (u % PIECES) * VEC;
+#pragma unroll
+        for (int g = 0; g < GH; ++g) {
+          const float alpha = alpha_s[g];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) a[j][g][e] *= alpha;
+        }
+        for (int r = u / PIECES; r < nrows; r += groups) {
+          float f[VEC];
+          load16(vs + r * DP + c, f);
+#pragma unroll
+          for (int g = 0; g < GH; ++g) {
+            const float pg = ps[g * DW_MAX_ROWS + r];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              a[j][g][e] = fmaf(pg, f[e], a[j][g][e]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();   // the ring is free (every tile it copied was waited)
+
+  // the split's partials: the row groups' sums added in a fixed order
+  // (part[(row group * GH + head) * DP + column])
+  float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int j = 0; j < PSLOTS; ++j) {
+    const int u = tid + j * DW_THREADS;
+    if (u < PIECES * groups) {
+      const int grp = u / PIECES, c = (u % PIECES) * VEC;
+#pragma unroll
+      for (int g = 0; g < GH; ++g)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          part[(grp * GH + g) * DP + c + e] = a[j][g][e];
+    }
+  }
+  __syncthreads();
+  for (int o = tid; o < ng * DH; o += DW_THREADS) {
+    const int g = o / DH, d = o - g * DH;
+    float sum = 0.f;
+    for (int r = 0; r < groups; ++r) sum += part[(r * GH + g) * DP + d];
+    ws_acc[ws_index(s, b, kh, split, g0 + g) * DH + d] = sum;
+  }
+  if (tid < ng) {
+    ws_m[ws_index(s, b, kh, split, g0 + tid)] = m_s[tid];
+    ws_l[ws_index(s, b, kh, split, g0 + tid)] = l_s[tid];
+  }
+
+  // the last of the (b, kh)'s blocks (splits x head chunks) combines all
+  // G heads, splits in order: each head's max M and weights e^(m_i - M)
+  // once, in the freed ring (launch_wide_gh checks that they fit), then
+  // out = sum_i acc_i w_i / sum_i l_i w_i
   __threadfence();
   __syncthreads();
   int* ticket = tickets + (int64_t)b * s.KH + kh;
-  if (threadIdx.x == 0)
-    last = atomicAdd(ticket, 1) == (n_run - first_run) * s.G - 1;
+  if (tid == 0)
+    last = atomicAdd(ticket, 1) == (n_run - first_run) * n_chunks - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int o = threadIdx.x; o < s.G * DH; o += 32 * DA_WIDE_WARPS) {
-    const int gg = o / DH;
-    float Mg = DA_NEG_INF;
-    for (int i = first_run; i < n_run; ++i)
-      Mg = fmaxf(Mg, __ldcg(ws_m + ws_index(s, b, kh, i, gg)));
-    float L = 0.f, A = 0.f;
-    for (int i = first_run; i < n_run; ++i) {
-      const int64_t w = ws_index(s, b, kh, i, gg);
-      const float scale = expf(__ldcg(ws_m + w) - Mg);
-      L += __ldcg(ws_l + w) * scale;
-      A += __ldcg(ws_acc + ws_index(s, b, kh, i, 0) * DH + o) * scale;
+  const int n_sp = n_run - first_run;
+  float* wts = part;               // [G][n_sp]
+  float* den = wts + s.G * n_sp;   // [G]: sum_i l_i w_i
+  for (int g = warp; g < s.G; g += DW_WARPS) {
+    float M = DA_NEG_INF;
+    for (int i = lane; i < n_sp; i += 32)
+      M = fmaxf(M, __ldcg(ws_m + ws_index(s, b, kh, first_run + i, g)));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+    float L = 0.f;
+    for (int i = lane; i < n_sp; i += 32) {
+      const int64_t w = ws_index(s, b, kh, first_run + i, g);
+      const float sc = expf(__ldcg(ws_m + w) - M);
+      wts[g * n_sp + i] = sc;
+      L += __ldcg(ws_l + w) * sc;
     }
-    out[((int64_t)b * s.H + kh * s.G) * DH + o] =
-        from_f32<T>(A / fmaxf(L, 1e-30f));
-    if (lse && o % DH == 0)
-      lse[(int64_t)b * s.H + kh * s.G + gg] = Mg + logf(L);
+    // the lanes' sums in a fixed order: lane 0 adds the 32 in lane order
+    L = warp_sum_ordered(L);
+    if (lane == 0) {
+      den[g] = L;
+      // log(0) is -inf: a cache with no visible row
+      if (lse) lse[(int64_t)b * s.H + kh * s.G + g] = M + logf(L);
+    }
   }
-  if (threadIdx.x == 0) *ticket = 0;
+  __syncthreads();
+  for (int o = tid; o < s.G * DH; o += DW_THREADS) {
+    const int g = o / DH;
+    const float* acc = ws_acc + ws_index(s, b, kh, first_run, 0) * DH + o;
+    const int64_t step = (int64_t)s.G * DH;   // one split on
+    float A = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < n_sp; ++i)
+      A += __ldcg(acc + i * step) * wts[g * n_sp + i];
+    out[((int64_t)b * s.H + kh * s.G) * DH + o] =
+        from_f32<T>(A / fmaxf(den[g], 1e-30f));
+  }
+  if (tid == 0) *ticket = 0;
 }
 
-// The wide kernel for dims-per-lane NJ: launches it, or writes how many
-// (b, kh, split) units an SM holds at once (its blocks per SM over G, at
-// least 1: a unit is G blocks here).
-template <typename T, int NJ>
-int launch_wide_nj(const void* q, const void* k, const void* v,
+// The wide kernel holding GH heads: launches it, or writes how many
+// (b, kh, split) units an SM holds at once (its blocks per SM over the
+// head chunks, at least 1: a unit is one block unless the group has more
+// than DW_HEADS heads).
+template <typename T, int GH>
+int launch_wide_gh(const void* q, const void* k, const void* v,
                    const int* pos, void* out, float* lse, float* ws,
                    int* tickets, const DecodeShape& s, int dh,
                    cudaStream_t stream, int* blocks_per_sm) {
-  const size_t bytes = sizeof(float) * ((size_t)DA_WIDE_WARPS * dh +
-                                        2 * DA_WIDE_WARPS);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        decode_wide_kernel<T, NJ>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int n_chunks = ceil_div(s.G, GH);
+  const size_t bytes = DecodeWide<T, GH>::bytes(dh);
+  // the combine's weights and sums, (n_splits + 1) G floats, in the ring
+  if (!blocks_per_sm && (size_t)(s.n_splits + 1) * s.G * sizeof(float) >
+                            (size_t)DecodeWide<T, GH>::ring_bytes(dh))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = decode_wide_kernel<T, GH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
   if (blocks_per_sm) {
     int n = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, decode_wide_kernel<T, NJ>, 32 * DA_WIDE_WARPS, bytes);
-    *blocks_per_sm = max(1, n / s.G);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
+                                                        DW_THREADS, bytes);
+    *blocks_per_sm = max(1, n / n_chunks);
     return (int)err;
   }
   const int64_t n_ws = (int64_t)s.B * s.KH * s.n_splits * s.G;
-  decode_wide_kernel<T, NJ><<<dim3(s.n_splits, s.H, s.B),
-                              32 * DA_WIDE_WARPS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, static_cast<T*>(out), lse, ws,
-      ws + n_ws, ws + 2 * n_ws, tickets, s, dh);
+  kernel<<<dim3(s.n_splits, s.KH * n_chunks, s.B), DW_THREADS, bytes,
+           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), pos, static_cast<T*>(out), lse,
+                     ws, ws + n_ws, ws + 2 * n_ws, tickets, s, dh);
   return (int)cudaGetLastError();
 }
 
+// Head dims above 256: the instance holding the fewest heads (1, 2, 4 or
+// DW_HEADS) that covers the group, or DW_HEADS a block.
 template <typename T>
 int launch_wide(const void* q, const void* k, const void* v, const int* pos,
                 void* out, float* lse, float* ws, int* tickets,
                 const DecodeShape& s, int dh, cudaStream_t stream,
                 int* blocks_per_sm) {
   if (dh <= 256 || dh > DA_WIDE_MAX_DH) return (int)cudaErrorInvalidValue;
-  if (dh <= 512)
-    return launch_wide_nj<T, 16>(q, k, v, pos, out, lse, ws, tickets, s, dh,
-                                 stream, blocks_per_sm);
-  if (dh <= 1024)
-    return launch_wide_nj<T, 32>(q, k, v, pos, out, lse, ws, tickets, s, dh,
-                                 stream, blocks_per_sm);
-  return launch_wide_nj<T, 64>(q, k, v, pos, out, lse, ws, tickets, s, dh,
-                               stream, blocks_per_sm);
+  if (s.G == 1)
+    return launch_wide_gh<T, 1>(q, k, v, pos, out, lse, ws, tickets, s, dh,
+                                stream, blocks_per_sm);
+  if (s.G == 2)
+    return launch_wide_gh<T, 2>(q, k, v, pos, out, lse, ws, tickets, s, dh,
+                                stream, blocks_per_sm);
+  if (s.G <= 4)
+    return launch_wide_gh<T, 4>(q, k, v, pos, out, lse, ws, tickets, s, dh,
+                                stream, blocks_per_sm);
+  return launch_wide_gh<T, DW_HEADS>(q, k, v, pos, out, lse, ws, tickets, s,
+                                     dh, stream, blocks_per_sm);
 }
 
 // Launches the kernel; or, with blocks_per_sm given, launches nothing and

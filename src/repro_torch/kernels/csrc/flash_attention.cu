@@ -84,26 +84,56 @@
 // and P), 9 KB under the 227 KB opt-in. launch_dh returns the opt-in's
 // error if the card refuses it.
 //
-// Head dims above 256 (no config has one; the Pallas kernel takes any dh):
-// flash_wide_kernel, dh a runtime argument up to FA_WIDE_MAX_DH, fp32 and
-// bf16 alike, on the CUDA cores. One warp owns one query row: a block of
-// FA_WIDE_WARPS warps takes FA_WIDE_WARPS consecutive (position, head)
-// rows of the H / KH heads that share one kv head, so each K and V tile it
-// loads serves them all. A lane holds dims lane + 32 i (i < NJ, the
-// instance's dh / 32 ceiling: NJ 16, 32 and 64 take dh up to 512, 1024
-// and 2048) of the row's q and of its fp32 output, so each load of a K or
-// V row from shared memory is 32 neighbouring elements. The lanes' partial
-// products of a tile's keys are summed across the warp by halving
-// exchanges (KT - 1 shuffles for the tile, not 5 a key), which leave the
-// score of key l / (32 / KT) on lane l; then the online softmax of the
-// narrow instances over the tile, p rounded to v's type before the
-// product and handed to the P V loop a key at a time by a shuffle. K and
-// V go through shared memory in tiles of FlashWide::KT keys (32, 16 or 8:
-// two tiles of KT x 32 NJ in T's type within 160 KB), copied 16 bytes at
-// a time by cp.async where dh allows (element by element otherwise), one
-// tile at a time. Past dh 2048 a lane's q and output would take 128
-// registers each, and a tile of 8 fp32 keys at dh 4096 takes 256 KB, more
-// than the 227 KB opt-in: the entry point refuses it.
+// Head dims above 256 (no config has one; the Pallas kernel takes any dh),
+// dh a runtime argument up to FA_WIDE_MAX_DH. The work per (query, key) pair
+// grows with dh as the narrow instances' does, so it is bound by operations
+// as they are (at B 1, T 2048, 8 heads over 4 of dh 512: 3.4e10 FLOP against
+// 8.4 MB, 0.035 ms at the bf16 peak). Two instances:
+//
+// * bf16: flash_wide_mma_kernel, the narrow bf16 kernel's mma.sync m16n8k16
+//   products with the output's columns split over warps. An fp32 output
+//   row of 512-2048 values does not fit one warp's registers, so a block's
+//   CS x RG warps hold RG groups of 16 query rows, each group's output
+//   split into CS column slices of at most FW_DC = 256 columns (128 fp32
+//   accumulators a thread, as the dh 256 instance holds). The rows of a
+//   block are consecutive (position, head of the group) rows of one kv
+//   head, row r being position r / G of head kh G + r % G, so every K and V
+//   tile serves all G heads; each row is masked by its own position. The
+//   warps of a row group share its scores: each computes the partial
+//   S = Q K^T over its own slice of dh (the Q slice read by ldmatrix from
+//   the Q tile in shared memory) and stores it in shared memory, and after
+//   one barrier each sums the CS partials in slice order, so every warp of
+//   the group holds the same fp32 scores and runs the same online softmax.
+//   Recomputing S in full in every warp would repeat Q K^T CS times (8 at
+//   dh 2048) to save one exchange of 16 x KT floats a warp. P is rounded to
+//   bf16 and held whole as the A fragments of each warp's P V over its
+//   column slice. K and V tiles of KT keys go through a ring of NSLOT
+//   shared-memory slots that alternate K and V (K of tile i, V of tile i, K
+//   of tile i + 1, ...), filled by 16-byte cp.async copies where dh is a
+//   multiple of 8 (element by element, zero-filled, otherwise): a slot's
+//   copy is issued NSLOT - 1 half-tiles ahead, so the K of tile i + 1 is in
+//   flight while tile i's P V runs, and with 4 slots the whole of tile i + 1.
+//   Q and K columns past dh are zero up to the next multiple of 16, so an
+//   odd dh (301) stays exact. Rows are padded by 16 bytes (LD = dh rounded
+//   up to 16, plus 8): ldmatrix is free of bank conflicts at any dh. Per
+//   instance (dh ceiling 512, 1024, 2048): 64, 32 and 16 query rows a block,
+//   16 keys a tile, 2, 4 and 2 slots, 108,032, 206,336 and 205,568 bytes of
+//   shared memory at the ceiling, and 240-250 registers a thread with no
+//   spill (32 keys a tile spill at 512): one block of 256 threads an SM at
+//   every ceiling, its registers alone 61,440-64,000 of the SM's 65,536.
+//   A tile a row group cannot see is skipped by that group (its barriers
+//   still kept); the mask is evaluated only on tiles that cross one of the
+//   group's rows' diagonal, window edge or S.
+// * fp32 (exact fp32, the wiring checks): flash_wide_kernel on the CUDA
+//   cores. One warp owns one query row: a block of FA_WIDE_WARPS warps
+//   takes FA_WIDE_WARPS consecutive (position, head) rows of one kv head. A
+//   lane holds dims lane + 32 i (i < NJ; NJ 16, 32 and 64 take dh up to
+//   512, 1024 and 2048) of the row's q and of its output; the lanes'
+//   partial products of a tile's keys are summed across the warp by halving
+//   exchanges. K and V go through shared memory in tiles of FlashWide::KT
+//   keys (32, 16 or 8), one tile at a time.
+// Past dh 2048 a warp's output slice would pass 256 columns (bf16) and a
+// lane's q and output 64 registers each (fp32): the entry point refuses it.
 #include "numeric.cuh"
 #include "ptx.cuh"
 
@@ -596,32 +626,32 @@ int launch_dh(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-constexpr int FA_WIDE_WARPS = 8;       // query rows of a block
+constexpr int FA_WIDE_WARPS = 8;       // fp32: query rows of a block
 constexpr int FA_WIDE_MAX_DH = 2048;   // the widest head dim it takes
 
-// The wide instance for dims-per-lane NJ: KT keys a tile, the largest of
-// 32, 16 and 8 whose K and V tiles of KT x 32 NJ in T fit 160 KB.
-template <typename T, int NJ>
+// The fp32 wide instance for dims-per-lane NJ: KT keys a tile, the largest
+// of 32, 16 and 8 whose K and V tiles of KT x 32 NJ floats fit 160 KB.
+template <int NJ>
 struct FlashWide {
   static constexpr int ROW = 32 * NJ;   // the widest dh of the instance
   static constexpr int KT =
-      2 * 32 * ROW * sizeof(T) <= 160 * 1024   ? 32
-      : 2 * 16 * ROW * sizeof(T) <= 160 * 1024 ? 16
-                                                : 8;
+      2 * 32 * ROW * sizeof(float) <= 160 * 1024   ? 32
+      : 2 * 16 * ROW * sizeof(float) <= 160 * 1024 ? 16
+                                                    : 8;
 };
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(32 * FA_WIDE_WARPS)
-flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out, FlashShape s,
-                  int DH) {
-  constexpr int KT = FlashWide<T, NJ>::KT;
+template <int NJ>
+__global__ void __launch_bounds__(32 * FA_WIDE_WARPS, 1)
+flash_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  FlashShape s, int DH) {
+  constexpr int KT = FlashWide<NJ>::KT;
   constexpr int DUP = 32 / KT;           // lanes that end with one key's score
-  constexpr int VEC = Vec16<T>::N;
+  constexpr int VEC = Vec16<float>::N;
   constexpr int THREADS = 32 * FA_WIDE_WARPS;
   extern __shared__ __align__(16) unsigned char fw_smem[];
-  T* Ks = reinterpret_cast<T*>(fw_smem);   // [KT][DH]
-  T* Vs = Ks + KT * DH;                    // [KT][DH]
+  float* Ks = reinterpret_cast<float*>(fw_smem);   // [KT][DH]
+  float* Vs = Ks + KT * DH;                        // [KT][DH]
 
   const int G = s.H / s.KH;
   const int kh = blockIdx.y, b = blockIdx.z;
@@ -644,16 +674,15 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < NJ; ++i) {
     const int d = lane + 32 * i;
-    qr[i] = live && d < DH
-                ? to_f32(q[(((int64_t)b * s.T + t) * s.H + h) * DH + d])
-                : 0.f;
+    qr[i] = live && d < DH ? q[(((int64_t)b * s.T + t) * s.H + h) * DH + d]
+                           : 0.f;
     acc[i] = 0.f;
   }
   float m = FA_NEG_INF, l = 0.f;
 
   const int64_t kv_row = (int64_t)s.KH * DH;
-  const T* kb = k + (int64_t)b * s.S * kv_row + (int64_t)kh * DH;
-  const T* vb = v + (int64_t)b * s.S * kv_row + (int64_t)kh * DH;
+  const float* kb = k + (int64_t)b * s.S * kv_row + (int64_t)kh * DH;
+  const float* vb = v + (int64_t)b * s.S * kv_row + (int64_t)kh * DH;
   const int pieces = DH / VEC;   // 16-byte pieces of a row, if DH allows
   for (int k0 = (k_first / KT) * KT; k0 <= k_last; k0 += KT) {
     __syncthreads();  // the previous tile's readers are done
@@ -673,8 +702,8 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int j = e / DH, d = e - j * DH;
         const bool ok = k0 + j < s.S;
         const int64_t off = (int64_t)(k0 + j) * kv_row + d;
-        Ks[e] = ok ? kb[off] : from_f32<T>(0.f);
-        Vs[e] = ok ? vb[off] : from_f32<T>(0.f);
+        Ks[e] = ok ? kb[off] : 0.f;
+        Vs[e] = ok ? vb[off] : 0.f;
       }
     }
     __syncthreads();
@@ -691,7 +720,7 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < NJ; ++i) {
         const int d = lane + 32 * i;
-        if (d < DH) dot = fmaf(qr[i], to_f32(Ks[j * DH + d]), dot);
+        if (d < DH) dot = fmaf(qr[i], Ks[j * DH + d], dot);
       }
       sc[j] = dot;
     }
@@ -732,16 +761,15 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int mask = 16; mask >= DUP; mask >>= 1)
       rs += __shfl_xor_sync(0xffffffffu, rs, mask);
-    const float pr = round_to<T>(p);
 #pragma unroll
     for (int i = 0; i < NJ; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < KT; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, pr, j * DUP);
+      const float pj = __shfl_sync(0xffffffffu, p, j * DUP);
 #pragma unroll
       for (int i = 0; i < NJ; ++i) {
         const int d = lane + 32 * i;
-        if (d < DH) acc[i] = fmaf(pj, to_f32(Vs[j * DH + d]), acc[i]);
+        if (d < DH) acc[i] = fmaf(pj, Vs[j * DH + d], acc[i]);
       }
     }
     l = l * alpha + rs;
@@ -749,37 +777,383 @@ flash_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (!live) return;
   const float den = fmaxf(l, 1e-30f);
-  T* o = out + (((int64_t)b * s.T + t) * s.H + h) * DH;
+  float* o = out + (((int64_t)b * s.T + t) * s.H + h) * DH;
 #pragma unroll
   for (int i = 0; i < NJ; ++i) {
     const int d = lane + 32 * i;
-    if (d < DH) o[d] = from_f32<T>(acc[i] / den);
+    if (d < DH) o[d] = acc[i] / den;
   }
 }
 
-template <typename T, int NJ>
+template <int NJ>
 int launch_wide_nj(const void* q, const void* k, const void* v, void* out,
                    const FlashShape& s, int dh, cudaStream_t stream) {
-  const size_t bytes = (size_t)2 * FlashWide<T, NJ>::KT * dh * sizeof(T);
+  const size_t bytes = (size_t)2 * FlashWide<NJ>::KT * dh * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wide_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wide_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(ceil_div(s.T * (s.H / s.KH), FA_WIDE_WARPS), s.KH, s.B);
-  flash_wide_kernel<T, NJ><<<grid, 32 * FA_WIDE_WARPS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, dh);
+  flash_wide_kernel<NJ><<<grid, 32 * FA_WIDE_WARPS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), s, dh);
   return (int)cudaGetLastError();
 }
 
-// Head dims above the built ones: the wide instance whose rows hold dh.
+constexpr int FW_DC = 256;   // bf16: most output columns of a warp
+
+// The bf16 wide instance: CS column slices of at most FW_DC columns x RG
+// groups of 16 query rows (CS x RG warps), KT keys a tile, NSLOT slots in
+// the K/V ring. Shared
+// memory: the partial scores [RG][CS][KT / 8 n-tiles][32 lanes] of float4,
+// then the Q tile [16 RG][LD] and the ring [NSLOT][KT][LD] of bf16.
+template <int CS, int RG, int KT, int NSLOT>
+struct FlashWideMma {
+  static constexpr int MAX_DH = CS * FW_DC;   // the instance's ceiling
+  static constexpr int THREADS = 32 * CS * RG;
+  static constexpr int BQ = 16 * RG;          // query rows of a block
+  static constexpr int SP_FLOATS = RG * CS * KT * 16;
+  // the row pitch of Q, K and V in elements at head dim dh
+  __host__ __device__ static int pitch(int dh) {
+    return ((dh + 15) & ~15) + 8;
+  }
+  __host__ __device__ static size_t smem_bytes(int dh) {
+    return (size_t)(BQ + NSLOT * KT) * pitch(dh) * sizeof(__nv_bfloat16) +
+           SP_FLOATS * sizeof(float);
+  }
+};
+
+template <int CS, int RG, int KT, int NSLOT>
+__global__ void __launch_bounds__(32 * CS * RG, 1)
+flash_wide_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ out, FlashShape s, int DH) {
+  using F = FlashWideMma<CS, RG, KT, NSLOT>;
+  constexpr int THREADS = F::THREADS, BQ = F::BQ;
+  constexpr int NT = KT / 8;       // n-tiles of 8 keys in a score tile
+  constexpr int DT = FW_DC / 8;    // n-tiles of 8 columns a warp may hold
+  extern __shared__ __align__(16) unsigned char fwm_smem[];
+  float4* Sp = reinterpret_cast<float4*>(fwm_smem);
+  __nv_bfloat16* Qs =
+      reinterpret_cast<__nv_bfloat16*>(fwm_smem + F::SP_FLOATS * 4);
+  const int DHP = (DH + 15) & ~15;   // dh in whole k-steps of 16
+  const int LD = F::pitch(DH);
+  __nv_bfloat16* ring = Qs + BQ * LD;
+
+  // blocks of one row tile adjacent; row tiles longest first
+  const int G = s.H / s.KH;
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int row0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int n_rows = s.T * G;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = warp / CS, cs = warp % CS;
+  const bool vec = DH % 8 == 0;    // rows of whole 16-byte pieces
+  const int64_t kv_row = (int64_t)s.KH * DH;
+
+  // q's element (block row r, column c); r = t G + g is head kh G + g at t
+  auto q_at = [&](int r, int c) {
+    const int R = row0 + r, t = R / G;
+    return q + (((int64_t)b * s.T + t) * s.H + kh * G + R - t * G) * DH + c;
+  };
+  if (vec) {
+    for (int i = tid; i < BQ * (DHP / 8); i += THREADS) {
+      const int r = i / (DHP / 8), c = (i - r * (DHP / 8)) * 8;
+      const bool ok = row0 + r < n_rows && c < DH;
+      cp_async16(Qs + r * LD + c, ok ? q_at(r, c) : q, ok);
+    }
+  } else {
+    for (int i = tid; i < BQ * DHP; i += THREADS) {
+      const int r = i / DHP, c = i - r * DHP;
+      Qs[r * LD + c] = row0 + r < n_rows && c < DH ? *q_at(r, c)
+                                                   : __float2bfloat16(0.f);
+    }
+  }
+
+  // the keys the block's rows can see
+  const int t_lo = row0 / G;
+  const int t_hi = min(s.T - 1, (row0 + BQ - 1) / G);
+  const int k_last = min(s.q_offset + t_hi, s.S - 1);
+  const int k_first =
+      s.window > 0 ? max(0, s.q_offset + t_lo - s.window + 1) : 0;
+  const int tile0 = k_first / KT;
+  const int n_tiles = k_last < 0 ? 0 : max(0, k_last / KT - tile0 + 1);
+
+  // half-tile u: K (u even) or V (u odd) of tile u / 2, into slot
+  // u % NSLOT; rows past S and columns past dh read as zeros
+  auto load = [&](int u) {
+    if (u / 2 >= n_tiles) return;
+    const int k0 = (tile0 + u / 2) * KT;
+    const __nv_bfloat16* src =
+        (u % 2 ? v : k) + (int64_t)b * s.S * kv_row + (int64_t)kh * DH;
+    __nv_bfloat16* dst = ring + (u % NSLOT) * KT * LD;
+    if (vec) {
+      for (int i = tid; i < KT * (DHP / 8); i += THREADS) {
+        const int r = i / (DHP / 8), c = (i - r * (DHP / 8)) * 8;
+        const bool ok = k0 + r < s.S && c < DH;
+        cp_async16(dst + r * LD + c,
+                   ok ? src + (int64_t)(k0 + r) * kv_row + c : src, ok);
+      }
+    } else {
+      for (int i = tid; i < KT * DHP; i += THREADS) {
+        const int r = i / DHP, c = i - r * DHP;
+        dst[r * LD + c] = k0 + r < s.S && c < DH
+                              ? src[(int64_t)(k0 + r) * kv_row + c]
+                              : __float2bfloat16(0.f);
+      }
+    }
+  };
+  // one commit group per half-tile; the first also carries the Q tile
+#pragma unroll
+  for (int u = 0; u < NSLOT - 1; ++u) {
+    load(u);
+    cp_async_commit();
+  }
+
+  // the warp's columns: slices of whole k-steps, as even as they come
+  const int dc = (ceil_div(DHP, CS) + 15) & ~15;
+  const int c_lo = cs * dc, c_hi = min(DHP, c_lo + dc);
+  // the row group's rows R0 .. R0 + 15; this thread holds rows R0 + lane / 4
+  // (elements 0, 1 of an accumulator n-tile) and that + 8 (elements 2, 3)
+  const int R0 = row0 + rg * 16;
+  const bool group_live = R0 < n_rows;
+  const int a_lo = s.q_offset + R0 / G;    // the group's first position
+  const int a_hi = s.q_offset + min(s.T - 1, (R0 + 15) / G);
+  const int apos[2] = {s.q_offset + (R0 + lane / 4) / G,
+                       s.q_offset + (R0 + lane / 4 + 8) / G};
+  const int col = 2 * (lane % 4);
+  // p = 2^(s c - m c): c folds the scale (without a soft-cap) and log2(e)
+  const float c = s.softcap > 0.f ? FA_LOG2E : s.scale * FA_LOG2E;
+  // 32-bit shared addresses of this lane's ldmatrix rows: the Q fragment
+  // (rows lane % 16, k-half lane / 16), a K fragment pair (keys lane % 8
+  // and + 8 lane / 16, k-half (lane / 8) % 2), a transposed V fragment
+  // pair (keys lane % 8 + 8 ((lane / 8) % 2), columns + 8 (lane / 16))
+  const uint32_t q_addr = smem_addr(Qs + (rg * 16 + lane % 16) * LD +
+                                    (lane / 16) * 8);
+  const uint32_t ring_addr = smem_addr(ring);
+  const int k_lane = ((lane / 16) * 8 + lane % 8) * LD + ((lane / 8) % 2) * 8;
+  const int v_lane =
+      (((lane / 8) % 2) * 8 + lane % 8) * LD + c_lo + (lane / 16) * 8;
+  const int ndp = (c_hi - c_lo) / 16;   // the warp's 16-column pieces
+  float o[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m[2] = {FA_NEG_INF, FA_NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = (tile0 + it) * KT;
+    // the K half: K of tile it has landed, slot of half-tile 2 it - 1 free
+    cp_async_wait<NSLOT - 2>();
+    __syncthreads();
+    load(2 * it + NSLOT - 1);
+    cp_async_commit();
+    // a tile none of the group's rows can see
+    const bool seen_by_group =
+        group_live && k0 <= a_hi &&
+        (s.window <= 0 || k0 + KT - 1 > a_lo - s.window);
+    float sc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    if (seen_by_group) {
+      // the partial S over this warp's columns of dh
+      const uint32_t ks = ring_addr +
+          2 * (((2 * it) % NSLOT) * KT * LD + k_lane);
+      for (int c0 = c_lo; c0 < c_hi; c0 += 16) {
+        uint32_t qa[4];
+        ldmatrix_x4(qa, q_addr + 2 * c0);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, ks + 2 * (np * 16 * LD + c0));
+          mma_bf16_16816(sc[2 * np], qa, kf[0], kf[1]);
+          mma_bf16_16816(sc[2 * np + 1], qa, kf[2], kf[3]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        Sp[((rg * CS + cs) * NT + n) * 32 + lane] =
+            make_float4(sc[n][0], sc[n][1], sc[n][2], sc[n][3]);
+    }
+    // the V half: V of tile it has landed, the partials are stored
+    cp_async_wait<NSLOT - 2>();
+    __syncthreads();
+    load(2 * it + NSLOT);
+    cp_async_commit();
+    if (!seen_by_group) continue;
+
+    // the group's scores: the CS partials summed in slice order, the same
+    // sum in every warp of the group
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float4 x = Sp[(rg * CS * NT + n) * 32 + lane];
+      for (int j = 1; j < CS; ++j) {
+        const float4 y = Sp[((rg * CS + j) * NT + n) * 32 + lane];
+        x.x += y.x;
+        x.y += y.y;
+        x.z += y.z;
+        x.w += y.w;
+      }
+      sc[n][0] = x.x;
+      sc[n][1] = x.y;
+      sc[n][2] = x.z;
+      sc[n][3] = x.w;
+    }
+    if (s.softcap > 0.f) {
+      const float k_in = s.scale / s.softcap;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[n][e] = s.softcap * tanhf(sc[n][e] * k_in);
+    }
+    // the mask, on tiles that cross a row's diagonal, window edge or S
+    if (k0 + KT - 1 > a_lo || k0 + KT > s.S ||
+        (s.window > 0 && k0 <= a_hi - s.window)) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + n * 8 + col + (e & 1), a = apos[e >> 1];
+          if (key > a || key >= s.S || (s.window > 0 && key <= a - s.window))
+            sc[n][e] = FA_NEG_INF;
+        }
+    }
+    // online softmax; row r's scores are elements 2r, 2r + 1 of each
+    // n-tile over the 4 lanes of a quad
+    float mc[2], rs[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(sc[0][2 * r], sc[0][2 * r + 1]);
+#pragma unroll
+      for (int n = 1; n < NT; ++n)
+        mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = ex2_approx((m[r] - m_new) * c);
+      m[r] = m_new;
+      // a row that sees no key yet gets p = 0
+      mc[r] = m_new == FA_NEG_INF ? 0.f : m_new * c;
+      l[r] = l[r] * alpha;
+      rs[r] = 0.f;
+      // the output rescaled to the new max (columns past the warp's slice
+      // hold zeros)
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        o[d][2 * r] *= alpha;
+        o[d][2 * r + 1] *= alpha;
+      }
+    }
+    // P: p in fp32 into the row sums, rounded to bf16 as the A fragments
+    // (held whole, 2 KT / 16 registers, so the scores are dead before P V)
+    uint32_t pf[NT / 2][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float p0 = ex2_approx(fmaf(sc[n][0], c, -mc[0]));
+      const float p1 = ex2_approx(fmaf(sc[n][1], c, -mc[0]));
+      const float p2 = ex2_approx(fmaf(sc[n][2], c, -mc[1]));
+      const float p3 = ex2_approx(fmaf(sc[n][3], c, -mc[1]));
+      rs[0] += p0 + p1;
+      rs[1] += p2 + p3;
+      pf[n / 2][2 * (n % 2)] = pack_bf16(p0, p1);
+      pf[n / 2][2 * (n % 2) + 1] = pack_bf16(p2, p3);
+    }
+    // O += P V over the warp's columns, 16 keys at a time
+    const uint32_t vs = ring_addr +
+        2 * (((2 * it + 1) % NSLOT) * KT * LD + v_lane);
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        if (dp < ndp) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, vs + 2 * (j * 16 * LD + dp * 16));
+          mma_bf16_16816(o[2 * dp], pf[j], vf[0], vf[1]);
+          mma_bf16_16816(o[2 * dp + 1], pf[j], vf[2], vf[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = rs[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[r] += sum;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // out = o / max(l, 1e-30): each warp's slice through the Q tile, then
+  // 16-byte stores (element stores where dh is no multiple of 8)
+  const float den0 = fmaxf(l[0], 1e-30f), den1 = fmaxf(l[1], 1e-30f);
+  __nv_bfloat16* Os = Qs + (rg * 16 + lane / 4) * LD + c_lo + col;
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    if (c_lo + d * 8 < c_hi) {
+      *reinterpret_cast<uint32_t*>(Os + d * 8) =
+          pack_bf16(o[d][0] / den0, o[d][1] / den0);
+      *reinterpret_cast<uint32_t*>(Os + 8 * LD + d * 8) =
+          pack_bf16(o[d][2] / den1, o[d][3] / den1);
+    }
+  }
+  __syncthreads();
+  auto out_at = [&](int r, int c) {
+    const int R = row0 + r, t = R / G;
+    return out + (((int64_t)b * s.T + t) * s.H + kh * G + R - t * G) * DH + c;
+  };
+  if (vec) {
+    for (int i = tid; i < BQ * (DH / 8); i += THREADS) {
+      const int r = i / (DH / 8), c8 = (i - r * (DH / 8)) * 8;
+      if (row0 + r < n_rows)
+        *reinterpret_cast<uint4*>(out_at(r, c8)) =
+            *reinterpret_cast<const uint4*>(Qs + r * LD + c8);
+    }
+  } else {
+    for (int i = tid; i < BQ * DH; i += THREADS) {
+      const int r = i / DH, cc = i - r * DH;
+      if (row0 + r < n_rows) *out_at(r, cc) = Qs[r * LD + cc];
+    }
+  }
+}
+
+template <int CS, int RG, int KT, int NSLOT>
+int launch_wide_mma(const void* q, const void* k, const void* v, void* out,
+                    const FlashShape& s, int dh, cudaStream_t stream) {
+  using F = FlashWideMma<CS, RG, KT, NSLOT>;
+  // a warp holds at most FW_DC output columns
+  if (dh > F::MAX_DH) return (int)cudaErrorInvalidValue;
+  const size_t bytes = F::smem_bytes(dh);
+  auto kernel = flash_wide_mma_kernel<CS, RG, KT, NSLOT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(s.KH, s.B, ceil_div(s.T * (s.H / s.KH), F::BQ));
+  kernel<<<grid, F::THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), s, dh);
+  return (int)cudaGetLastError();
+}
+
+// Head dims above the built ones: the wide instance whose ceiling holds dh.
 template <typename T>
 int launch_wide(const void* q, const void* k, const void* v, void* out,
                 const FlashShape& s, int dh, cudaStream_t stream) {
   if (dh <= 256 || dh > FA_WIDE_MAX_DH) return (int)cudaErrorInvalidValue;
-  if (dh <= 512) return launch_wide_nj<T, 16>(q, k, v, out, s, dh, stream);
-  if (dh <= 1024) return launch_wide_nj<T, 32>(q, k, v, out, s, dh, stream);
-  return launch_wide_nj<T, 64>(q, k, v, out, s, dh, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (dh <= 512)
+      return launch_wide_mma<2, 4, 16, 2>(q, k, v, out, s, dh, stream);
+    if (dh <= 1024)
+      return launch_wide_mma<4, 2, 16, 4>(q, k, v, out, s, dh, stream);
+    return launch_wide_mma<8, 1, 16, 2>(q, k, v, out, s, dh, stream);
+  } else {
+    if (dh <= 512) return launch_wide_nj<16>(q, k, v, out, s, dh, stream);
+    if (dh <= 1024) return launch_wide_nj<32>(q, k, v, out, s, dh, stream);
+    return launch_wide_nj<64>(q, k, v, out, s, dh, stream);
+  }
 }
 
 template <typename T>

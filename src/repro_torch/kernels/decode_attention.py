@@ -17,9 +17,10 @@ caller's mapping: ``models.attention.attention_decode`` passes
 ``min(pos, W - 1)``, under which this causal mask is the ring's.  ``pos``
 must be >= 0, and at a built head dim (H / Kh) * dh may be at most 2048.
 A head dim above 256, up to ``flash_attention.WIDE_MAX_HEAD_DIM``, runs
-the wide kernel unpadded (one block a query head of a split, one warp a
-group of rows, dh a runtime argument), with the same splits, workspace,
-tickets and combine.
+the wide kernel unpadded (dh a runtime argument; one block a split of a kv
+head, as the narrow kernel, its rows brought in by bulk copies and scored
+for all heads of the group), with the same splits, workspace, tickets and
+combine.
 
 Cache shards: a cache whose S axis is sharded over a mesh holds, on each
 shard, rows ``k_offset .. k_offset + S - 1``; the kernel masks row j as key

@@ -9,9 +9,10 @@ result.  Any T and S (the Pallas wrapper needs T % 256 == 0); the kernel
 is built at the head dims of ``HEAD_DIMS``, those the full configs use, and
 any narrower head dim runs zero-padded to the next of them
 (``with_padded_head_dim``, the scale kept the unpadded dh's).  A head dim
-above 256, up to ``WIDE_MAX_HEAD_DIM``, runs the wide kernel (one warp a
-query row on the CUDA cores, dh a runtime argument) unpadded; a wider one
-raises.  The source's header note says which Pallas kernel it replaces,
+above 256, up to ``WIDE_MAX_HEAD_DIM``, runs the wide kernel unpadded (dh a
+runtime argument; bf16 on the tensor cores, the output's columns split over
+warps that share each row group's scores; fp32 one warp a query row on the
+CUDA cores); a wider one raises.  The source's header note says which Pallas kernel it replaces,
 what bounds it on the H100 and how its design answers that.
 
 ``q_offset`` is the position of q's first row: a shard of a sequence

@@ -1,7 +1,8 @@
 """Tune the CNN kernels' plans per layer by measuring them on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.tune --net resnet50 \\
-        [--sparse] [--commit]
+        [--batch 1] [--reps 5] [--candidates 6] [--sparse] [--smoke] \\
+        [--commit | --out table.json] [--verbose]
 
 The port's counterpart of ``benchmarks/autotune.py``: for every unique
 shape key (``core.autotune``) of a network's layer table — ``--sparse`` adds
@@ -26,13 +27,21 @@ its structured-sparse twin, whose pruned channel counts are new keys — it
 By default the entries are merged into the user cache
 (``autotune.cache_path()``); with ``--commit`` they are written to
 ``src/repro_torch/kernels/tuned/<net>.h100.json`` and the table document is
-printed on stdout too.  A table carries the kernel hash of the sources it
-was measured with and goes stale when any of them changes.
+printed on stdout too; ``--out PATH`` writes the table there instead of
+either.  A table carries the kernel hash of the sources it was measured
+with and goes stale when any of them changes.
 
-Layers are tuned as the main path runs them, at batch 1 in fp32, 1x1s at
-their GEMM shape, with no epilogue (the keys' ``ep:none`` fallback covers
-every epilogue, as in ``repro``).  The tuner runs on the card only: without
-one it raises.
+Layers are tuned as the main path runs them, in fp32, 1x1s at their GEMM
+shape, with no epilogue (the keys' ``ep:none`` fallback covers every
+epilogue, as in ``repro``), at ``--batch`` images (default 1): the
+dispatch looks plans up by the real batch (``conv2d|x{b}x...``,
+``gemm|m{b * rows}...``), so a network served at batch 8 needs keys tuned at
+batch 8.  The options are ``benchmarks/autotune.py``'s: ``--reps`` cold
+calls a round (``REPS``), ``--candidates`` plans timed per key, the
+analytic one first (``CANDIDATES``), ``--smoke`` the smoke layer set on the
+least budget (1 call a round, at most 3 candidates), ``--verbose`` every
+candidate's rounds, not only the winners.  The tuner runs on the card only:
+without one it raises.
 """
 from __future__ import annotations
 
@@ -76,30 +85,32 @@ def net_layers(net: str, sparse: bool = False) -> list:
     return layers
 
 
-def gemm_rows(layer) -> int:
-    """M of a 1x1 layer's GEMM at batch 1: the strided view's rows."""
-    return (-(-layer.IL // layer.S)) ** 2
+def gemm_rows(layer, batch: int = 1) -> int:
+    """M of a 1x1 layer's GEMM at ``batch`` images: the strided view's
+    rows."""
+    return batch * (-(-layer.IL // layer.S)) ** 2
 
 
-def layer_key(layer) -> str:
-    """The layer's key at batch 1, fp32, no epilogue."""
+def layer_key(layer, batch: int = 1) -> str:
+    """The layer's key at ``batch`` images, fp32, no epilogue."""
     if layer.FL == 1:
-        return autotune.gemm_key(gemm_rows(layer), layer.IC, layer.K,
+        return autotune.gemm_key(gemm_rows(layer, batch), layer.IC, layer.K,
                                  "float32")
-    return autotune.conv2d_key((1, layer.IL, layer.IL, layer.IC),
+    return autotune.conv2d_key((batch, layer.IL, layer.IL, layer.IC),
                                (layer.FL, layer.FL, layer.IC, layer.K),
                                layer.S, layer.Z, "float32")
 
 
-def candidates(layer, n_sms: int,
-               max_candidates: int = CANDIDATES) -> list[TileConfig]:
-    """The layer's candidate plans, the analytic one first."""
+def candidates(layer, n_sms: int, max_candidates: int = CANDIDATES,
+               batch: int = 1) -> list[TileConfig]:
+    """The layer's candidate plans at ``batch`` images, the analytic one
+    first."""
     if layer.FL == 1:
-        return autotune.gemm_candidates(gemm_rows(layer), layer.IC, layer.K,
-                                        n_sms=n_sms,
+        return autotune.gemm_candidates(gemm_rows(layer, batch), layer.IC,
+                                        layer.K, n_sms=n_sms,
                                         max_candidates=max_candidates)
     return autotune.conv2d_candidates(
-        (1, layer.IL, layer.IL, layer.IC),
+        (batch, layer.IL, layer.IL, layer.IC),
         (layer.FL, layer.FL, layer.IC, layer.K), stride=layer.S,
         padding=layer.Z, n_sms=n_sms, max_candidates=max_candidates)
 
@@ -112,17 +123,17 @@ def tolerance(want: torch.Tensor, reduction: int) -> float:
                2.0 ** -7 * want.float().abs().max().item())
 
 
-def _operands(layer, gen):
+def _operands(layer, gen, batch: int = 1):
     """(run(cfg), plain output, reduction length) of one layer on the card,
-    fp32 operands at batch 1."""
+    fp32 operands at ``batch`` images."""
     rn = lambda *s: torch.randn(s, device="cuda", generator=gen)
     if layer.FL == 1:
-        x, w = rn(gemm_rows(layer), layer.IC), rn(layer.IC, layer.K)
+        x, w = rn(gemm_rows(layer, batch), layer.IC), rn(layer.IC, layer.K)
         wrappers = {autotune.WS: _mm.matmul_weight_stationary,
                     autotune.AS: _mm.matmul_act_stationary}
         return ((lambda cfg: wrappers[cfg.stationarity](x, w, tiles=cfg)),
                 _mm.matmul_plain(x, w), layer.IC)
-    x = rn(1, layer.IL, layer.IL, layer.IC)
+    x = rn(batch, layer.IL, layer.IL, layer.IC)
     w = rn(layer.FL, layer.FL, layer.IC, layer.K)
     kw = dict(stride=layer.S, padding=layer.Z)
     return ((lambda cfg: _conv2d.conv2d(x, w, tiles=cfg, **kw)),
@@ -130,15 +141,17 @@ def _operands(layer, gen):
 
 
 def tune_layer(layer, flush: torch.Tensor, gen: torch.Generator,
-               log=None) -> tuple[Entry, list[dict]]:
-    """Time every candidate of one layer; the entry and each candidate's
-    record (config, per-round ms, error over tolerance, whether it passed
-    its check)."""
+               log=None, *, batch: int = 1, reps: int = REPS,
+               max_candidates: int = CANDIDATES,
+               verbose: bool = False) -> tuple[Entry, list[dict]]:
+    """Time every candidate of one layer at ``batch`` images, ``reps``
+    cold calls a round; the entry and each candidate's record (config,
+    per-round ms, error over tolerance, whether it passed its check)."""
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    run, want, reduction = _operands(layer, gen)
+    run, want, reduction = _operands(layer, gen, batch)
     tol = tolerance(want, reduction)
     recs = []
-    for cfg in candidates(layer, n_sms):
+    for cfg in candidates(layer, n_sms, max_candidates, batch):
         got = run(cfg)
         err = (got.float() - want.float()).abs().max().item()
         recs.append({"config": cfg, "short": cfg.short, "rounds": [],
@@ -152,8 +165,14 @@ def tune_layer(layer, flush: torch.Tensor, gen: torch.Generator,
     for _ in range(ROUNDS):
         for r in timed:
             r["rounds"].append(cold_time_ms(lambda: run(r["config"]), flush,
-                                            REPS))
+                                            reps))
     best = choose(recs)
+    if log and verbose:
+        for r in recs:
+            log(f"  {layer_key(layer, batch)}  {r['short']:<24s} "
+                + (" ".join(f"{ms:8.4f}" for ms in r["rounds"]) + " ms"
+                   if r["ok"] else f"failed its check "
+                                   f"(err / tol {r['err_over_tol']:.3g})"))
     entry = Entry(config=best["config"], source="cache",
                   tuned_ms=best["ms"], default_ms=analytic["ms"])
     if log:
@@ -179,24 +198,30 @@ def choose(recs: list[dict]) -> dict:
         else analytic
 
 
-def tune_layers(layers, *, seed: int = 0,
-                log=None) -> tuple[dict[str, Entry], dict[str, list]]:
-    """Tune every unique key of ``layers``: (entries, candidate records),
-    operands drawn from ``seed``."""
+def tune_layers(layers, *, batch: int = 1, reps: int = REPS,
+                max_candidates: int = CANDIDATES, seed: int = 0, log=None,
+                verbose: bool = False
+                ) -> tuple[dict[str, Entry], dict[str, list]]:
+    """Tune every unique key of ``layers`` at ``batch`` images: (entries,
+    candidate records), operands drawn from ``seed``, ``reps`` cold calls a
+    round, at most ``max_candidates`` plans a key."""
     flush = flush_buffer()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     entries, records = {}, {}
     for layer in layers:
-        key = layer_key(layer)
+        key = layer_key(layer, batch)
         if key not in entries:
-            entries[key], records[key] = tune_layer(layer, flush, gen, log)
+            entries[key], records[key] = tune_layer(
+                layer, flush, gen, log, batch=batch, reps=reps,
+                max_candidates=max_candidates, verbose=verbose)
     return entries, records
 
 
-def collect_tuning_delta(net: str, *, reps: int = REPS, layers=None,
-                         seed: int = 3) -> dict:
+def collect_tuning_delta(net: str, *, batch: int = 1, reps: int = REPS,
+                         layers=None, seed: int = 3) -> dict:
     """Tuned against default plan, per unique key of ``net``'s layers
-    (``layers`` overrides them, e.g. the structured-sparse twin's): for each
+    (``layers`` overrides them, e.g. the structured-sparse twin's) at
+    ``batch`` images: for each
     key the tuning cache resolves (committed tables and the user cache),
     the median cold-L2 device time of ``reps`` calls under its tuned plan
     and under the analytic plan, on operands drawn from ``seed``; a key
@@ -211,7 +236,7 @@ def collect_tuning_delta(net: str, *, reps: int = REPS, layers=None,
     gen = torch.Generator(device="cuda").manual_seed(seed)
     seen, out = set(), []
     for layer in layers:
-        key = layer_key(layer)
+        key = layer_key(layer, batch)
         if key in seen:
             continue
         seen.add(key)
@@ -219,8 +244,8 @@ def collect_tuning_delta(net: str, *, reps: int = REPS, layers=None,
         if entry is None:
             out.append({"layer": layer.name, "key": key, "tuned": False})
             continue
-        run, _, _ = _operands(layer, gen)
-        default = candidates(layer, n_sms, max_candidates=1)[0]
+        run, _, _ = _operands(layer, gen, batch)
+        default = candidates(layer, n_sms, max_candidates=1, batch=batch)[0]
         time_ms = lambda cfg: statistics.median(
             cold_times_ms(lambda: run(cfg), flush, reps))
         default_ms, tuned_ms = time_ms(default), time_ms(entry.config)
@@ -248,23 +273,49 @@ def table_name(net: str) -> str:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--net", choices=NETS, default="resnet50")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="images per call the keys are tuned at")
+    ap.add_argument("--reps", type=int, default=REPS,
+                    help="cold calls timed per round")
+    ap.add_argument("--candidates", type=int, default=CANDIDATES,
+                    help="most candidate plans timed per key")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the smoke layer set on the least budget (1 call a "
+                         "round, at most 3 candidates)")
     ap.add_argument("--sparse", action="store_true",
                     help="add the structured-sparse twin's layers")
     ap.add_argument("--commit", action="store_true",
                     help="write src/repro_torch/kernels/tuned/<net>.h100.json "
                          "(and print it) instead of the user cache")
+    ap.add_argument("--out", default=None,
+                    help="write the table to this path (over --commit and "
+                         "the user cache)")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print every candidate's rounds, not only the "
+                         "winners")
     args = ap.parse_args(argv)
+    if args.batch < 1 or args.reps < 1 or args.candidates < 1:
+        ap.error("--batch, --reps and --candidates take positive counts")
+    net = "smoke" if args.smoke else args.net
+    reps = 1 if args.smoke else args.reps
+    cands = min(args.candidates, 3) if args.smoke else args.candidates
     resolve_device("cuda")
 
-    entries, records = tune_layers(net_layers(args.net, args.sparse),
-                                   log=print)
+    layers = net_layers(net, args.sparse)
+    print(f"tune {net}: {len(layers)} layers, batch {args.batch}, {reps} "
+          f"calls a round, <= {cands} candidates a key")
+    entries, records = tune_layers(layers, batch=args.batch, reps=reps,
+                                   max_candidates=cands, log=print,
+                                   verbose=args.verbose)
     changed = sum(e.config != records[k][0]["config"]
                   for k, e in entries.items())
-    if args.commit:
-        path = os.path.join(autotune.tables_dir(), table_name(args.net))
-        doc = autotune.table_doc(entries, net=args.net)
+    if args.out or args.commit:
+        path = args.out or os.path.join(autotune.tables_dir(),
+                                        table_name(net))
+        doc = autotune.table_doc(entries, net=net)
         autotune.write_table(path, doc)
-        print(json.dumps(doc))
+        if args.commit and not args.out:
+            print(json.dumps(doc))
     else:
         path = autotune.save_user_cache(entries)
     print(f"{len(entries)} keys, {changed} off the analytic plan -> {path}")

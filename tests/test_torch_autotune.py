@@ -83,17 +83,20 @@ def _layers(name):
 
 
 # ----------------------------- keys + config ---------------------------------
+@pytest.mark.parametrize("batch", (1, 2, 8))
 @pytest.mark.parametrize("name", NETS)
-def test_keys_are_repros_for_every_layer(name):
-    """Every layer's key is the string ``repro``'s tuner and dispatch use:
-    ``benchmarks/autotune.py``'s table keys, and the dispatch keys of a
-    fused epilogue, whose ``ep:none`` fallback is that table key."""
+def test_keys_are_repros_for_every_layer(name, batch):
+    """Every layer's key at batch 1, 2 and 8 is the string ``repro``'s tuner
+    and dispatch use: ``benchmarks/autotune.py``'s table keys, and the
+    dispatch keys of a fused epilogue, whose ``ep:none`` fallback is that
+    table key."""
     port, jax_side = _layers(name)
     assert len(port) == len(jax_side) > 0
     for tl, jl in zip(port, jax_side):
         assert tl.name == jl.name
-        assert tune.layer_key(tl) == j_tuner._layer_key(jl, 1)
-        x_shape = (1, tl.IL, tl.IL, tl.IC)
+        assert tune.layer_key(tl, batch) == j_tuner._layer_key(jl, batch)
+        assert tune.gemm_rows(tl, batch) == j_tuner._gemm_rows(jl, batch)
+        x_shape = (batch, tl.IL, tl.IL, tl.IC)
         w_shape = (tl.FL, tl.FL, tl.IC, tl.K)
         x = torch.zeros(0, dtype=torch.bfloat16)
         for tag in ("none", "scale+bias+relu"):
@@ -101,7 +104,7 @@ def test_keys_are_repros_for_every_layer(name):
                                ops.dtype_name(x), tag)
                     == j_autotune.conv2d_key(x_shape, w_shape, tl.S, tl.Z,
                                              jnp.bfloat16(0).dtype, tag))
-            m = tune.gemm_rows(tl)
+            m = tune.gemm_rows(tl, batch)
             key = gemm_key(m, tl.IC, tl.K, "float32", tag)
             assert key == j_autotune.gemm_key(m, tl.IC, tl.K,
                                               jnp.float32(0).dtype, tag)
@@ -449,6 +452,56 @@ def test_tuner_needs_the_card():
         pytest.skip("a CUDA device is present: the tuner would run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tune.main(["--net", "smoke"])
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--net", "vgg16", "--batch", "2", "--reps", "3", "--candidates", "4",
+      "--verbose"],
+     dict(net="vgg16", batch=2, reps=3, max_candidates=4, verbose=True)),
+    (["--net", "resnet50", "--batch", "8"],
+     dict(net="resnet50", batch=8, reps=tune.REPS,
+          max_candidates=tune.CANDIDATES, verbose=False)),
+    # --smoke: the smoke layer set on the least budget, whatever --net says
+    (["--net", "vgg16", "--smoke", "--candidates", "6", "--reps", "4"],
+     dict(net="smoke", batch=1, reps=1, max_candidates=3, verbose=False)),
+])
+def test_tuner_options_reach_tune_layers(monkeypatch, tmp_path, argv, want):
+    """The parsed options reach ``tune_layers`` with ``repro``'s meaning
+    (``benchmarks/autotune.py``), and ``--out`` writes the table there,
+    over ``--commit``; the keys are the batch's.  The card is stubbed out:
+    the tuner itself still refuses to run without one
+    (``test_tuner_needs_the_card``)."""
+    seen = {}
+
+    def fake_tune_layers(layers, **kw):
+        seen.update(kw, layers=layers)
+        cfg = TileConfig(tile=0, splits=1)
+        entries = {tune.layer_key(l, kw["batch"]):
+                   Entry(config=cfg, source="cache", tuned_ms=1.0,
+                         default_ms=1.0) for l in layers}
+        return entries, {k: [{"config": cfg}] for k in entries}
+
+    monkeypatch.setattr(tune, "resolve_device", lambda d: d)
+    monkeypatch.setattr(tune, "tune_layers", fake_tune_layers)
+    out = tmp_path / "table.json"
+    entries = tune.main(argv + ["--commit", "--out", str(out)])
+    assert {k: seen[k] for k in ("batch", "reps", "max_candidates",
+                                 "verbose")} == {
+        k: want[k] for k in ("batch", "reps", "max_candidates", "verbose")}
+    assert [l.name for l in seen["layers"]] == [
+        l.name for l in tune.net_layers(want["net"])]
+    doc = json.loads(out.read_text())
+    assert doc["net"] == want["net"]
+    assert sorted(doc["entries"]) == sorted(entries)
+    b = want["batch"]
+    assert all(k.startswith((f"conv2d|x{b}x", "gemm|m")) for k in entries)
+    assert set(entries) == {j_tuner._layer_key(jl, b)
+                            for jl in _layers(want["net"])[1]}
+
+
+def test_tuner_refuses_counts_below_one():
+    with pytest.raises(SystemExit):
+        tune.main(["--net", "smoke", "--batch", "0"])
 
 
 def test_tuner_keys_cover_every_traced_forward():

@@ -129,7 +129,7 @@ def test_decode_launch_pads_to_a_built_width():
                           atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("dh", [272, 384, 1024])
+@pytest.mark.parametrize("dh", [257, 272, 384, 1024, 2048])
 def test_flash_launch_takes_wide_head_dims_unpadded(monkeypatch, dh):
     """Above 256 ``_launch`` hands the launch q, k and v as they are, at
     dh's own scale."""
@@ -148,7 +148,7 @@ def test_flash_launch_takes_wide_head_dims_unpadded(monkeypatch, dh):
     assert torch.equal(out, fa.flash_attention_plain(q, k, v))
 
 
-@pytest.mark.parametrize("dh", [272, 512])
+@pytest.mark.parametrize("dh", [257, 272, 512, 2048])
 def test_decode_launch_takes_wide_head_dims_unpadded(dh):
     seen = {}
 
@@ -178,3 +178,51 @@ def test_smollm_360m_smoke_config_has_an_unbuilt_head_dim():
     dh = cfg.d_model // cfg.n_heads
     assert dh == 20 and dh not in fa.HEAD_DIMS
     assert fa.padded_head_dim(dh) in fa.HEAD_DIMS
+
+
+def test_wide_launches_refuse_head_dims_past_2048(monkeypatch):
+    """Both launches refuse dh 2049 with ``padded_head_dim``'s message
+    before anything reaches the kernel."""
+    monkeypatch.setattr(fa, "_launch_built", lambda *a, **k: pytest.fail(
+        "the flash kernel was reached"))
+    msg = "above the widest the kernels take, 2048"
+    q, k, v = _qkv(1, 3, 2, 1, 2049, torch.float32)
+    with pytest.raises(ValueError, match=msg):
+        fa._launch(q, k, v, 0, 0.0)
+    with pytest.raises(ValueError, match=msg):
+        fa.with_padded_head_dim(
+            lambda *a, **kw: pytest.fail("the decode kernel was reached"),
+            q[:, 0], k, v, torch.zeros(1, dtype=torch.int32), window=0,
+            softcap=0.0, k_offset=0, return_lse=False)
+
+
+# The wide decode kernel's grid is (splits, KH, B): one block per (split,
+# kv head, batch) scores all G heads of the group, and the occupancy query
+# reports blocks per SM undivided by G. (b, s, h, kh, dh, slots) -> the
+# splits and tiles a split that fill one wave.
+WIDE_PLANS = [((4, 2048, 8, 4, 512, 132), (8, 4)),
+              ((1, 2048, 8, 4, 512, 132), (32, 1)),
+              ((2, 1000, 6, 3, 1024, 132), (16, 1)),
+              ((4, 2048, 8, 4, 2048, 264), (16, 2)),
+              ((3, 300, 8, 2, 301, 132), (5, 1)),
+              ((64, 4096, 32, 4, 512, 132), (1, 64))]
+
+
+@pytest.mark.parametrize("shape,want", WIDE_PLANS)
+def test_decode_launch_plan_fills_one_wave_of_the_wide_grid(shape, want):
+    b, s, h, kh, dh, slots = shape
+    plan = da.launch_plan(b, s, h, kh, dh, slots)
+    assert (plan.splits, plan.split_tiles) == want
+    tiles = -(-s // da.CHUNK)
+    # whole tiles, none empty, every row covered
+    assert plan.splits * plan.split_tiles >= tiles
+    assert (plan.splits - 1) * plan.split_tiles < tiles
+    # B x KH x splits blocks, one wave of the card's slots (at least one
+    # split per (b, kh)), and as many splits as that wave allows
+    assert b * kh * plan.splits <= max(slots, b * kh)
+    assert plan.splits == min(tiles, max(1, slots // (b * kh))) or \
+        -(-tiles // (plan.split_tiles - 1)) > max(1, slots // (b * kh))
+    # a max, a sum and dh outputs per (b, kh, split, head of the group)
+    assert plan.ws_floats == b * kh * plan.splits * (h // kh) * (2 + dh)
+    assert plan.tickets == b * kh
+

@@ -117,7 +117,9 @@ DECODE_CASES = [(2, 256, 8, 2, 32, 64), (1, 1000, 4, 4, 64, 256),
                 (2, 64, 6, 3, 16, 64), (2, 128, 4, 2, 256, 64),
                 # head dims above 256: the wide kernel, unpadded
                 (2, 128, 4, 2, 272, 64), (1, 200, 2, 1, 384, 64),
-                (2, 96, 4, 4, 512, 32)]
+                (2, 96, 4, 4, 512, 32),
+                # a row of 301 elements: no whole number of 16-byte pieces
+                (2, 90, 4, 2, 301, 32)]
 
 
 @pytest.mark.parametrize("b,s,h,kh,dh,bs", DECODE_CASES)
@@ -141,7 +143,7 @@ FLASH_CASES = [(1, 512, 4, 2, 32, 0, 0.0), (2, 512, 8, 4, 64, 128, 0.0),
                (1, 256, 4, 2, 256, 64, 50.0),   # gemma2's head dim
                # head dims above 256: the wide kernel, unpadded
                (1, 128, 4, 2, 272, 0, 0.0), (1, 128, 2, 2, 384, 32, 30.0),
-               (1, 128, 4, 1, 512, 0, 50.0)]
+               (1, 128, 4, 1, 512, 0, 50.0), (1, 128, 4, 2, 301, 20, 30.0)]
 
 
 @pytest.mark.parametrize("b,t,h,kh,dh,win,cap", FLASH_CASES)
