@@ -42,7 +42,11 @@ printing one JSON line:
              the kernel given min(pos, W - 1)), FL 2-4, odd C, strided
              input; dh 20, padded to 64 in the wrappers; the paths no
              config has: conv1d at FL 1, 5, 7 and 9 (odd C, strided and
-             contiguous x) and flash and decode at dh 272, 301, 384, 512,
+             contiguous x) and at the runtime-FL kernel's edges (T over
+             several 128-step tiles and off them, T below FL, FL 65, 128,
+             129 and 300 past one chunk of taps, odd C, a strided view,
+             FL 7 at zamba2's prefill shape) and flash and decode at dh
+             272, 301, 384, 512,
              1024 and 2048 (the wide kernels: GQA, windows, soft-caps,
              query and key offsets, a position per row, rings, the
              log-sum-exp, a cache of one row, groups of 16 and 18 heads)),
@@ -82,6 +86,12 @@ printing one JSON line:
    decode_wide_faults — the same for the wide decode kernel
              (``DECODE_WIDE_FAULTS``: a head of the group scored with
              another head's q), through the bf16 wide-head decode cases.
+   conv1d_any_faults — the same for conv1d's runtime-FL kernel
+             (``CONV1D_ANY_FAULTS``: the halo rows before a slab's tile
+             left zero, the last chunk of taps skipped, a tap's weights
+             taken from the neighbouring channel vector), through the
+             any-FL cases whose FL no template instance takes, fp32 and
+             bf16.
 5. times   — each CNN kernel, its plain version and the one PyTorch library
              call (cuDNN conv / cuBLAS GEMM with TF32 off, epilogue not
              included) at the fp32 main-path shapes, and each LM kernel at
@@ -208,14 +218,18 @@ printing one JSON line:
              kernel).  Then flash and decode at dh 512 (8 heads over 4, T
              and S 2048) and conv1d at FL 7 (zamba2's prefill shape) in
              bf16, cold L2, beside the bound, the plain version and SDPA /
-             depthwise F.conv1d (flash and decode also in fp32, and a
-             device copy of decode's K cache, as many bytes as decode
-             reads), and the wide instances' registers and
-             spills (none may spill), and the wide decode launch's grid
-             that phase build read.  Beside the wide decode
+             depthwise F.conv1d, and in fp32; a device copy of decode's
+             K cache, as many bytes as decode reads, and two of conv1d's
+             input (the column slice into a contiguous tensor, and a
+             contiguous one cloned); the wide and runtime-FL instances'
+             registers and spills (none may spill), and the wide decode
+             launch's grid that phase build read.  Beside the wide decode
              kernel, in turns, its yardsticks (``DECODE_WIDE_VARIANTS``,
              built with the planted faults): the ring of bulk copies
-             alone, and the one instance of 8 heads at groups of 2 and 1.
+             alone, and the one instance of 8 heads at groups of 2 and 1;
+             beside conv1d's runtime-FL kernel, in bf16 and fp32, its
+             (``CONV1D_ANY_VARIANTS``): the slabs' copies and stores
+             alone, and one tile a block (the same bits required).
    scheduler — ``serving.ContinuousBatcher`` on mixtral's weights: 4
              slots, 8 requests (prompts of 512-6144 tokens, budgets of 4-16,
              drawn from the seed); exact launches, each request admitted
@@ -384,7 +398,8 @@ from repro_torch.bench.kernel_bench import (  # noqa: E402
     DECODE_PATH_NAMES, G_GEN, G_PROMPT, M_BATCH, M_GEN, M_PROMPT, R_BATCH,
     R_PROMPT, S_BUDGET_RANGE, S_PROMPT_RANGE, S_SLOTS, SD_BATCH, SD_GEN,
     SD_PROMPT, TS_BATCH, TS_SEQ, TZ_BATCH, TZ_SEQ, Z_BATCH, Z_GEN, Z_PROMPT,
-    Kernels, conv1d_case, decode_case, decode_path_cases, dh20_cases,
+    Kernels, any_fl_cases, conv1d_case, conv1d_with, decode_case,
+    decode_path_cases, dh20_cases,
     dh256_cases, epilogue_of, flash_case, kernel_pos, lm_kernel_cases,
     WIDE_DH, lm_operands, lm_reduction, main_path_shapes, make_operands,
     model_epilogue, peaks_for, time_cnn_call, time_lm_case, time_padding,
@@ -473,6 +488,40 @@ DECODE_WIDE_FAULTS = {
         "*reinterpret_cast<const float4*>(qs + (g == 1 ? 0 : g) * DP + "
         "c * VEC + e4);"),
 }
+# Faults planted in conv1d's runtime-FL kernel (conv1d_any_kernel), name ->
+# (text of csrc/conv1d.cu, its replacement); the any-FL cases of lm_checks
+# (``any_fl_cases``, FL other than 1-4, fp32 and bf16) must catch each.
+CONV1D_ANY_FAULTS = {
+    # each slab's rows before its tile (the FL - 1 steps of halo) left zero
+    "conv1d_any_halo_left_zero": (
+        "    const bool ok = t >= 0 && t < s.T && c < s.C;\n",
+        "    const bool ok = t >= 0 && t < s.T && c < s.C &&\n"
+        "                    (RING || j >= j1 - C1A_TB);\n"),
+    # the last chunk of taps skipped when FL exceeds one slab's chunk
+    "conv1d_any_last_chunk_skipped": (
+        "    const int r_end = min(FL, (k + 1) * C1A_FC);\n",
+        "    const int r_end = k + 1 < nch ? min(FL, (k + 1) * C1A_FC)\n"
+        "                                  : k * C1A_FC;\n"),
+    # tap r's weights taken from the neighbouring channel vector
+    "conv1d_any_neighbour_weights": (
+        "    const float* wp = ws + (r - r0) * A::CH + v * VEC;\n",
+        "    const float* wp = ws + (r - r0) * A::CH + (v + 1) % A::CB * VEC;"
+        "\n"),
+}
+# Yardsticks of the runtime-FL kernel, built as the planted faults are and
+# timed beside it in phase wide_paths (``time_conv1d_variants``).
+CONV1D_ANY_VARIANTS = {
+    # the slabs' copies and the stores alone: no tap is summed (the output
+    # is 0)
+    "conv1d_any_stream_only": (
+        "      walk_taps<T, VEC, false>(smem + n % 2 * slab, ws, 0, FL, run0, "
+        "v, acc);\n",
+        "      if (FL < 0) walk_taps<T, VEC, false>(smem, ws, 0, FL, run0, v, "
+        "acc);\n"),
+    # one tile a block: no slab is copied in under another's sums
+    "conv1d_any_one_tile": ("constexpr int C1A_NT = 2;",
+                            "constexpr int C1A_NT = 1;"),
+}
 # Faults planted in the CNN kernels' loop (csrc/gemm_pipe.cuh), name ->
 # (text, its replacement), each built into a conv2d and a matmul library;
 # the fp32 conv2d and weight-stationary checks at the main-path shapes must
@@ -518,7 +567,9 @@ PLANTED = ((FLASH_BF16_FAULTS, "flash_attention.cu", ("flash_attention.cu",)),
             ("decode_attention.cu",)),
            (CNN_FAULTS, "gemm_pipe.cuh", ("conv2d.cu", "matmul.cu")),
            (DECODE_WIDE_VARIANTS, "decode_attention.cu",
-            ("decode_attention.cu",)))
+            ("decode_attention.cu",)),
+           (CONV1D_ANY_FAULTS, "conv1d.cu", ("conv1d.cu",)),
+           (CONV1D_ANY_VARIANTS, "conv1d.cu", ("conv1d.cu",)))
 # The bf16 wide flash instances (csrc/flash_attention.cu, launch_wide): one
 # per dh ceiling, each of which must hold HMMA instructions in its SASS
 WIDE_MMA_INSTANCES = 3
@@ -587,7 +638,7 @@ class Checker:
             tol=None):
         diff = (got.float() - want.float()).abs()
         tol = _tol(want, reduction) if tol is None else tol
-        ratio = (diff / tol).max().item()
+        ratio = err_over_tol(diff, tol)
         ok = ratio <= 1.0 and bool(torch.isfinite(got.float()).all())
         self.cases.append({
             "kernel": kernel, **case, "max_abs_err": diff.max().item(),
@@ -596,6 +647,17 @@ class Checker:
 
     def failures(self) -> list[dict]:
         return [c for c in self.cases if not c["ok"]]
+
+
+def err_over_tol(diff: torch.Tensor, tol) -> float:
+    """The largest err / tol of a check, with err <= tol read as stated
+    where a tolerance per element is 0 (bf16 attention's 2^-6 x sum_j p_j
+    |v_j| where that sum is 0): no error passes there (0), any error fails
+    (inf)."""
+    ratio = diff / tol
+    if isinstance(tol, torch.Tensor):
+        ratio = torch.where(diff == 0, torch.zeros_like(ratio), ratio)
+    return ratio.max().item()
 
 
 def _tol(want: torch.Tensor, reduction: int) -> float:
@@ -933,13 +995,13 @@ def check_shard_splits(chk: Checker, lm_kernels: dict, da_mod,
                                          "shards": n}, got, want, 0, tol)
                 rec = chk.cases[-1]
                 plain_split = split_call(case, args, kw, n, plain, da_mod)
-                perr = ((plain_split.float() - want.float()).abs()
-                        / tol).max().item()
+                perr = err_over_tol(
+                    (plain_split.float() - want.float()).abs(), tol)
                 rec.update(bits_equal_unsplit_launch=torch.equal(got, whole),
                            plain_split_err_over_tol=perr,
                            ok=rec["ok"] and perr <= 1.0)
                 bad = split_call(case, args, kw, n, wrapper, da_mod, fault=1)
-                ratio = ((bad.float() - want.float()).abs() / tol).max().item()
+                ratio = err_over_tol((bad.float() - want.float()).abs(), tol)
                 rec["offset_fault_err_over_tol"] = ratio
                 caught[ci, n] = caught.get((ci, n), False) or ratio > 1.0
                 recs.append(rec)
@@ -1070,6 +1132,35 @@ def check_decode_faults(_build, da_mod, libs: dict, gen) -> dict:
     missed = [n for n, r in out.items() if not r["cases_failed"]]
     if missed:
         raise SystemExit(f"the wide decode checks miss planted faults "
+                         f"{missed}: {out}")
+    return out
+
+
+def check_conv1d_faults(_build, c1_mod, libs: dict, gen) -> dict:
+    """Each CONV1D_ANY_FAULTS library through the conv1d wrapper on the
+    any-FL cases of lm_kernel_cases whose FL no template instance takes
+    (fp32 and bf16), at the lm_checks tolerance: how many cases fail and
+    the worst err / tol.  Raises unless every fault fails one."""
+    cases = [c for c in any_fl_cases() if c["fl"] not in c1_mod.FLS]
+    plain = c1_mod.conv1d_causal_plain
+    out = {}
+    for name in CONV1D_ANY_FAULTS:
+        lib = load_fault(libs[name, "conv1d"], c1_mod._SIGNATURES)
+        chk = Checker()
+        with mock.patch.object(_build, "load", lambda *_: lib):
+            for case in cases:
+                for dtype in (torch.float32, torch.bfloat16):
+                    args, _ = lm_operands(case, dtype, gen)
+                    chk.add("conv1d_causal", {**case, "dtype": str(dtype)[6:]},
+                            c1_mod.conv1d_causal(*args), plain(*args),
+                            case["fl"])
+        torch.cuda.synchronize()
+        out[name] = {"cases_failed": len(chk.failures()), "of": len(chk.cases),
+                     "max_err_over_tol": max(c["err_over_tol"]
+                                             for c in chk.cases)}
+    missed = [n for n, r in out.items() if not r["cases_failed"]]
+    if missed:
+        raise SystemExit(f"the any-FL conv1d checks miss planted faults "
                          f"{missed}: {out}")
     return out
 
@@ -1888,37 +1979,72 @@ def run_wide_paths(serve, lm, attn_mod, fa_mod, da_mod, counters: dict,
             args, _ = lm_operands(case, torch.bfloat16, gen)
             times[kname]["cache_copy_ms"] = cold_time_ms(args[1].clone, flush)
             del args
-        if kname != "conv1d_causal":
-            # the fp32 instances (the CUDA cores; TF32 stays off) beside
-            times_fp32[kname] = time_lm_case(
-                *lm_kernels[kname], case, torch.float32, peaks, flush, gen,
-                reps=5, plain_reps=1)
+        # the fp32 instances (the CUDA cores; TF32 stays off) beside
+        times_fp32[kname] = time_lm_case(
+            *lm_kernels[kname], case, torch.float32, peaks, flush, gen,
+            reps=5, plain_reps=1)
     ptx = {n: {**ptxas_instances(_build.build_log(n), "wide"),
                **ptxas_instances(_build.build_log(n), "any")}
            for n in ("flash_attention", "decode_attention", "conv1d")}
-    spilled = {k: r for n in ("flash_attention", "decode_attention")
+    spilled = {k: r for n in ("flash_attention", "decode_attention", "conv1d")
                for k, r in ptx[n].items() if r.get("spill_store_bytes")
                or r.get("spill_load_bytes")}
     variants = time_decode_variants(_build, da_mod, libs,
                                     wide_time_cases()[1], flush, gen)
+    c1_variants = time_conv1d_variants(_build, libs, wide_time_cases()[2],
+                                       flush, gen)
     emit({"phase": "wide_paths", "decode_grid": grid,
-          "decode_variants": variants,
+          "decode_variants": variants, "conv1d_variants": c1_variants,
           "served": {r["phase"]: {f: r[f] for f in (
               "launches_per_prefill", "launches_per_decode_step")}
                      for r in (wide, any_fl)},
           "ptxas": ptx,
-          "times_bf16": {k: {f: r[f] for f in (
-              "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-              "max_abs_err", "cache_copy_ms") if f in r}
+          "times_bf16": {k: {f: r[f] for f in TIME_FIELDS if f in r}
                          for k, r in times.items()},
-          "times_fp32": {k: {f: r[f] for f in (
-              "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
+          "times_fp32": {k: {f: r[f] for f in TIME_FIELDS if f in r}
                          for k, r in times_fp32.items()}})
     if spilled:
-        raise SystemExit(f"wide_paths: wide instances that spill {spilled}")
+        raise SystemExit(f"wide_paths: wide and runtime-FL instances that "
+                         f"spill {spilled}")
     return {"wide": wide, "any_fl": any_fl, "ptxas": ptx,
             "times_bf16": times, "times_fp32": times_fp32,
-            "decode_grid": grid, "decode_variants": variants}
+            "decode_grid": grid, "decode_variants": variants,
+            "conv1d_variants": c1_variants}
+
+
+# the fields of a time_lm_case row that the phases print
+TIME_FIELDS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+               "max_abs_err", "cache_copy_ms", "copy_ms",
+               "contiguous_copy_ms")
+
+
+def time_conv1d_variants(_build, libs: dict, case: dict, flush,
+                         gen) -> dict:
+    """conv1d's runtime-FL kernel beside its yardsticks
+    (``CONV1D_ANY_VARIANTS``) through the wrapper at ``case``, bf16 and
+    fp32, cold L2, in turns (kernel, variant, variant, kernel); the
+    one-tile variant must give the kernel's bits."""
+    from repro_torch.kernels import conv1d as c1_mod
+    base = _build.load("conv1d", c1_mod._SIGNATURES)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args, _ = lm_operands(case, dtype, gen)
+        rec = out[str(dtype)[6:]] = {}
+        for name in CONV1D_ANY_VARIANTS:
+            lib = load_fault(libs[name, "conv1d"], c1_mod._SIGNATURES)
+            ms = [conv1d_with(x, args, flush) for x in (base, lib, lib, base)]
+            rec[name] = {"kernel_ms": [ms[0], ms[3]],
+                         "variant_ms": [ms[1], ms[2]]}
+            if name == "conv1d_any_one_tile":
+                rec[name]["same_bits"] = torch.equal(
+                    conv1d_with(lib, args), conv1d_with(base, args))
+        del args
+    unequal = [d for d, r in out.items()
+               if not r["conv1d_any_one_tile"]["same_bits"]]
+    if unequal:
+        raise SystemExit(f"wide_paths: conv1d's one-tile variant differs "
+                         f"from the kernel in {unequal}: {out}")
+    return out
 
 
 def wide_decode_grid() -> dict:
@@ -3137,6 +3263,10 @@ def main() -> int:
     emit({"phase": "decode_wide_faults",
           **check_decode_faults(_build, da_mod, fault_libs, dgen),
           "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({"phase": "conv1d_any_faults",
+          **check_conv1d_faults(_build, c1_mod, fault_libs, dgen),
+          "seconds": time.perf_counter() - t0})
     train_k = check_train_kernels(fa_mod, c1_mod, dgen)
 
     # 5. times at the fp32 main-path shapes, with each call's own epilogue
@@ -3184,9 +3314,7 @@ def main() -> int:
                          f"device kernel: {many}")
     lm_times = time_lm_kernels(lm_kernels, peaks, flush, dgen)
     emit({"phase": "times", "path": "zamba2 kernels, bf16, one call each",
-          **{k: {f: r[f] for f in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by", "max_abs_err",
-                                    "cache_copy_ms") if f in r}
+          **{k: {f: r[f] for f in TIME_FIELDS if f in r}
              for k, r in lm_times.items()}})
     t0 = time.perf_counter()
     splits = check_shard_splits(Checker(), lm_kernels, da_mod, lm_times, dgen)
@@ -3378,14 +3506,16 @@ def main() -> int:
             "ptxas": {n: v for n, v in wide["ptxas"][stem].items()
                       if tag in n},
             **({"hmma": wide_hmma} if kname == "flash_attention" else {}),
-            **({"fp32": {f: wide["times_fp32"][kname][f] for f in (
-                "ms", "plain_ms", "bound_ms", "max_abs_err")}}
-               if kname in wide["times_fp32"] else {}),
-            **({"cache_copy_ms": r["cache_copy_ms"]}
-               if "cache_copy_ms" in r else {}),
+            "fp32": {f: wide["times_fp32"][kname][f] for f in (
+                "ms", "plain_ms", "bound_ms", "max_abs_err", "copy_ms",
+                "contiguous_copy_ms") if f in wide["times_fp32"][kname]},
+            **{f: r[f] for f in ("cache_copy_ms", "copy_ms",
+                                 "contiguous_copy_ms") if f in r},
             **({"grid": wide["decode_grid"],
                 "yardsticks": wide["decode_variants"]}
-               if kname == "decode_attention" else {})})
+               if kname == "decode_attention" else {}),
+            **({"yardsticks": wide["conv1d_variants"]}
+               if kname == "conv1d_causal" else {})})
     emit({"kernels": line})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

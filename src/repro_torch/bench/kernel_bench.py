@@ -16,7 +16,14 @@ dh 512 and conv1d at FL 7.  Per row: the kernel's and its plain version's
 (``kernels/ref.py``) cold-L2 device time (``bench.timer``), the max
 difference between the two, the library call's time, and the bound
 max(FLOPs / peak, bytes / bandwidth) with each input read once and each
-output written once (attention counts only the pairs its mask lets in).
+output written once (attention counts only the pairs its mask lets in);
+beside conv1d two copies of its input (``conv1d_yardsticks``).
+
+    PYTHONPATH=src python -m repro_torch.bench.kernel_bench \
+        --conv1d-against OTHER/src/repro_torch/kernels/csrc/conv1d.cu
+
+times only conv1d at zamba2's prefill shape, FL 7 and 4, this tree's
+kernel in turns with another tree's (``conv1d_turns``).
 
 This module also holds the pieces ``chip_smoke.py`` shares with it: the
 main paths' shapes and case lists, each kernel's operands, cost and
@@ -322,11 +329,21 @@ def lm_kernel_cases() -> list[dict]:
 def any_fl_cases() -> list[dict]:
     """conv1d at FL 1 (a template instance) and 5, 7 and 9 (the kernel that
     takes FL at run time): odd C (one channel a thread), contiguous and
-    strided x, a run of 8 time steps cut short."""
+    strided x.  Then the runtime-FL kernel's edges (its blocks cover 128
+    time steps and 64 or 32 channels, its slab one chunk of 64 taps): T
+    over several blocks and off them, with odd C and strided x at FL 7; T
+    below FL; FL past one chunk (65, 128, 129 and 300: the ring of
+    chunks), with odd C; and FL 7 at zamba2's prefill shape."""
     c1 = conv1d_case
-    return [case for fl in (1, 5, 7, 9) for case in (
+    return [*(case for fl in (1, 5, 7, 9) for case in (
         c1(2, 33, 131, fl), c1(3, 100, 1000, fl),
-        c1(2, 45, 64, fl, row=80, col0=8))]
+        c1(2, 45, 64, fl, row=80, col0=8))),
+        c1(2, 300, 1000, 7), c1(2, 300, 131, 7),
+        c1(2, 300, 520, 7, row=1040, col0=520),
+        c1(2, 5, 64, 9), c1(1, 3, 131, 9),
+        c1(2, 300, 200, 65), c1(1, 257, 72, 128, row=80, col0=8),
+        c1(2, 400, 200, 129), c1(2, 400, 200, 300), c1(1, 400, 131, 300),
+        c1(Z_BATCH, Z_PROMPT, 5248, 7, row=10368, col0=5120)]
 
 
 def wide_head_cases() -> list[dict]:
@@ -544,7 +561,91 @@ def time_lm_case(wrapper, plain, case: dict, dtype, peaks: dict, flush, gen,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
     if case["kernel"] == "decode_attention":
         row["kernel_pos"] = list(kernel_pos(case, pos))
+    if case["kernel"] == "conv1d_causal":
+        row.update(conv1d_yardsticks(args[0], flush, reps))
     return row
+
+
+def conv1d_yardsticks(x, flush, reps: int = REPS) -> dict:
+    """Two yardsticks of the memory system beside conv1d, not bounds: x (a
+    column slice on the main path) copied into a contiguous (B, T, C)
+    tensor, which reads and writes what the kernel must; and a clone of a
+    contiguous x, the same bytes through PyTorch's vectorised copy."""
+    xc = x.contiguous()
+    return {"copy_ms": cold_time_ms(
+                lambda: x.clone(memory_format=torch.contiguous_format),
+                flush, reps),
+            "contiguous_copy_ms": cold_time_ms(xc.clone, flush, reps)}
+
+
+def build_conv1d(source: str):
+    """Another tree's ``csrc/conv1d.cu`` built with this tree's nvcc flags
+    (against the headers beside it) into a temporary directory and loaded
+    with the wrapper's signatures."""
+    import ctypes
+    import subprocess
+    import tempfile
+    from pathlib import Path
+    from ..kernels import _build, conv1d
+    src = Path(source).resolve()
+    lib = Path(tempfile.mkdtemp(prefix="conv1d_against_")) / "libconv1d.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(src.parent), "-o", str(lib), str(src)], check=True,
+                   capture_output=True, text=True)
+    out = ctypes.CDLL(str(lib))
+    for fn, argtypes in conv1d._SIGNATURES.items():
+        getattr(out, fn).argtypes = argtypes
+        getattr(out, fn).restype = ctypes.c_int
+    return out
+
+
+def conv1d_with(lib, args, flush=None, reps: int = REPS):
+    """conv1d through its wrapper with the build ``lib`` in place of this
+    tree's: the output, or with ``flush`` its cold-L2 time."""
+    from unittest import mock
+    from ..kernels import _build, conv1d
+    with mock.patch.object(_build, "load", lambda *_: lib):
+        fn = lambda: conv1d.conv1d_causal(*args)
+        return cold_time_ms(fn, flush, reps) if flush is not None else fn()
+
+
+def conv1d_turns(sources: list[str], reps: int = REPS, seed: int = 0) -> dict:
+    """This tree's conv1d kernel and each other build of ``sources``
+    (``build_conv1d``) through the wrapper, cold L2, in turns (this, other,
+    other, this), at zamba2's prefill shape (a column slice of the in_proj
+    output) at FL 7 (the runtime-FL kernel) and FL 4 (a template
+    instance), bf16 and fp32; beside them the two copies of
+    ``conv1d_yardsticks``, depthwise F.conv1d and the bound, and each
+    build's largest difference from this tree's output."""
+    from ..kernels import _build, conv1d
+    peaks = peaks_for(torch.cuda.get_device_name(0))
+    ours = _build.load("conv1d", conv1d._SIGNATURES)
+    others = {src: build_conv1d(src) for src in sources}
+    flush = flush_buffer()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for fl in (7, 4):
+            case = conv1d_case(Z_BATCH, Z_PROMPT, 5248, fl, row=10368,
+                               col0=5120)
+            args, _ = lm_operands(case, dtype, gen)
+            flops, nbytes = lm_cost(case, dtype, ())
+            peak = peaks["bf16" if dtype == torch.bfloat16 else "fp32"]
+            row = {"case": case, "dtype": str(dtype).removeprefix("torch."),
+                   "bound_ms": max(flops / peak, nbytes / peaks["bw"]) * 1e3,
+                   "library_ms": cold_time_ms(lm_library(case, args), flush,
+                                              reps),
+                   **conv1d_yardsticks(args[0], flush, reps), "against": {}}
+            want = conv1d_with(ours, args).float()
+            for src, lib in others.items():
+                ms = [conv1d_with(x, args, flush, reps)
+                      for x in (ours, lib, lib, ours)]
+                row["against"][src] = {
+                    "ms": [ms[0], ms[3]], "other_ms": [ms[1], ms[2]],
+                    "max_abs_diff": (conv1d_with(lib, args).float()
+                                     - want).abs().max().item()}
+            rows.append(row)
+    return {"rows": rows}
 
 
 def dh20_cases() -> list[dict]:
@@ -676,12 +777,28 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="write every row, the card and its power limit here")
+    ap.add_argument("--conv1d-against", nargs="+", metavar="CONV1D_CU",
+                    help="time only conv1d at zamba2's prefill shape, this "
+                         "tree's kernel in turns with each of these builds "
+                         "of another tree's csrc/conv1d.cu (conv1d_turns)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_bench: no CUDA device; the kernels run on an NVIDIA "
               "GPU (an H100)", file=sys.stderr)
         return 1
     from ..core import autotune
+    device = {"name": autotune.device_name(),
+              "power_limit": autotune.power_limit()}
+    if args.conv1d_against:
+        out = {"device": device, "timer": "cuda_event_cold_l2", "reps": REPS,
+               **conv1d_turns(args.conv1d_against)}
+        for r in out["rows"]:
+            print(json.dumps({**r, "case": {k: r["case"][k] for k in (
+                "b", "t", "c", "fl", "row")}}))
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(out, f, indent=1)
+        return 0
     title, headers, rows, records = kernel_table()
     print(f"=== {title} ===")
     widths = [max(len(h), *(len(r[i]) for r in rows))
@@ -700,10 +817,9 @@ def main(argv=None) -> int:
                   f"{p['pads_alone_ms']:.4f} ms")
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"device": {"name": autotune.device_name(),
-                                  "power_limit": autotune.power_limit()},
-                       "timer": "cuda_event_cold_l2", "reps": REPS,
-                       "rows": records}, f, indent=1, default=list)
+            json.dump({"device": device, "timer": "cuda_event_cold_l2",
+                       "reps": REPS, "rows": records}, f, indent=1,
+                      default=list)
         print(f"rows -> {args.json}")
     return 0
 

@@ -360,6 +360,17 @@ def test_kernel_bench_needs_the_card():
     assert res.returncode != 0 and "no CUDA device" in res.stderr
 
 
+def test_kernel_bench_conv1d_turns_need_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-m",
+                          "repro_torch.bench.kernel_bench", "--conv1d-against",
+                          str(ROOT / "src/repro_torch/kernels/csrc/conv1d.cu")],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "no CUDA device" in res.stderr
+
+
 def test_one_cold_l2_timer():
     """The tuner, the bench record, the kernel bench and chip_smoke.py time
     through the same function."""

@@ -65,7 +65,14 @@ CONV1D_CASES = [(1, 16, 32, 4), (2, 33, 96, 4), (2, 64, 513, 2), (1, 8, 8, 3),
                 # filter lengths no config has: the FL 1 instance and the
                 # kernel that takes FL at run time
                 (1, 16, 32, 1), (2, 33, 96, 5), (1, 40, 131, 7),
-                (2, 17, 24, 9)]
+                (2, 17, 24, 9),
+                # the runtime-FL kernel's edges (bench.kernel_bench's
+                # any_fl_cases at CPU size): T over several 128-step tiles
+                # and off them, with odd C; T below FL; FL past one chunk of
+                # 64 taps (the ring of chunks), with odd C
+                (2, 300, 40, 7), (1, 300, 13, 7), (2, 5, 16, 9),
+                (1, 200, 24, 65), (1, 260, 13, 128), (1, 300, 16, 129),
+                (1, 400, 8, 300)]
 
 
 @pytest.mark.parametrize("b,t,c,fl", CONV1D_CASES)
@@ -93,6 +100,43 @@ def test_conv1d_reads_a_strided_view():
                                t_conv1d.conv1d_causal(view.contiguous(), w),
                                rtol=0, atol=0)
     assert t_conv1d.vector_width(view) == 4
+
+
+@pytest.mark.parametrize("fl", [7, 65])
+def test_conv1d_strided_view_matches_pallas(fl):
+    """A column slice, as Mamba2 hands the conv, over several tiles of the
+    runtime-FL kernel, against the Pallas kernel on the same columns."""
+    rng = np.random.default_rng(fl)
+    full = rng.standard_normal((2, 300, 40)).astype(np.float32)
+    w = rng.standard_normal((fl, 24)).astype(np.float32)
+    view = torch.from_numpy(full)[..., 8:32]
+    assert not view.is_contiguous() and t_conv1d.vector_width(view) == 4
+    want = j_conv1d(jnp.asarray(full[..., 8:32]), jnp.asarray(w),
+                    interpret=True)
+    assert _err(t_conv1d.conv1d_causal(view, torch.from_numpy(w)),
+                want) < 2e-4 * fl
+
+
+def test_any_fl_cases_cross_the_runtime_kernels_edges():
+    """The card's any-FL cases reach every edge of conv1d_any_kernel's
+    tiles as the source sizes them: T over several tiles and off them, T
+    below FL, FL past one and two chunks of taps, odd C, a strided view,
+    and zamba2's prefill shape."""
+    from repro_torch.bench import kernel_bench
+    tb = _constant("conv1d.cu", "C1A_TB")
+    fc = _constant("conv1d.cu", "C1A_FC")
+    cases = [c for c in kernel_bench.any_fl_cases()
+             if c["fl"] not in t_conv1d.FLS]
+    assert any(c["t"] > 2 * tb and c["t"] % tb for c in cases)
+    assert any(c["t"] < c["fl"] for c in cases)
+    assert any(fc < c["fl"] <= 2 * fc for c in cases)
+    assert any(c["fl"] > 4 * fc and c["c"] % 2 for c in cases)
+    assert any(c["t"] > tb and c["c"] % 2 and c["fl"] == 7 for c in cases)
+    assert any(c["row"] != c["c"] and c["fl"] == 7 and c["t"] > tb
+               for c in cases)
+    assert kernel_bench.wide_time_cases()[2] in cases
+    assert all(c in kernel_bench.lm_kernel_cases()
+               for c in kernel_bench.any_fl_cases())
 
 
 def test_conv1d_span_matches_repro():
@@ -269,6 +313,38 @@ def test_python_constants_match_the_sources():
         t_flash.WIDE_MAX_HEAD_DIM
     assert _constant("decode_attention.cu", "DA_WIDE_MAX_DH") == \
         t_flash.WIDE_MAX_HEAD_DIM
+
+
+def _planted_edits():
+    import chip_smoke
+    return [(edited, name, old) for faults, edited, _ in chip_smoke.PLANTED
+            for name, (old, _) in faults.items()]
+
+
+@pytest.mark.parametrize("edited,name,old", _planted_edits(),
+                         ids=[e[1] for e in _planted_edits()])
+def test_chip_smoke_planted_edits_are_in_their_sources(edited, name, old):
+    """chip_smoke.py builds each planted fault and yardstick by one text
+    edit of a source; the text must be there exactly once."""
+    assert (CSRC / edited).read_text().count(old) == 1, name
+
+
+def test_chip_smoke_reads_a_zero_tolerance_as_stated():
+    """err <= tol per element: where the tolerance is 0 (bf16 attention
+    where sum_j p_j |v_j| is 0) no error passes and any error fails; a
+    tolerance of one number divides as before."""
+    import chip_smoke
+    tol = torch.tensor([0.0, 1.0, 2.0])
+    assert chip_smoke.err_over_tol(torch.tensor([0.0, 0.5, 1.0]), tol) == 0.5
+    assert chip_smoke.err_over_tol(torch.tensor([1e-9, 0.0, 0.0]),
+                                   tol) == float("inf")
+    assert chip_smoke.err_over_tol(torch.tensor([0.0, 3e-4]), 1e-4) == \
+        pytest.approx(3.0)
+    chk = chip_smoke.Checker()
+    want = torch.tensor([0.0, 1.0])
+    chk.add("flash_attention", {}, want.clone(), want, 0,
+            torch.tensor([0.0, 0.1]))
+    assert chk.cases[-1]["ok"] and chk.cases[-1]["err_over_tol"] == 0.0
 
 
 def test_decode_workspace_covers_every_chunk():
