@@ -2253,7 +2253,7 @@ def run_tune(kern, calls: dict, paths: dict, x, counters: dict,
                                        tuple(a["w_shape"]), a["stride"],
                                        a["padding"], epilogue_tag=a[
                                            "epilogue"])
-                child = sp.children[0].attrs
+                child = sp.children[-1].attrs   # the kernel, after the plan
                 want = (plan.tile_config.short
                         if plan.tile_config is not None else None)
                 if want is None or not (a["tuned"] and child["tuned"]
@@ -2342,9 +2342,8 @@ def run_report(cnn, params, x, peaks: dict) -> dict:
            "totals": report.totals(rows), "spans": n_spans,
            "complete_events": n_complete,
            "trace_events": len(doc["traceEvents"]),
-           "measured": "host wall time per dispatch up to "
-                       "torch.cuda.synchronize; util% against the fp32 "
-                       "peak"}
+           "measured": "host time per dispatch, call to return (no "
+                       "synchronise); util% against the fp32 peak"}
     emit(rec)
     if n_complete != n_spans or len(rows) != 53:
         raise SystemExit(f"report: {n_complete} complete events for "

@@ -27,8 +27,9 @@ What "measured" means depends on the device, and the record says which
 * on the CPU (``host``): the median host time of ``reps`` traced
   dispatches.
 
-Each layer also keeps ``host_ms``, the median host-clock duration of its
-traced dispatches (Python dispatch, launch and a synchronise).  It is never
+Each layer also keeps ``host_ms``, the median duration of its traced
+``carla_conv`` span: the host's time from the call to its return (plan,
+operand checks, launch; no span waits for the device).  It is never
 banded: on the card the host clock spreads by 2x between runs of the same
 code while device times repeat within a few percent.
 
@@ -129,19 +130,19 @@ def _measure(fn, reps: int, flush) -> tuple[float, list, float]:
     """(measured seconds, the spans of one traced call, host seconds) of
     ``reps`` calls of fn.
 
-    Host: the median host-clock time of ``reps`` traced calls, each ending
-    in a synchronise.  Measured: on the card (``flush`` given) the median
-    cold-L2 device time of ``reps`` untraced calls, else the host time."""
+    Host: the median duration of the ``reps`` traced calls' root spans,
+    each call followed, outside its span, by a synchronise.  Measured: on
+    the card (``flush`` given) the median cold-L2 device time of ``reps``
+    untraced calls, else the host time."""
     sync = torch.cuda.synchronize if flush is not None else (lambda: None)
     fn()                                                   # warm / build
     durations, spans = [], None
     for _ in range(reps):
         with trace.capture() as tr:
-            t0 = time.perf_counter()
             fn()
-            sync()
-            durations.append(time.perf_counter() - t0)
+        sync()
         spans = tr.spans
+        durations.append(spans[0].duration_s)
     host_s = statistics.median(durations)
     if flush is None:
         return host_s, spans, host_s

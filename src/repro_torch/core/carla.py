@@ -113,22 +113,38 @@ def carla_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     and ``dense_twin_macs`` so pruned-vs-dense is measurable per layer.
 
     With tracing enabled (``observability.trace``) every dispatch records a
-    ``carla_conv`` span carrying both sides of the paper's ledger: the
-    dataflow the controller picked with its analytic ``LayerCost``
-    (cycles / DRAM bytes / PUF), the epilogue combination that was fused
-    (``epilogue=`` attr + ``epilogue_hbm_saved`` bytes), and the measured wall
-    time + bytes of the kernel it actually ran (as a child span from
-    ``kernels.ops``).
+    ``carla_conv`` span, the host's time from the call to its return, with a
+    ``carla.plan`` child (the controller's choice, the cost model and the
+    tuning lookup) and the ``kernels.ops`` span of the kernel it ran.  Once
+    the span has closed it is given both sides of the paper's ledger: the
+    dataflow the controller picked with its analytic ``LayerCost`` (cycles /
+    DRAM bytes / PUF), the epilogue combination that was fused
+    (``epilogue=`` attr + ``epilogue_hbm_saved`` bytes) and the bytes the
+    dispatch touched.  Nothing waits for the device.
     """
     if w.ndim == 2:
         w = w[None, None]
     ep = epilogue or _NO_EPILOGUE
-    plan = plan_conv(tuple(x.shape), tuple(w.shape), stride, padding,
-                     name=name, dtype=ops.dtype_name(x), epilogue_tag=ep.tag)
-
     if not trace.enabled():
+        plan = plan_conv(tuple(x.shape), tuple(w.shape), stride, padding,
+                         name=name, dtype=ops.dtype_name(x),
+                         epilogue_tag=ep.tag)
         return _dispatch(x, w, plan, stride, padding, impl, epilogue)
 
+    with trace.span("carla_conv") as sp:
+        with trace.span("carla.plan"):
+            plan = plan_conv(tuple(x.shape), tuple(w.shape), stride, padding,
+                             name=name, dtype=ops.dtype_name(x),
+                             epilogue_tag=ep.tag)
+        out = _dispatch(x, w, plan, stride, padding, impl, epilogue)
+    sp.attrs.update(_ledger(x, w, out, plan, ep, stride, padding, sparsity))
+    return out
+
+
+def _ledger(x, w, out, plan: ConvPlan, ep: Epilogue, stride: int,
+            padding: int, sparsity: SparsityTag | None) -> dict:
+    """The ``carla_conv`` span's attributes: the plan and its analytic cost,
+    the tuning ledger and the bytes the dispatch touched."""
     cost = plan.cost
     if plan.layer.FL == 1:
         tile_util = autotune.tile_util_gemm(
@@ -140,48 +156,40 @@ def carla_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     else:
         tile_util = autotune.tile_util_conv2d(x.shape, w.shape, stride,
                                               padding, plan.tile_config)
-    sparse_attrs = {}
+    attrs = dict(
+        layer=plan.layer.name, dataflow=plan.dataflow.value, epilogue=ep.tag,
+        x_shape=list(x.shape), w_shape=list(w.shape),
+        stride=stride, padding=padding, batch=int(x.shape[0]),
+        macs=cost.macs, dense_macs=plan.layer.dense_macs,
+        analytic_cycles=cost.cycles,
+        analytic_time_ms=cost.time_s * 1e3,
+        analytic_dram_bytes=cost.dram_bytes,
+        analytic_puf=cost.puf,
+        tuned=plan.tile_config is not None,
+        tile_config=(plan.tile_config.short
+                     if plan.tile_config is not None else "default"),
+        tuning_source=plan.tuning_source,
+        tile_util=tile_util,
+        effective_dataflow=plan.effective_dataflow.value)
     if sparsity is not None:
-        sparse_attrs = {
-            "pruned": True,
-            "keep_fraction": sparsity.keep_fraction(plan.layer.IC,
-                                                    plan.layer.K),
-            "dense_twin_macs": sparsity.dense_twin(plan.layer).macs,
-        }
-    with trace.span(
-            "carla_conv", layer=plan.layer.name,
-            dataflow=plan.dataflow.value, epilogue=ep.tag,
-            x_shape=list(x.shape), w_shape=list(w.shape),
-            stride=stride, padding=padding, batch=int(x.shape[0]),
-            macs=cost.macs, dense_macs=plan.layer.dense_macs,
-            analytic_cycles=cost.cycles,
-            analytic_time_ms=cost.time_s * 1e3,
-            analytic_dram_bytes=cost.dram_bytes,
-            analytic_puf=cost.puf,
-            tuned=plan.tile_config is not None,
-            tile_config=(plan.tile_config.short
-                         if plan.tile_config is not None else "default"),
-            tuning_source=plan.tuning_source,
-            tile_util=tile_util,
-            effective_dataflow=plan.effective_dataflow.value,
-            **sparse_attrs) as sp:
-        out = _dispatch(x, w, plan, stride, padding, impl, epilogue)
-        if out.is_cuda:
-            torch.cuda.synchronize(out.device)
-        # bytes the dispatch actually touched (operands + result); the child
-        # kernel span records the same so nested sums stay consistent.  A
-        # strided 1x1 only reads the subsampled input view, and fused epilogue
-        # operands (scale/bias vectors, residual) are part of the footprint.
-        if plan.layer.FL == 1 and stride != 1:
-            x_bytes = (_mm.gemm_rows(x, stride) * x.shape[3]
-                       * x.element_size())
-        else:
-            x_bytes = x.numel() * x.element_size()
-        sp.attrs["bytes_touched"] = x_bytes + sum(
-            a.numel() * a.element_size() for a in (w, out, ep.scale, ep.bias,
-                                                   ep.residual)
-            if a is not None)
-        if ep.n_fused_ops:
-            sp.attrs["epilogue_hbm_saved"] = \
-                2 * ep.n_fused_ops * out.numel() * out.element_size()
-    return out
+        attrs.update(
+            pruned=True,
+            keep_fraction=sparsity.keep_fraction(plan.layer.IC,
+                                                 plan.layer.K),
+            dense_twin_macs=sparsity.dense_twin(plan.layer).macs)
+    # bytes the dispatch actually touched (operands + result); the child
+    # kernel span records the same so nested sums stay consistent.  A
+    # strided 1x1 only reads the subsampled input view, and fused epilogue
+    # operands (scale/bias vectors, residual) are part of the footprint.
+    if plan.layer.FL == 1 and stride != 1:
+        x_bytes = _mm.gemm_rows(x, stride) * x.shape[3] * x.element_size()
+    else:
+        x_bytes = x.numel() * x.element_size()
+    attrs["bytes_touched"] = x_bytes + sum(
+        a.numel() * a.element_size() for a in (w, out, ep.scale, ep.bias,
+                                               ep.residual)
+        if a is not None)
+    if ep.n_fused_ops:
+        attrs["epilogue_hbm_saved"] = \
+            2 * ep.n_fused_ops * out.numel() * out.element_size()
+    return attrs

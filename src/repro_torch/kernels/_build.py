@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..observability import trace
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+loads: list[trace.Span] = []     # kernels.load of each library, in order
 
 
 def _nvcc() -> str:
@@ -118,18 +121,47 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     Every pointer and the stream must be ``ctypes.c_void_p``: left
     undeclared, ctypes would pass a Python int as a 32-bit C int and cut
     the pointer.  Every entry point returns ``cudaGetLastError()``.
+
+    The first load of a library in a process is a ``kernels.load`` span
+    (``library``; ``built``: whether a source was compiled), kept in
+    ``loads`` whether tracing is on or not, since it happens once, in
+    set-up, before a caller turns tracing on; with tracing on it also
+    joins the open span.
     """
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build_all()
-            lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
+            t0 = time.perf_counter()
+            lib, built_s = _open(name, signatures)
+            sp = trace.Span("kernels.load", t0, time.perf_counter() - t0,
+                            {"library": name, "built": built_s > 0},
+                            tid=threading.get_ident())
+            loads.append(sp)
+            trace.tracer.attach(sp)
             _libs[name] = lib
         return lib
+
+
+def _open(name: str, signatures: dict[str, list]):
+    """(the library, seconds spent building sources) of a first load."""
+    built_s = build_all()
+    lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib, built_s
+
+
+def launch(fn, args: tuple, what: str, route: str) -> None:
+    """Call a kernel's C entry point ``fn`` with ``args`` and raise if the
+    launch failed; a ``kernels.launch`` span (``route``) when tracing is
+    on."""
+    if not trace.enabled():
+        check(fn(*args), what)
+        return
+    with trace.span("kernels.launch", route=route):
+        check(fn(*args), what)
 
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}   # the C side's `dtype`

@@ -84,13 +84,13 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                        residual=residual, tiles=tiles)
     ws, tickets = _build.pipe_workspace(x, plan, b * oh * ow, k)
     with torch.cuda.device(x.device):
-        err = lib.carla_conv2d(
+        _build.launch(lib.carla_conv2d, (
             code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
             _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
             _build.ptr(tickets), b, h, wd, cin, k, fh, fw, stride, padding,
             oh, ow, plan.tile, int(plan.vec), plan.splits, plan.per,
-            int(relu), torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "conv2d")
+            int(relu), torch.cuda.current_stream().cuda_stream), "conv2d",
+            "conv2d")
     conv2d.launches += 1
     return out
 

@@ -124,13 +124,13 @@ def _launch(wrapper, entry: str, planner, x, w, stride, scale, bias, relu,
     ws, tickets = _build.pipe_workspace(x, plan, m, k)
     lib = _build.load("matmul", _SIGNATURES)
     with torch.cuda.device(x.device):
-        err = getattr(lib, entry)(
+        _build.launch(getattr(lib, entry), (
             code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
             _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
             _build.ptr(tickets), m, c, k, h, wd, stride, oh, ow, plan.tile,
             int(plan.vec), plan.splits, plan.per, int(relu),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, fn)
+            torch.cuda.current_stream().cuda_stream), fn,
+            entry.removeprefix("carla_"))
     wrapper.launches += 1
     return out
 

@@ -26,13 +26,18 @@ folded-BN scale/bias, residual add, and ReLU are applied inside the kernel's
 flush, so the output feature map is written to device memory exactly once.
 
 Every entry point is telemetry-instrumented: when the global tracer is
-enabled (``observability.trace``), the dispatch records the operand shapes,
-FLOPs, the bytes the operands and result touch, the wall time up to
-``torch.cuda.synchronize``, the fused epilogue and the HBM bytes it saved,
-the tuning ledger — ``tuned`` (did the cache hit), ``tile_config`` and
-``tuning_source`` (what ran and why) — and ``tile_util`` (logical FLOPs /
-FLOPs of the padded tiles the kernel runs).  When tracing is disabled (the
-default) the only cost is one attribute read per call.
+enabled (``observability.trace``), the dispatch records a span timing the
+host from the call to its return (nothing waits for the device; the
+device's time is the device trace's), and, once the span has closed, its
+operand shapes, FLOPs, the bytes the operands and result touch, the fused
+epilogue and the HBM bytes it saved, the tuning ledger — ``tuned`` (did the
+cache hit), ``tile_config`` and ``tuning_source`` (what ran and why) — and
+``tile_util`` (logical FLOPs / FLOPs of the padded tiles the kernel runs).
+On the ``cuda`` engine the kernel's wrapper adds a ``kernels.launch`` child
+around the foreign call, so the span's self time is the preparation:
+resolving the engine, the tuning lookup, operand checks, the tile plan,
+workspace, output allocation and the device context.  When tracing is
+disabled (the default) the only cost is one attribute read per call.
 """
 from __future__ import annotations
 
@@ -71,11 +76,6 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _sync(out: torch.Tensor) -> None:
-    if out.is_cuda:
-        torch.cuda.synchronize(out.device)
-
-
 def _epilogue_attrs(sp, ep: Epilogue, out: torch.Tensor) -> None:
     """Record the fused-epilogue ledger on a kernel/dispatch span."""
     sp.attrs["epilogue"] = ep.tag
@@ -109,31 +109,35 @@ def _conv2d(x, w, ep: Epilogue, stride, padding, impl, tiles):
     return _conv2d_mod.conv2d_plain(x, w, **kw)
 
 
-def conv2d(x, w, *, stride: int = 1, padding: int = 0, impl: str = "auto",
-           epilogue: Epilogue | None = None):
-    """General NHWC conv; CARLA 3x3/7x7 serial-accumulation dataflow."""
-    ep = epilogue or _NO_EPILOGUE
+def _conv2d_call(x, w, ep: Epilogue, stride, padding, impl):
+    """(output, engine, tuning entry, tiles) of one conv2d dispatch."""
     impl = resolve(impl, x)
     entry = _lookup("conv2d", (x.shape, w.shape, stride, padding,
                                dtype_name(x), ep.tag), impl)
     tiles = entry.config if entry is not None else None
+    return _conv2d(x, w, ep, stride, padding, impl, tiles), impl, entry, tiles
+
+
+def conv2d(x, w, *, stride: int = 1, padding: int = 0, impl: str = "auto",
+           epilogue: Epilogue | None = None):
+    """General NHWC conv; CARLA 3x3/7x7 serial-accumulation dataflow."""
+    ep = epilogue or _NO_EPILOGUE
     if not trace.enabled():
-        return _conv2d(x, w, ep, stride, padding, impl, tiles)
+        return _conv2d_call(x, w, ep, stride, padding, impl)[0]
+    with trace.span("kernels.conv2d") as sp:
+        out, impl, entry, tiles = _conv2d_call(x, w, ep, stride, padding,
+                                               impl)
     fh, fw, _, k = w.shape
-    with trace.span("kernels.conv2d", impl=impl,
-                    x_shape=list(x.shape), w_shape=list(w.shape),
-                    stride=stride, padding=padding,
-                    dtype=dtype_name(x)) as sp:
-        out = _conv2d(x, w, ep, stride, padding, impl, tiles)
-        _sync(out)
-        b, oh, ow, _ = out.shape
-        sp.attrs["flops"] = 2 * b * oh * ow * k * fh * fw * x.shape[-1]
-        sp.attrs["bytes_touched"] = _nbytes(x, w, out, ep.scale, ep.bias,
-                                            ep.residual)
-        sp.attrs["tile_util"] = autotune.tile_util_conv2d(
-            x.shape, w.shape, stride, padding, tiles)
-        _tuning_attrs(sp, entry, tiles)
-        _epilogue_attrs(sp, ep, out)
+    b, oh, ow, _ = out.shape
+    sp.attrs.update(
+        impl=impl, x_shape=list(x.shape), w_shape=list(w.shape),
+        stride=stride, padding=padding, dtype=dtype_name(x),
+        flops=2 * b * oh * ow * k * fh * fw * x.shape[-1],
+        bytes_touched=_nbytes(x, w, out, ep.scale, ep.bias, ep.residual),
+        tile_util=autotune.tile_util_conv2d(x.shape, w.shape, stride,
+                                            padding, tiles))
+    _tuning_attrs(sp, entry, tiles)
+    _epilogue_attrs(sp, ep, out)
     return out
 
 
@@ -158,34 +162,44 @@ def _gemm_stationarity(rows: int, tiles: TileConfig | None,
     return select_stationarity(rows)
 
 
+def _gemm_call(x, w, ep: Epilogue, stride, impl, rows,
+               stationarity: Stationarity | None = None):
+    """(output, engine, tuning entry, tiles, stationarity) of one GEMM
+    dispatch of ``rows`` rows (x read at ``stride``)."""
+    impl = resolve(impl, x)
+    entry = _lookup("gemm", (rows, x.shape[-1], w.shape[-1], dtype_name(x),
+                             ep.tag), impl)
+    tiles = entry.config if entry is not None else None
+    st = _gemm_stationarity(rows, tiles, stationarity)
+    return _gemm(x, w, ep, stride, st, impl, tiles), impl, entry, tiles, st
+
+
+def _gemm_attrs(sp, x, w, out, ep: Epilogue, rows: int, impl, entry, tiles,
+                st: Stationarity) -> None:
+    c, k = x.shape[-1], w.shape[-1]
+    # A strided 1x1 reads only the subsampled view of the input — count
+    # those rows, not the full fmap.
+    sp.attrs.update(
+        impl=impl, x_shape=list(x.shape), w_shape=list(w.shape),
+        stationarity=st.value, dtype=dtype_name(x), flops=2 * rows * c * k,
+        bytes_touched=(rows * c * x.element_size()
+                       + _nbytes(w, out, ep.scale, ep.bias, ep.residual)),
+        tile_util=autotune.tile_util_gemm(rows, c, k, tiles, st.value))
+    _tuning_attrs(sp, entry, tiles)
+    _epilogue_attrs(sp, ep, out)
+
+
 def conv1x1(x, w, *, stride: int = 1, impl: str = "auto",
             epilogue: Epilogue | None = None):
     """Pointwise conv via the dual-stationarity GEMM (paper §III.B/C)."""
     ep = epilogue or _NO_EPILOGUE
-    impl = resolve(impl, x)
-    c, k = x.shape[-1], w.shape[-1]
     rows = _mm.gemm_rows(x, stride)      # x[:, ::s, ::s] row count
-    entry = _lookup("gemm", (rows, c, k, dtype_name(x), ep.tag), impl)
-    tiles = entry.config if entry is not None else None
-    st = _gemm_stationarity(rows, tiles)
     if not trace.enabled():
-        return _gemm(x, w, ep, stride, st, impl, tiles)
-    with trace.span("kernels.conv1x1", impl=impl,
-                    x_shape=list(x.shape), w_shape=list(w.shape),
-                    stride=stride, stationarity=st.value,
-                    dtype=dtype_name(x)) as sp:
-        out = _gemm(x, w, ep, stride, st, impl, tiles)
-        _sync(out)
-        sp.attrs["flops"] = 2 * rows * c * k
-        # A strided 1x1 reads only the subsampled view of the input — count
-        # those rows, not the full fmap.
-        sp.attrs["bytes_touched"] = (rows * c * x.element_size()
-                                     + _nbytes(w, out, ep.scale, ep.bias,
-                                               ep.residual))
-        sp.attrs["tile_util"] = autotune.tile_util_gemm(rows, c, k, tiles,
-                                                        st.value)
-        _tuning_attrs(sp, entry, tiles)
-        _epilogue_attrs(sp, ep, out)
+        return _gemm_call(x, w, ep, stride, impl, rows)[0]
+    with trace.span("kernels.conv1x1") as sp:
+        out, *plan = _gemm_call(x, w, ep, stride, impl, rows)
+    sp.attrs["stride"] = stride
+    _gemm_attrs(sp, x, w, out, ep, rows, *plan)
     return out
 
 
@@ -194,25 +208,11 @@ def gemm(x, w, *, impl: str = "auto",
          epilogue: Epilogue | None = None):
     """(M, C) @ (C, K) with CARLA stationarity planning."""
     ep = epilogue or _NO_EPILOGUE
-    impl = resolve(impl, x)
-    entry = _lookup("gemm", (x.shape[0], x.shape[1], w.shape[-1],
-                             dtype_name(x), ep.tag), impl)
-    tiles = entry.config if entry is not None else None
-    st = _gemm_stationarity(x.shape[0], tiles, stationarity)
     if not trace.enabled():
-        return _gemm(x, w, ep, 1, st, impl, tiles)
-    with trace.span("kernels.gemm", impl=impl,
-                    x_shape=list(x.shape), w_shape=list(w.shape),
-                    stationarity=st.value, dtype=dtype_name(x)) as sp:
-        out = _gemm(x, w, ep, 1, st, impl, tiles)
-        _sync(out)
-        sp.attrs["flops"] = 2 * x.shape[0] * x.shape[1] * w.shape[-1]
-        sp.attrs["bytes_touched"] = _nbytes(x, w, out, ep.scale, ep.bias,
-                                            ep.residual)
-        sp.attrs["tile_util"] = autotune.tile_util_gemm(
-            x.shape[0], x.shape[1], w.shape[-1], tiles, st.value)
-        _tuning_attrs(sp, entry, tiles)
-        _epilogue_attrs(sp, ep, out)
+        return _gemm_call(x, w, ep, 1, impl, x.shape[0], stationarity)[0]
+    with trace.span("kernels.gemm") as sp:
+        out, *plan = _gemm_call(x, w, ep, 1, impl, x.shape[0], stationarity)
+    _gemm_attrs(sp, x, w, out, ep, x.shape[0], *plan)
     return out
 
 
@@ -227,11 +227,9 @@ def conv1d_causal(x, w, *, impl: str = "auto"):
     impl = resolve(impl, x)
     if not trace.enabled():
         return _conv1d(x, w, impl)
-    with trace.span("kernels.conv1d_causal", impl=impl,
-                    x_shape=list(x.shape), w_shape=list(w.shape),
-                    dtype=dtype_name(x)) as sp:
+    with trace.span("kernels.conv1d_causal") as sp:
         out = _conv1d(x, w, impl)
-        _sync(out)
-        sp.attrs["flops"] = 2 * x.numel() * w.shape[0]
-        sp.attrs["bytes_touched"] = _nbytes(x, w, out)
+    sp.attrs.update(impl=impl, x_shape=list(x.shape), w_shape=list(w.shape),
+                    dtype=dtype_name(x), flops=2 * x.numel() * w.shape[0],
+                    bytes_touched=_nbytes(x, w, out))
     return out

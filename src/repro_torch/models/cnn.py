@@ -37,6 +37,7 @@ from ..core.sparsity import (
     prune_conv_weights,
     topk_channel_mask,
 )
+from ..observability import trace
 from ..pytree import tree_map
 from .convert import resolve_device
 
@@ -86,8 +87,16 @@ def _max_pool(x: torch.Tensor, window: int, stride: int,
     ``same=True`` pads like XLA's "SAME": the total pad splits low = total//2,
     high = the rest (for the ResNet stem's even 112² input: low 0, high 1),
     with -inf.  ``F.max_pool2d(padding=1)`` would pad both sides and pick
-    other windows.
+    other windows.  A ``cnn.pool`` span when tracing is on.
     """
+    if not trace.enabled():
+        return _max_pool_ops(x, window, stride, same)
+    with trace.span("cnn.pool"):
+        return _max_pool_ops(x, window, stride, same)
+
+
+def _max_pool_ops(x: torch.Tensor, window: int, stride: int,
+                  same: bool) -> torch.Tensor:
     xc = x.permute(0, 3, 1, 2)                  # NCHW view, no copy
     if same:
         pads = []
@@ -100,8 +109,21 @@ def _max_pool(x: torch.Tensor, window: int, stride: int,
 
 
 def _head(x: torch.Tensor, fc_w: torch.Tensor) -> torch.Tensor:
-    """Global mean then the classifier product, left to plain PyTorch."""
-    return x.mean(dim=(1, 2)) @ fc_w.to(x.dtype)
+    """Global mean then the classifier product, left to plain PyTorch; a
+    ``cnn.head`` span when tracing is on."""
+    if not trace.enabled():
+        return x.mean(dim=(1, 2)) @ fc_w.to(x.dtype)
+    with trace.span("cnn.head"):
+        return x.mean(dim=(1, 2)) @ fc_w.to(x.dtype)
+
+
+def _forward(net: str, run, x: torch.Tensor) -> torch.Tensor:
+    """``run(x)``, under a ``cnn.forward`` span (``net``, ``batch``) when
+    tracing is on: the root of every span of one forward."""
+    if not trace.enabled():
+        return run(x)
+    with trace.span("cnn.forward", net=net, batch=int(x.shape[0])):
+        return run(x)
 
 
 # ------------------------------- ResNet-50 -----------------------------------
@@ -209,6 +231,13 @@ def resnet50_apply(params, x, *, impl: str = "auto", fused: bool = True,
     A dict that is *already* pruned runs as-is with ``sparse=False`` —
     the forward is shape-polymorphic; the flags exist to prune and to tag.
     """
+    return _forward("resnet50", lambda x: _resnet50(
+        params, x, impl=impl, fused=fused, sparse=sparse,
+        keep_fractions=keep_fractions), x)
+
+
+def _resnet50(params, x, *, impl: str, fused: bool, sparse: bool,
+              keep_fractions):
     if sparse and keep_fractions is None:
         keep_fractions = 0.5
     dense_dims = None
@@ -273,10 +302,18 @@ def vgg16_init(generator: torch.Generator | None = None, *,
 
 
 def vgg16_apply(params, x, *, impl: str = "auto", fused: bool = True):
+    """x: (B, H, W, 3) -> (B, num_classes); each conv dispatched under its
+    weights' key (``g{group}_c{conv}``)."""
+    return _forward("vgg16", lambda x: _vgg16(params, x, impl=impl,
+                                              fused=fused), x)
+
+
+def _vgg16(params, x, *, impl: str, fused: bool):
     for gi, (c, n) in enumerate(VGG_SPEC):
         for li in range(n):
             x = _conv_bn(x, params[f"g{gi}_c{li}"], None, fused=fused,
-                         relu=True, padding=1, impl=impl)
+                         relu=True, padding=1, impl=impl,
+                         name=f"g{gi}_c{li}")
         x = _max_pool(x, 2, 2, same=False)
     return _head(x, params["fc"]["w"])
 

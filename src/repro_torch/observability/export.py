@@ -16,6 +16,11 @@ that chrome://tracing and https://ui.perfetto.dev load directly:
 Timestamps are re-based to the earliest span in the forest (span clocks are
 ``perf_counter`` readings — only differences are meaningful).  A copy of
 ``repro.observability.export`` over the port's spans.
+
+Given the capture's ``anchor`` (``trace.Anchor``) and the device's operations
+from ``torch.profiler`` (Unix-epoch nanoseconds), the spans are put on the
+profiler's clock and the device operations follow on a process of their
+own: the host's dispatches and the kernels they launched on one timeline.
 """
 from __future__ import annotations
 
@@ -23,9 +28,10 @@ import json
 from typing import Any
 
 from .report import CARLA_SPAN
-from .trace import Span
+from .trace import Anchor, Span
 
 PROCESS_NAME = "repro_torch.carla"
+DEVICE_PROCESS_NAME = "device"
 DEFAULT_PID = 1
 
 # Counter tracks emitted per carla_conv dispatch: (track name, attr -> value).
@@ -54,10 +60,24 @@ def _jsonable(v: Any) -> Any:
     return str(v)
 
 
-def to_chrome_trace(spans: list[Span], *, pid: int = DEFAULT_PID) -> dict:
-    """Span forest -> Trace Event Format dict (``{"traceEvents": [...]}``)."""
+def to_chrome_trace(spans: list[Span], *, pid: int = DEFAULT_PID,
+                    anchor: Anchor | None = None,
+                    device_ops: list[tuple[int, int, str]] = ()) -> dict:
+    """Span forest -> Trace Event Format dict (``{"traceEvents": [...]}``).
+
+    With ``anchor``, span times are put on the Unix-epoch clock and
+    ``device_ops`` ((start ns, end ns, name), that clock) join them as
+    complete events of process ``pid + 1``; both are re-based to the
+    earliest of either."""
     all_spans = [s for root in spans for s in root.walk()]
     t0 = min((s.start_s for s in all_spans), default=0.0)
+    if anchor is not None:
+        # the earliest event in epoch ns, and the same instant on the
+        # spans' perf_counter clock (in which spans keep their precision)
+        t0_ns = min([anchor.epoch_ns(s.start_s) for s in all_spans]
+                    + [start for start, _, _ in device_ops],
+                    default=anchor.wall_ns)
+        t0 = (t0_ns - anchor.wall_ns + anchor.perf_ns) / 1e9
     # raw thread idents -> small stable track ids, in first-seen order
     tid_map: dict[int, int] = {}
     for s in all_spans:
@@ -105,12 +125,23 @@ def to_chrome_trace(spans: list[Span], *, pid: int = DEFAULT_PID) -> dict:
                     "tid": tid_map[child.tid],
                 })
 
+    if anchor is not None and device_ops:
+        dpid = pid + 1
+        events.append({"name": "process_name", "ph": "M", "pid": dpid,
+                       "tid": 0, "args": {"name": DEVICE_PROCESS_NAME}})
+        events += [{"name": name, "cat": "device", "ph": "X",
+                    "ts": (start - t0_ns) / 1e3,
+                    "dur": (end - start) / 1e3, "pid": dpid, "tid": 1}
+                   for start, end, name in device_ops]
+
     return {"traceEvents": events, "displayTimeUnit": "ms",
             "otherData": {"exporter": "repro_torch.observability.export"}}
 
 
 def export_chrome_trace(spans: list[Span], path: str, *,
-                        pid: int = DEFAULT_PID) -> None:
+                        pid: int = DEFAULT_PID, anchor: Anchor | None = None,
+                        device_ops: list[tuple[int, int, str]] = ()) -> None:
     """Write a Perfetto-loadable JSON trace file."""
     with open(path, "w") as f:
-        json.dump(to_chrome_trace(spans, pid=pid), f)
+        json.dump(to_chrome_trace(spans, pid=pid, anchor=anchor,
+                                  device_ops=device_ops), f)

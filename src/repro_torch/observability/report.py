@@ -2,10 +2,12 @@
 
 The analytic side of each row comes from ``core.cost_model.LayerCost``
 (cycles at 200 MHz, DRAM words, PUF); the measured side comes from the
-telemetry spans that ``core.carla.carla_conv`` records: the host's wall time
-of the dispatch up to ``torch.cuda.synchronize`` (so a layer's time
-includes its Python dispatch and launch, not only the kernel), tensor bytes
-actually touched, achieved FLOP/s.  A copy of ``repro.observability.report``
+telemetry spans that ``core.carla.carla_conv`` records: the host's time
+of the dispatch from its call to its return (plan, operand checks and
+launch: no span waits for the device, so on the card a traced span is
+not the kernel's time; ``bench.telemetry_report`` puts the device's
+cold-L2 time in its place), tensor bytes actually touched, achieved
+FLOP/s.  A copy of ``repro.observability.report``
 over the port's spans, which carry the same attributes.
 
 Utilization is reported on both sides in its own native denominator:

@@ -136,7 +136,8 @@ def test_resnet50_spans_match(resnet, variant):
         for key in FLOAT_KEYS:
             assert ts.attrs[key] == pytest.approx(js.attrs[key], rel=1e-12)
         assert ts.attrs["effective_dataflow"] == js.attrs["dataflow"]
-        (jk,), (tk,) = js.children, ts.children
+        (jk,), (plan, tk) = js.children, ts.children
+        assert plan.name == "carla.plan"
         assert tk.name == jk.name
         assert tk.attrs["impl"] == "ref"
         for key in KERNEL_KEYS:
@@ -154,10 +155,16 @@ def test_vgg16_spans_match(vgg):
         t_cnn.vgg16_apply(tp, torch.from_numpy(x), impl="ref")
     j_sp, t_sp = _spans(j_tr), _spans(t_tr)
     assert len(j_sp) == len(t_sp) == 13
+    # the port dispatches each conv under its weights' key; repro names
+    # every VGG-16 conv "conv"
+    assert [s.attrs["layer"] for s in t_sp] == [
+        f"g{gi}_c{li}" for gi, (_, n) in enumerate(t_cnn.VGG_SPEC)
+        for li in range(n)]
     for js, ts in zip(j_sp, t_sp):
         for key in CARLA_KEYS:
-            assert ts.attrs.get(key) == js.attrs.get(key), key
-        (jk,), (tk,) = js.children, ts.children
+            if key != "layer":
+                assert ts.attrs.get(key) == js.attrs.get(key), key
+        (jk,), (_, tk) = js.children, ts.children
         for key in KERNEL_KEYS:
             assert tk.attrs.get(key) == jk.attrs.get(key), key
 

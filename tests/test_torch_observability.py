@@ -1,6 +1,7 @@
 """Port parity: ``repro_torch.observability`` (report, export, metrics, prom,
 events), ``core.decompose`` and the serving launcher's telemetry flags,
-against ``repro``'s modules.
+against ``repro``'s modules; and the port's own spans: where they nest,
+that they cost nothing and wait for nothing, and their clock.
 
 The report and the exporter read span forests, so both packages are given
 the same span JSON (recorded by either package's ``carla_conv``) and must
@@ -15,6 +16,7 @@ Mirrors ``tests/test_observability.py`` and
 """
 import dataclasses
 import json
+import time
 import urllib.request
 
 import jax.numpy as jnp
@@ -35,7 +37,9 @@ from repro_torch.core import carla as t_carla
 from repro_torch.core import decompose as t_decompose
 from repro_torch.core.fuse import Epilogue
 from repro_torch.core.sparsity import SparsityTag
+from repro_torch.kernels import ops as t_ops
 from repro_torch.launch import serve
+from repro_torch.models import cnn as t_cnn
 from repro_torch.observability import events as t_events
 from repro_torch.observability import export as t_export
 from repro_torch.observability import metrics as t_metrics
@@ -146,12 +150,123 @@ def test_chrome_trace_file_has_one_complete_event_per_span(tmp_path):
     t_export.export_chrome_trace(spans, str(path))
     doc = json.loads(path.read_text())
     xev = [e for e in doc["traceEvents"] if e["ph"] == "X"]
-    assert len(xev) == sum(1 for root in spans for _ in root.walk()) == 6
-    assert [e["name"] for e in xev[:2]] == ["carla_conv", "kernels.conv2d"]
+    assert len(xev) == sum(1 for root in spans for _ in root.walk()) == 9
+    assert [e["name"] for e in xev[:3]] == ["carla_conv", "carla.plan",
+                                            "kernels.conv2d"]
     flows = [e for e in doc["traceEvents"] if e["ph"] in ("s", "f")]
-    assert len(flows) == 6                    # one arrow per dispatch
+    assert len(flows) == 12                   # one arrow per child span
     assert {e["name"] for e in doc["traceEvents"] if e["ph"] == "C"} >= {
         "carla predicted vs measured (ms)", "carla DRAM (MB)"}
+
+
+def test_export_puts_spans_and_device_ops_on_one_clock(tmp_path):
+    # a span 5 us after the anchor's perf reading, a device op 12 us after
+    # its wall reading: 7 us apart on the exported timeline
+    anchor = t_trace.Anchor(wall_ns=1_790_000_000_000_000_000,
+                            perf_ns=40_000_000_000)
+    sp = t_trace.Span("kernels.launch", start_s=40.000005,
+                      duration_s=3e-6, attrs={"route": "conv2d"})
+    op = (anchor.wall_ns + 12_000, anchor.wall_ns + 20_000, "kernel")
+    path = tmp_path / "trace.json"
+    t_export.export_chrome_trace([sp], str(path), anchor=anchor,
+                                 device_ops=[op])
+    doc = json.loads(path.read_text())
+    xev = {e["pid"]: e for e in doc["traceEvents"] if e["ph"] == "X"}
+    host, dev = xev[t_export.DEFAULT_PID], xev[t_export.DEFAULT_PID + 1]
+    assert host["ts"] == pytest.approx(0.0, abs=1e-3)
+    assert dev["ts"] == pytest.approx(7.0, abs=1e-3)
+    assert (host["dur"], dev["dur"]) == (pytest.approx(3.0), 8.0)
+    assert {"name": t_export.DEVICE_PROCESS_NAME} in [
+        e["args"] for e in doc["traceEvents"] if e["ph"] == "M"]
+    # without an anchor the device ops have no clock to join
+    assert t_export.to_chrome_trace([sp], device_ops=[op]) == \
+        t_export.to_chrome_trace([sp])
+
+
+# ----------------------------- the port's spans -------------------------------
+def test_anchor_puts_a_span_on_the_device_trace_clock():
+    anchor = t_trace.Anchor(wall_ns=1_790_000_000_123_456_789,
+                            perf_ns=2_000_000_000)
+    assert anchor.epoch_ns(2.000_250) == 1_790_000_000_123_706_789
+    with t_trace.capture() as tr:
+        with t_trace.span("x"):
+            pass
+    # perf_counter and the wall clock, read side by side
+    (sp,) = tr.spans
+    assert abs(tr.anchor.epoch_ns(sp.start_s) - time.time_ns()) < 5e9
+
+
+@pytest.fixture(scope="module")
+def resnet_smoke():
+    params = t_cnn.resnet50_init(torch.Generator().manual_seed(0),
+                                 width=0.0625, num_classes=10, device="cpu")
+    return params, torch.from_numpy(_arr(9, 1, 32, 32, 3))
+
+
+def test_a_forward_nests_every_span_under_one_root(resnet_smoke):
+    params, x = resnet_smoke
+    with t_trace.capture() as tr:
+        t_cnn.resnet50_apply(params, x)
+    (root,) = tr.spans
+    assert (root.name, root.attrs) == ("cnn.forward",
+                                       {"net": "resnet50", "batch": 1})
+    names = [s.name for s in root.walk()]
+    assert (names.count("cnn.pool"), names.count("cnn.head")) == (1, 1)
+    convs = tr.find("carla_conv")
+    assert len(convs) == names.count("carla.plan") == 53
+    for sp in convs:
+        plan, kernel = sp.children
+        assert plan.name == "carla.plan" and not plan.children
+        assert kernel.name in ("kernels.conv2d", "kernels.conv1x1")
+        assert sp.duration_s >= plan.duration_s + kernel.duration_s
+        assert sp.attrs["layer"] and sp.attrs["bytes_touched"] > 0
+
+
+def test_tracing_off_makes_no_span_and_reads_no_clock(resnet_smoke,
+                                                      monkeypatch):
+    params, x = resnet_smoke
+    made, reads = [], []
+    monkeypatch.setattr(t_trace, "Span",
+                        lambda *a, **k: made.append(a) or None)
+    clock = time.perf_counter
+    monkeypatch.setattr(time, "perf_counter",
+                        lambda: reads.append(1) or clock())
+    assert not t_trace.enabled()
+    t_cnn.resnet50_apply(params, x)
+    monkeypatch.undo()
+    assert made == [] and reads == []
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that says it is on CUDA: a span that would wait for the
+    device calls ``torch.cuda.synchronize`` on it."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+DISPATCHES = {
+    "carla_conv 3x3": lambda x: t_carla.carla_conv(
+        x, x.new_ones(3, 3, 8, 4), padding=1, impl="ref"),
+    "carla_conv 1x1": lambda x: t_carla.carla_conv(
+        x, x.new_ones(1, 1, 8, 4), impl="ref"),
+    "ops.gemm": lambda x: t_ops.gemm(x.reshape(-1, 8), x.new_ones(8, 4),
+                                     impl="ref"),
+    "ops.conv1d_causal": lambda x: t_ops.conv1d_causal(
+        x.reshape(1, -1, 8), x.new_ones(4, 8), impl="ref"),
+}
+
+
+@pytest.mark.parametrize("dispatch", list(DISPATCHES))
+def test_no_span_waits_for_the_device(dispatch, monkeypatch):
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: syncs.append(a))
+    x = torch.from_numpy(_arr(10, 1, 6, 6, 8)).as_subclass(_OnCuda)
+    with t_trace.capture() as tr:
+        out = DISPATCHES[dispatch](x)
+    assert out.is_cuda and tr.spans and syncs == []
 
 
 # ------------------------------- metrics --------------------------------------
