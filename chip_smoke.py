@@ -858,10 +858,13 @@ def host_profile(fn, reps: int = PROFILE_REPS) -> dict:
     """Where the host's time per call of fn goes: cProfile, top functions.
 
     Host microseconds per call by own time (``tottime``); cProfile adds its
-    own cost to every Python call, so read the ranking, not the sum.
+    own cost to every Python call, so read the ranking, not the sum.  Two
+    calls come first: a CNN forward captures its CUDA graph on the second
+    (``models.cnn_graph``), so the profiled calls replay it.
     """
     import cProfile
     import pstats
+    fn()
     fn()
     torch.cuda.synchronize()
     prof = cProfile.Profile()
@@ -882,12 +885,28 @@ def host_profile(fn, reps: int = PROFILE_REPS) -> dict:
 
 
 def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
-    """One counted forward, parity against the plain engine, median time."""
+    """One counted forward, parity against the plain engine, median time.
+
+    The counted call is the first under its key, so it runs eagerly
+    (``models.cnn_graph``); a dense forward's next two capture and replay
+    the net's CUDA graph, a sparse one's run eagerly, and both must give
+    the counted call's bits.  The timed calls and the profile replay."""
+    from repro_torch.models import cnn_graph
     for fn in counters.values():
         fn.launches = 0
+    cnn_graph.reset(apply)
     logits = apply(params, x, **kw)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
+    again = [apply(params, x, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(y, logits) for y in again)
+    graph = {"captures": apply.graph_captures,
+             "replays": apply.graph_replays,
+             "eager": dict(apply.graph_eager)}
+    want_graph = ({"captures": 0, "replays": 0, "eager": {"sparse": 3}}
+                  if kw.get("sparse") else
+                  {"captures": 1, "replays": 2, "eager": {"new_key": 1}})
     ref = apply(params, x, impl="ref", **kw)
     torch.cuda.synchronize()
     err = (logits - ref).abs().max().item()
@@ -904,11 +923,16 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
            "finite": bool(torch.isfinite(logits).all()),
            "max_abs_err_vs_ref": err, "tol": tol, "max_abs_ref": scale,
            "launches": launches, "expected_launches": expected,
+           "graph": graph, "replay_bits_equal_eager": same_bits,
            "median_ms": statistics.median(times), "min_ms": min(times),
            **profile_busy(lambda: apply(params, x, **kw))}
     emit(rec)
     if launches != expected:
         raise SystemExit(f"{name}: launches {launches} != {expected}")
+    if graph != want_graph or not same_bits:
+        raise SystemExit(f"{name}: graph counters {graph} (want "
+                         f"{want_graph}), the next calls' bits equal the "
+                         f"counted call's: {same_bits}")
     if not (rec["finite"] and err <= tol):
         raise SystemExit(f"{name}: logits off the plain engine by {err} "
                          f"(tol {tol})")

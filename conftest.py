@@ -20,6 +20,8 @@ OPTIONAL_DEPS = {
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: subprocess/e2e tests (benchmark CLI liveness)")
+    config.addinivalue_line(
+        "markers", "chip: needs a CUDA device (skips without one)")
 
 
 def pytest_report_header(config):

@@ -30,6 +30,10 @@ space):
   * **Overhead contract**: ``enabled()`` is one module-attribute read; a
     lookup is one or two dict hits.  Dispatch sites gate on ``enabled()``
     first, so the disabled path (the default) costs nothing.
+  * **Generation**: ``generation()`` counts the changes of the live cache
+    (a load of the tables, :func:`put`, :func:`reset`); a forward replayed
+    from a CUDA graph (``models.cnn_graph``) keys on it, so a plan that a
+    change of the cache would alter is never replayed.
 
 The search itself lives in ``launch/tune.py``; this module defines keys,
 candidate generation (ranked by the planner's latency model), the cache,
@@ -198,6 +202,18 @@ class _State:
 
 _state: _State | None = None
 _enabled = os.environ.get("REPRO_TORCH_AUTOTUNE", "") not in ("", "0", "off")
+_generation = 0
+
+
+def generation() -> int:
+    """How many times the live cache has changed: loaded from the tables,
+    written by :func:`put` or dropped by :func:`reset`."""
+    return _generation
+
+
+def _changed() -> None:
+    global _generation
+    _generation += 1
 
 
 def enabled() -> bool:
@@ -219,6 +235,7 @@ def reset() -> None:
     """Drop the in-memory cache; the next lookup reloads from disk."""
     global _state
     _state = None
+    _changed()
 
 
 def _load_table(path: str, source: str, state: _State, cur_hash: str,
@@ -259,6 +276,7 @@ def _ensure() -> _State:
         if os.path.exists(cache_path()):
             _load_table(cache_path(), "cache", st, cur, where)
         _state = st
+        _changed()
     return _state
 
 
@@ -286,6 +304,7 @@ def put(key: str, config: TileConfig, *, source: str = "runtime",
     """Inject/overwrite an entry in the live cache (no disk write)."""
     e = Entry(config, source, tuned_ms, default_ms)
     _ensure().entries[key] = e
+    _changed()
     return e
 
 

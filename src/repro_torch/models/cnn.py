@@ -22,6 +22,11 @@ through each bottleneck; the shortcut trunk stays dense per Table I), and
 network through the same fused dispatch path, tagging every pruned dispatch
 with its dense twin so telemetry reports keep-fraction and pruned-vs-dense
 MACs.
+
+On the card, a dense fused forward of at most ``cnn_graph.GRAPH_MAX_BATCH``
+images with tracing off is replayed from one CUDA graph from the second
+call under the same key (``models.cnn_graph``): the same kernels and plans,
+one host call in place of the dispatches.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from ..core.sparsity import (
 )
 from ..observability import trace
 from ..pytree import tree_map
+from . import cnn_graph
 from .convert import resolve_device
 
 
@@ -117,13 +123,16 @@ def _head(x: torch.Tensor, fc_w: torch.Tensor) -> torch.Tensor:
         return x.mean(dim=(1, 2)) @ fc_w.to(x.dtype)
 
 
-def _forward(net: str, run, x: torch.Tensor) -> torch.Tensor:
-    """``run(x)``, under a ``cnn.forward`` span (``net``, ``batch``) when
-    tracing is on: the root of every span of one forward."""
+def _forward(apply, run, params, x: torch.Tensor, **call) -> torch.Tensor:
+    """``run(x)``, the forward of ``apply``, through ``cnn_graph.forward``:
+    replayed from the net's CUDA graph where the call allows, else eager.
+    With tracing on it runs eagerly, under a ``cnn.forward`` span (``net``,
+    ``batch``): the root of every span of one forward."""
     if not trace.enabled():
-        return run(x)
+        return cnn_graph.forward(apply, run, params, x, **call)
+    net = apply.__name__.removesuffix("_apply")
     with trace.span("cnn.forward", net=net, batch=int(x.shape[0])):
-        return run(x)
+        return cnn_graph.forward(apply, run, params, x, **call)
 
 
 # ------------------------------- ResNet-50 -----------------------------------
@@ -230,10 +239,20 @@ def resnet50_apply(params, x, *, impl: str = "auto", fused: bool = True,
     (``SparsityTag``) so traced spans carry keep-fraction / dense-twin MACs.
     A dict that is *already* pruned runs as-is with ``sparse=False`` —
     the forward is shape-polymorphic; the flags exist to prune and to tag.
+
+    A dense, fused call on the CUDA kernels of at most
+    ``cnn_graph.GRAPH_MAX_BATCH`` images, with tracing off, replays a CUDA
+    graph of the forward from the second call under the same key (x's
+    shape and dtype, the weight tensors, the tuner's state); the counters
+    ``resnet50_apply.graph_captures``, ``.graph_replays`` and
+    ``.graph_eager`` (by reason) say which way each call went.  Replays
+    share the kernels' workspace with eager calls: order every call on one
+    stream (``models.cnn_graph``).
     """
-    return _forward("resnet50", lambda x: _resnet50(
+    return _forward(resnet50_apply, lambda x: _resnet50(
         params, x, impl=impl, fused=fused, sparse=sparse,
-        keep_fractions=keep_fractions), x)
+        keep_fractions=keep_fractions), params, x, impl=impl, fused=fused,
+        sparse=sparse or keep_fractions is not None)
 
 
 def _resnet50(params, x, *, impl: str, fused: bool, sparse: bool,
@@ -303,9 +322,11 @@ def vgg16_init(generator: torch.Generator | None = None, *,
 
 def vgg16_apply(params, x, *, impl: str = "auto", fused: bool = True):
     """x: (B, H, W, 3) -> (B, num_classes); each conv dispatched under its
-    weights' key (``g{group}_c{conv}``)."""
-    return _forward("vgg16", lambda x: _vgg16(params, x, impl=impl,
-                                              fused=fused), x)
+    weights' key (``g{group}_c{conv}``).  Replayed from a CUDA graph as
+    ``resnet50_apply`` is, counted on ``vgg16_apply``."""
+    return _forward(vgg16_apply, lambda x: _vgg16(
+        params, x, impl=impl, fused=fused), params, x, impl=impl,
+        fused=fused)
 
 
 def _vgg16(params, x, *, impl: str, fused: bool):
@@ -316,6 +337,10 @@ def _vgg16(params, x, *, impl: str, fused: bool):
                          name=f"g{gi}_c{li}")
         x = _max_pool(x, 2, 2, same=False)
     return _head(x, params["fc"]["w"])
+
+
+cnn_graph.reset(resnet50_apply)
+cnn_graph.reset(vgg16_apply)
 
 
 def network_plan(layers) -> list:

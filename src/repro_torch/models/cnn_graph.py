@@ -1,0 +1,193 @@
+"""Replay a small-batch CNN forward as one CUDA graph.
+
+At batch 1 a ResNet-50 forward is 53 ``carla_conv`` dispatches and a few
+PyTorch ops for the pools and the head: milliseconds of Python and ctypes
+launches on the host for under one of device work, so the device waits
+for the host before every conv.  Captured once, the same chain of the
+port's hand-written kernels, under the same plans and in the call's
+dtype, replays with one host call and gives the eager forward's bits.
+
+``forward`` decides each call from what the call shows; there is no
+option.  It runs eagerly, counting the reason in ``apply.graph_eager``:
+
+  * ``cpu``: x is not on a CUDA device;
+  * ``impl``: the engine is not the CUDA kernels (``impl`` other than
+    ``auto`` or ``cuda``);
+  * ``unfused``: ``fused=False``;
+  * ``sparse``: the sparse forward, which prunes on the host every call;
+  * ``tracing``: the spans time the eager dispatch, kernel by kernel;
+  * ``batch``: more than ``GRAPH_MAX_BATCH`` images, where the device's
+    time hides the host's and a graph would hold a large batch's
+    activations in a pool of its own;
+  * ``new_key``: the call's key differs from the key of the net's
+    previous call that a graph could have served.
+
+Otherwise the key repeats: the second call under it captures the forward
+(``apply.graph_captures``) and every such call replays it
+(``apply.graph_replays``).  The key is the net, x's shape, strides, dtype,
+device and offset from a 16-byte boundary, ``impl`` and ``fused``, the
+tuner's state (on or off, and ``autotune.generation()``) and every weight
+tensor the forward reads: the same tensor object over the same storage as
+when the key was taken.  A weight written in place keeps its key (the graph
+reads it where it lies); a weight replaced does not.
+
+Each net keeps one entry (``apply.graph_entry``); a new key drops the old
+graph and its memory pool.  A captured entry holds the static input, the
+static output, the graph (captured on a side stream right after an eager
+run under the same key) and the split-K workspace and ticket counters of
+``kernels._build`` that the capture recorded, so that a later eager call
+that grows them cannot free memory the graph writes.
+
+A replay copies x into the static input, replays on the caller's current
+stream and returns a fresh copy of the static output: an answer never
+changes under a later call.  Replays and eager calls share the workspace
+and the ticket counters, so every call must be ordered on one stream, as
+the pipelined kernels' calls always must (``kernels._build``).
+"""
+from __future__ import annotations
+
+import operator
+import weakref
+from collections import Counter
+
+import torch
+
+from ..core import autotune
+from ..kernels import _build
+from ..observability import trace
+
+GRAPH_MAX_BATCH = 8            # images: above it a call runs eagerly
+EAGER_REASONS = ("cpu", "impl", "unfused", "sparse", "tracing", "batch",
+                 "new_key")
+ALIGN = 16                     # bytes: the kernels' vector loads
+
+
+def eager_reason(x: torch.Tensor, *, impl: str, fused: bool,
+                 sparse: bool) -> str | None:
+    """Why a call runs eagerly whatever its key (one of
+    ``EAGER_REASONS``), or None where a graph may serve it."""
+    if not x.is_cuda:
+        return "cpu"
+    if impl not in ("auto", "cuda"):
+        return "impl"
+    if not fused:
+        return "unfused"
+    if sparse:
+        return "sparse"
+    if trace.enabled():
+        return "tracing"
+    if x.shape[0] > GRAPH_MAX_BATCH:
+        return "batch"
+    return None
+
+
+def weight_tensors(params: dict) -> list:
+    """The tensors of a nested dict of weights, in the dict's order."""
+    out = []
+    _walk(params, out)
+    return out
+
+
+def _walk(tree: dict, out: list) -> None:
+    for v in tree.values():
+        if isinstance(v, dict):
+            _walk(v, out)
+        else:
+            out.append(v)
+
+
+def call_key(net: str, params: dict, x: torch.Tensor, impl: str,
+             fused: bool) -> tuple[tuple, list]:
+    """(the call's key but its weights, the weight tensors)."""
+    head = (net, x.shape, x.stride(), x.dtype, x.device,
+            x.data_ptr() % ALIGN, impl, fused, autotune.enabled(),
+            autotune.generation())
+    return head, weight_tensors(params)
+
+
+class Entry:
+    """One net's key and, once captured, its graph.
+
+    The weights are held by weak reference: an entry keeps no weight
+    alive, and a weight freed and another allocated in its place never
+    matches."""
+
+    __slots__ = ("head", "refs", "ptrs", "graph")
+
+    def __init__(self, head: tuple, tensors: list):
+        self.head = head
+        self.refs = [weakref.ref(t) for t in tensors]
+        self.ptrs = [t.data_ptr() for t in tensors]
+        self.graph: Graph | None = None
+
+    def matches(self, head: tuple, tensors: list) -> bool:
+        """Whether a call of this key (``call_key``) may replay the graph."""
+        return (head == self.head and len(tensors) == len(self.refs)
+                and all(map(operator.is_, tensors,
+                            [ref() for ref in self.refs]))
+                and list(map(torch.Tensor.data_ptr, tensors)) == self.ptrs)
+
+
+def _static_input(x: torch.Tensor) -> torch.Tensor:
+    """An empty contiguous tensor of x's shape and dtype, on x's device,
+    at x's offset from a 16-byte boundary (the kernels' plans read the
+    alignment)."""
+    item = x.element_size()
+    offset = x.data_ptr() % ALIGN // item
+    buf = torch.empty(x.numel() + ALIGN // item, dtype=x.dtype,
+                      device=x.device)
+    return buf[offset:offset + x.numel()].view(x.shape)
+
+
+class Graph:
+    """A forward captured on a side stream: its static input and output,
+    and the shared scratch its kernels write."""
+
+    def __init__(self, run, x: torch.Tensor):
+        dev = x.device
+        self.x = _static_input(x)
+        self.x.copy_(x)
+        before = (_build._partials.get(dev), _build._tickets.get(dev))
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.y = run(self.x)
+        self.scratch = (*before, _build._partials.get(dev),
+                        _build._tickets.get(dev))
+
+    def replay(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward of x: a fresh tensor, on the current stream."""
+        self.x.copy_(x)
+        self.graph.replay()
+        return self.y.clone()
+
+
+def reset(apply) -> None:
+    """Zero ``apply``'s counters and drop its net's graph."""
+    apply.graph_captures = 0
+    apply.graph_replays = 0
+    apply.graph_eager = Counter()
+    apply.graph_entry = None
+
+
+def forward(apply, run, params: dict, x: torch.Tensor, *, impl: str,
+            fused: bool, sparse: bool = False) -> torch.Tensor:
+    """``run(x)``, the forward of ``apply`` (``cnn.resnet50_apply`` or
+    ``cnn.vgg16_apply``) on ``params``: eager, captured or replayed as the
+    module's docstring says, counted on ``apply``."""
+    reason = eager_reason(x, impl=impl, fused=fused, sparse=sparse)
+    if reason is not None:
+        apply.graph_eager[reason] += 1
+        return run(x)
+    head, tensors = call_key(apply.__name__, params, x, impl, fused)
+    entry = apply.graph_entry
+    if entry is None or not entry.matches(head, tensors):
+        apply.graph_entry = None
+        apply.graph_eager["new_key"] += 1
+        out = run(x)
+        apply.graph_entry = Entry(head, tensors)
+        return out
+    if entry.graph is None:
+        entry.graph = Graph(run, x)
+        apply.graph_captures += 1
+    apply.graph_replays += 1
+    return entry.graph.replay(x)

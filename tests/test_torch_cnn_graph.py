@@ -1,0 +1,480 @@
+"""The CNN forward replayed as one CUDA graph (``models.cnn_graph``).
+
+On the CPU: the rule that decides a call (each eager reason), the key
+(what changes it and what does not), the forward's control flow with a
+stand-in for the graph, the static input's alignment, and the batch limit
+against the benchmark's traffic.  On the card (``chip``, skipped without
+one), at the single-stream cells' size: replayed logits equal the eager
+logits bit for bit (ResNet-50 and VGG-16, batch 1, fp32 and bf16, inputs
+at and off a 16-byte boundary), answers stay put, a replaced weight is
+captured again, an eager call that regrows the shared workspace leaves the
+replay alone, tracing runs eagerly, and the profiler sees every kernel of
+a replay.
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cnn_graph.py
+"""
+import contextlib
+import gc
+import json
+import types
+import weakref
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import autotune
+from repro_torch.core.autotune import TileConfig
+from repro_torch.kernels import _build
+from repro_torch.models import cnn, cnn_graph
+from repro_torch.observability import trace
+
+TRAFFIC = Path(__file__).resolve().parent.parent / "portbench" / "traffic"
+APPLY = {"resnet50": cnn.resnet50_apply, "vgg16": cnn.vgg16_apply}
+INIT = {"resnet50": cnn.resnet50_init, "vgg16": cnn.vgg16_init}
+CONVS = {"resnet50": 53, "vgg16": 13}
+# device ops of a replayed single-stream step: the eager forward's and its
+# logits' copy to the host (59 and 21), the input's copy and the output's
+DEVICE_OPS = {"resnet50": 61, "vgg16": 23}
+
+
+def _fake_x(batch: int, is_cuda: bool = True):
+    """What ``eager_reason`` reads of x."""
+    return types.SimpleNamespace(is_cuda=is_cuda, shape=(batch, 224, 224, 3))
+
+
+DENSE = dict(impl="auto", fused=True, sparse=False)
+
+
+@pytest.mark.parametrize("change,reason", [
+    ({}, None),
+    ({"impl": "cuda"}, None),
+    ({"batch": cnn_graph.GRAPH_MAX_BATCH}, None),
+    ({"is_cuda": False}, "cpu"),
+    ({"impl": "ref"}, "impl"),
+    ({"fused": False}, "unfused"),
+    ({"sparse": True}, "sparse"),
+    ({"tracing": True}, "tracing"),
+    ({"batch": cnn_graph.GRAPH_MAX_BATCH + 1}, "batch"),
+    ({"batch": 64, "is_cuda": False}, "cpu"),
+])
+def test_eager_reason(change, reason):
+    change = dict(change)
+    x = _fake_x(change.pop("batch", 1), change.pop("is_cuda", True))
+    tracing = change.pop("tracing", False)
+    with trace.capture() if tracing else contextlib.nullcontext():
+        assert cnn_graph.eager_reason(x, **{**DENSE, **change}) == reason
+    assert reason is None or reason in cnn_graph.EAGER_REASONS
+
+
+def test_graph_max_batch_is_below_the_offline_traffics():
+    """Both offline cells (b64, b16) stay on the eager path, whose
+    per-dispatch launches their route rooflines read; single stream
+    replays."""
+    batches = {}
+    for path in sorted(TRAFFIC.glob("*.json")):
+        t = json.loads(path.read_text())
+        batches.setdefault(t["scenario"], []).append(t["batch"])
+    assert batches["offline"] and batches["single_stream"]
+    assert all(b > cnn_graph.GRAPH_MAX_BATCH for b in batches["offline"])
+    assert all(b <= cnn_graph.GRAPH_MAX_BATCH
+               for b in batches["single_stream"])
+
+
+@pytest.fixture
+def small():
+    params = cnn.resnet50_init(torch.Generator().manual_seed(0),
+                               width=0.0625, device="cpu")
+    x = torch.randn((1, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    return params, x
+
+
+def _key(params, x, impl="auto", fused=True):
+    return cnn_graph.call_key("resnet50_apply", params, x, impl, fused)
+
+
+def _replace(params, path):
+    out = dict(params)
+    node = out
+    for k in path[:-1]:
+        node[k] = dict(node[k])
+        node = node[k]
+    node[path[-1]] = node[path[-1]].clone()
+    return out
+
+
+@pytest.mark.parametrize("what", [
+    "conv weight replaced", "bn vector replaced", "fc replaced",
+    "storage swapped", "x shape", "x dtype", "x strides", "x alignment",
+    "impl", "fused", "tuner enabled", "tuner generation"])
+def test_the_key_changes(small, what):
+    params, x = small
+    entry = cnn_graph.Entry(*_key(params, x))
+    assert entry.matches(*_key(params, x))
+    args = {"impl": "auto", "fused": True}
+    try:
+        if what == "conv weight replaced":
+            params = _replace(params, ("conv3_b1", "c2"))
+        elif what == "bn vector replaced":
+            params = _replace(params, ("conv5_b2", "bn3", "bias"))
+        elif what == "fc replaced":
+            params = _replace(params, ("fc", "w"))
+        elif what == "storage swapped":
+            w = params["conv1"]
+            w.data = w.data.clone()
+        elif what == "x shape":
+            x = torch.randn(2, 32, 32, 3)
+        elif what == "x dtype":
+            x = x.bfloat16()
+        elif what == "x strides":
+            x = x.permute(0, 2, 1, 3)
+        elif what == "x alignment":
+            x = torch.randn(x.numel() + 1)[1:].view(x.shape)
+        elif what == "impl":
+            args["impl"] = "cuda"
+        elif what == "fused":
+            args["fused"] = False
+        elif what == "tuner enabled":
+            autotune.enable()
+        elif what == "tuner generation":
+            autotune.put("conv2d|test_the_key_changes", TileConfig(1, 1))
+        assert not entry.matches(*_key(params, x, **args))
+    finally:
+        autotune.disable()
+        autotune.reset()
+
+
+@pytest.mark.parametrize("what", ["fresh x of the same layout",
+                                  "weight written in place",
+                                  "a copy of the params dict"])
+def test_the_key_holds(small, what):
+    params, x = small
+    entry = cnn_graph.Entry(*_key(params, x))
+    if what == "fresh x of the same layout":
+        x = torch.randn(x.shape)
+    elif what == "weight written in place":
+        params["conv2_b0"]["c1"].mul_(2)
+    else:
+        params = {k: (dict(v) if isinstance(v, dict) else v)
+                  for k, v in params.items()}
+    assert entry.matches(*_key(params, x))
+
+
+def test_an_entry_keeps_no_weight_alive():
+    params = cnn.resnet50_init(width=0.0625, device="cpu")
+    x = torch.randn(1, 32, 32, 3)
+    entry = cnn_graph.Entry(*_key(params, x))
+    assert len(entry.refs) == len(cnn_graph.weight_tensors(params)) == 160
+    del params
+    gc.collect()
+    assert all(ref() is None for ref in entry.refs)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_static_input_keeps_the_alignment(offset, dtype):
+    x = torch.randn(3 * 8 * 8 * 3 + offset, dtype=dtype)[offset:]
+    x = x.view(3, 8, 8, 3)
+    s = cnn_graph._static_input(x)
+    assert s.shape == x.shape and s.dtype == x.dtype and s.is_contiguous()
+    assert s.data_ptr() % cnn_graph.ALIGN == x.data_ptr() % cnn_graph.ALIGN
+
+
+@pytest.mark.parametrize("net", ["resnet50", "vgg16"])
+def test_a_cpu_forward_never_captures(net):
+    apply = APPLY[net]
+    params = INIT[net](torch.Generator().manual_seed(0), width=0.0625,
+                       device="cpu")
+    x = torch.randn(1, 32, 32, 3)
+    cnn_graph.reset(apply)
+    first = apply(params, x)
+    for _ in range(3):
+        assert torch.equal(apply(params, x), first)
+    assert apply.graph_captures == apply.graph_replays == 0
+    assert apply.graph_eager == {"cpu": 4}
+    assert apply.graph_entry is None
+
+
+class _StandIn:
+    """A CPU stand-in for ``cnn_graph.Graph``: "captures" by running once on
+    its static input, "replays" by running again into its static output."""
+
+    made = 0
+
+    def __init__(self, run, x):
+        _StandIn.made += 1
+        self.run = run
+        self.x = cnn_graph._static_input(x)
+        self.x.copy_(x)
+        self.y = run(self.x)
+
+    def replay(self, x):
+        self.x.copy_(x)
+        self.y.copy_(self.run(self.x))
+        return self.y.clone()
+
+
+@pytest.fixture
+def graphs_on_cpu(monkeypatch):
+    """``cnn_graph.forward`` treating CPU tensors as CUDA ones, with the
+    stand-in graph."""
+    rule = cnn_graph.eager_reason
+
+    def on_cpu(x, **kw):
+        return rule(types.SimpleNamespace(is_cuda=True, shape=x.shape), **kw)
+    monkeypatch.setattr(cnn_graph, "eager_reason", on_cpu)
+    monkeypatch.setattr(cnn_graph, "Graph", _StandIn)
+    _StandIn.made = 0
+    yield
+    for apply in APPLY.values():
+        cnn_graph.reset(apply)
+
+
+@pytest.mark.parametrize("net", ["resnet50", "vgg16"])
+def test_second_call_captures_then_every_call_replays(graphs_on_cpu, net):
+    apply = APPLY[net]
+    params = INIT[net](torch.Generator().manual_seed(0), width=0.0625,
+                       device="cpu")
+    xs = [torch.randn(1, 32, 32, 3) for _ in range(4)]
+    cnn_graph.reset(apply)
+    want = [apply(params, x, impl="ref") for x in xs]
+    assert apply.graph_eager == {"impl": 4}
+    got = [apply(params, x) for x in xs]
+    assert (apply.graph_eager["new_key"], apply.graph_captures,
+            apply.graph_replays) == (1, 1, 3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # answers are fresh tensors: a later call leaves an earlier one alone
+    kept = got[1].clone()
+    apply(params, xs[3])
+    assert torch.equal(got[1], kept)
+    assert got[1].data_ptr() != apply.graph_entry.graph.y.data_ptr()
+    # calls the graph cannot serve run eagerly and keep the entry
+    with trace.capture() as tr:
+        apply(params, xs[0])
+    assert sum(s.name == "kernels.conv2d" or s.name == "kernels.conv1x1"
+               for root in tr.spans for s in root.walk()) == CONVS[net]
+    apply(params, torch.randn(cnn_graph.GRAPH_MAX_BATCH + 1, 32, 32, 3))
+    apply(params, xs[0], fused=False)
+    assert apply.graph_eager["tracing"] == apply.graph_eager["batch"] == \
+        apply.graph_eager["unfused"] == 1
+    replays = apply.graph_replays
+    assert torch.equal(apply(params, xs[2]), want[2])
+    assert (apply.graph_replays, _StandIn.made) == (replays + 1, 1)
+
+
+def test_a_replaced_weight_is_captured_again(graphs_on_cpu, small):
+    params, x = small
+    apply = cnn.resnet50_apply
+    cnn_graph.reset(apply)
+    for _ in range(3):
+        apply(params, x)
+    new = _replace(params, ("conv4_b3", "c3"))
+    new["conv4_b3"]["c3"].mul_(-1)
+    outs = [apply(new, x) for _ in range(3)]
+    assert (apply.graph_eager["new_key"], apply.graph_captures,
+            apply.graph_replays) == (2, 2, 4)
+    want = apply(new, x, impl="ref")
+    assert all(torch.equal(o, want) for o in outs)
+
+
+def test_the_sparse_forward_runs_eagerly(graphs_on_cpu, small):
+    params, x = small
+    apply = cnn.resnet50_apply
+    cnn_graph.reset(apply)
+    for kw in ({"sparse": True}, {"keep_fractions": 0.5},
+               {"keep_fractions": {"conv3": 0.5}}):
+        apply(params, x, **kw)
+        apply(params, x, **kw)
+    assert apply.graph_eager == {"sparse": 6}
+    assert apply.graph_captures == 0 and apply.graph_entry is None
+
+
+def test_tuner_generation_counts_every_change():
+    try:
+        g = autotune.generation()
+        autotune.reset()
+        assert autotune.generation() == g + 1
+        autotune.lookup_gemm(1, 16, 16, "float32")     # loads the tables
+        assert autotune.generation() == g + 2
+        autotune.lookup_gemm(1, 16, 16, "float32")
+        assert autotune.generation() == g + 2
+        autotune.put("conv2d|test_tuner_generation", TileConfig(1, 1))
+        assert autotune.generation() == g + 3
+    finally:
+        autotune.reset()
+
+
+# ----------------------------------------------------------- on the card ---
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _card_net(net: str, dtype, seed: int = 0):
+    """Full-width weights with drawn BN; weights in ``dtype``, the folded
+    BN vectors in fp32 (as the benchmark's bf16 engine runs them)."""
+    params = INIT[net](torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def fix(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                fix(v)
+            elif k == "scale":
+                tree[k] = torch.rand(v.shape, generator=gen,
+                                     device="cuda") + 0.5
+            elif k == "bias":
+                tree[k] = torch.rand(v.shape, generator=gen,
+                                     device="cuda") - 0.5
+            else:
+                tree[k] = v.to(dtype)
+    fix(params)
+    return params
+
+
+def _card_inputs(dtype, n: int = 3):
+    """n images of a pool at 16-byte boundaries and one a single element
+    off one."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    pool = torch.randn((n, 224, 224, 3), generator=gen, device="cuda")
+    flat = torch.randn(224 * 224 * 3 + 1, generator=gen, device="cuda")
+    pool, flat = pool.to(dtype), flat.to(dtype)
+    off = flat[1:].view(1, 224, 224, 3)
+    assert off.data_ptr() % cnn_graph.ALIGN
+    return [pool[i:i + 1] for i in range(n)], off
+
+
+def _eager(apply, params, x):
+    """The eager forward: with tracing on no call replays."""
+    with trace.capture():
+        return apply(params, x)
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("net", ["resnet50", "vgg16"])
+def test_replayed_logits_equal_eager_bits(cuda, net, dtype):
+    apply, params = APPLY[net], _card_net(net, dtype)
+    aligned, off = _card_inputs(dtype)
+    cnn_graph.reset(apply)
+    answers = []
+    for xs in (aligned, [off] * 3):
+        want = [_eager(apply, params, x) for x in xs]
+        answers += zip([apply(params, x) for x in xs], want)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, want) for got, want in answers)
+    assert not torch.equal(answers[0][0], answers[1][0])
+    assert (apply.graph_eager["new_key"], apply.graph_captures,
+            apply.graph_replays) == (2, 2, 4)
+    # an earlier answer is unchanged by later calls
+    for x in aligned:
+        apply(params, x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, want) for got, want in answers)
+
+
+@pytest.mark.chip
+def test_a_replaced_weight_is_captured_again_on_the_card(cuda):
+    apply, params = cnn.resnet50_apply, _card_net("resnet50", torch.float32)
+    (x, *_), _ = _card_inputs(torch.float32)
+    cnn_graph.reset(apply)
+    for _ in range(3):
+        apply(params, x)
+    new = _replace(params, ("conv3_b2", "c2"))
+    new["conv3_b2"]["c2"].mul_(0.5)
+    outs = [apply(new, x) for _ in range(3)]
+    want = _eager(apply, new, x)
+    torch.cuda.synchronize()
+    assert apply.graph_captures == 2
+    assert all(torch.equal(o, want) for o in outs)
+    assert not torch.equal(want, _eager(apply, params, x))
+
+
+@pytest.mark.chip
+def test_an_eager_call_that_regrows_the_workspace_leaves_replays(cuda):
+    """A b64 call runs eagerly; where it grows the shared split-K workspace
+    (dropped here first, as a grow drops the smaller one) the graph keeps
+    the one it recorded alive, so neither its replay nor the b64 answer
+    changes."""
+    apply, params = cnn.resnet50_apply, _card_net("resnet50", torch.float32)
+    (x, *_), _ = _card_inputs(torch.float32)
+    cnn_graph.reset(apply)
+    apply(params, x)
+    first = apply(params, x)
+    recorded = weakref.ref(_build._partials.pop(x.device))
+    _build._tickets.pop(x.device)
+    big = torch.randn((64, 224, 224, 3), device="cuda")
+    y64 = apply(params, big)
+    _eager(apply, params, x)            # grows it again at batch 1
+    kept = y64.clone()
+    del big
+    gc.collect()
+    again = apply(params, x)
+    torch.cuda.synchronize()
+    assert apply.graph_eager["batch"] == 1 and apply.graph_replays == 2
+    assert recorded() is not None
+    assert any(t is recorded() for t in apply.graph_entry.graph.scratch)
+    assert _build._partials[x.device] is not recorded()
+    assert torch.equal(again, first) and torch.equal(y64, kept)
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("net", ["resnet50", "vgg16"])
+def test_tracing_runs_eagerly(cuda, net):
+    apply, params = APPLY[net], _card_net(net, torch.float32)
+    (x, *_), _ = _card_inputs(torch.float32)
+    cnn_graph.reset(apply)
+    apply(params, x)
+    apply(params, x)
+    with trace.capture() as tr:
+        apply(params, x)
+    (root,) = tr.spans
+    assert root.name == "cnn.forward"
+    assert sum(s.name == "kernels.launch" for s in root.walk()) == CONVS[net]
+    assert apply.graph_eager["tracing"] == 1 and apply.graph_replays == 1
+
+
+def _profile(step, n: int):
+    """(device ops, busy seconds) per step of n steps under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, None
+    for s, e in spans:
+        busy += e - s if end is None else max(0.0, e - max(s, end))
+        end = e if end is None else max(end, e)
+    return len(spans) / n, busy / 1e6 / n
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("net", ["resnet50", "vgg16"])
+def test_the_profiler_sees_every_kernel_of_a_replay(cuda, net):
+    apply, params = APPLY[net], _card_net(net, torch.float32)
+    (x, *_), _ = _card_inputs(torch.float32)
+    host = torch.empty((1, 1000), pin_memory=True)
+    cnn_graph.reset(apply)
+    for _ in range(3):
+        apply(params, x)
+    torch.cuda.synchronize()
+
+    def replay():
+        host.copy_(apply(params, x), non_blocking=True)
+
+    def eager():
+        host.copy_(_eager(apply, params, x), non_blocking=True)
+
+    _profile(replay, 2)                  # the profiler's start-up
+    n = 20
+    eager_ops, eager_busy = _profile(eager, n)
+    replay_ops, replay_busy = _profile(replay, n)
+    assert apply.graph_replays >= n
+    assert replay_ops == eager_ops + 2 == DEVICE_OPS[net]
+    assert abs(replay_busy / eager_busy - 1) < 0.05
