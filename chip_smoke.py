@@ -888,9 +888,10 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
     """One counted forward, parity against the plain engine, median time.
 
     The counted call is the first under its key, so it runs eagerly
-    (``models.cnn_graph``); a dense forward's next two capture and replay
-    the net's CUDA graph, a sparse one's run eagerly, and both must give
-    the counted call's bits.  The timed calls and the profile replay."""
+    (``models.cnn_graph``); the next two capture and replay the net's CUDA
+    graph, dense or pruned, and must give the counted call's bits.  A
+    pruned forward prunes on its first call only.  The timed calls and the
+    profile replay."""
     from repro_torch.models import cnn_graph
     for fn in counters.values():
         fn.launches = 0
@@ -904,9 +905,7 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
     graph = {"captures": apply.graph_captures,
              "replays": apply.graph_replays,
              "eager": dict(apply.graph_eager)}
-    want_graph = ({"captures": 0, "replays": 0, "eager": {"sparse": 3}}
-                  if kw.get("sparse") else
-                  {"captures": 1, "replays": 2, "eager": {"new_key": 1}})
+    want_graph = {"captures": 1, "replays": 2, "eager": {"new_key": 1}}
     ref = apply(params, x, impl="ref", **kw)
     torch.cuda.synchronize()
     err = (logits - ref).abs().max().item()
@@ -925,8 +924,12 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
            "launches": launches, "expected_launches": expected,
            "graph": graph, "replay_bits_equal_eager": same_bits,
            "median_ms": statistics.median(times), "min_ms": min(times),
-           **profile_busy(lambda: apply(params, x, **kw))}
+           **profile_busy(lambda: apply(params, x, **kw)),
+           "prunes": apply.prunes,
+           "prune_hits": apply.prune_hits}
     emit(rec)
+    if rec["prunes"] != (1 if kw.get("sparse") else 0):
+        raise SystemExit(f"{name}: pruned {rec['prunes']} times")
     if launches != expected:
         raise SystemExit(f"{name}: launches {launches} != {expected}")
     if graph != want_graph or not same_bits:
@@ -3370,17 +3373,6 @@ def main() -> int:
                            {"conv2d": 13, "mm_act_stationary": 0,
                             "mm_weight_stationary": 0, **no_lm}),
     }
-    # serving a pruned model prunes once: time the pre-pruned forward too
-    pruned, _ = cnn.resnet50_prune(r50, 0.5)
-    times = []
-    for _ in range(FWD_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cnn.resnet50_apply(pruned, x)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    emit({"phase": "resnet50_prepruned", "median_ms": statistics.median(times),
-          "min_ms": min(times)})
     emit({"phase": "host", **host_profile(lambda: cnn.resnet50_apply(r50, x))})
     bench = run_bench(HERE / BASELINE)
     tuned = run_tune(kern, calls, paths, x, counters, dgen)

@@ -21,14 +21,18 @@ through each bottleneck; the shortcut trunk stays dense per Table I), and
 ``resnet50_apply(..., sparse=True | keep_fractions=...)`` runs the pruned
 network through the same fused dispatch path, tagging every pruned dispatch
 with its dense twin so telemetry reports keep-fraction and pruned-vs-dense
-MACs.
+MACs.  It prunes once per set of dense weights and keep fractions
+(``PrunedSet``, one per net) and reuses the pruned tensors while the dense
+weights stay as they were.
 
-On the card, a dense fused forward of at most ``cnn_graph.GRAPH_MAX_BATCH``
-images with tracing off is replayed from one CUDA graph from the second
-call under the same key (``models.cnn_graph``): the same kernels and plans,
-one host call in place of the dispatches.
+On the card, a fused forward of at most ``cnn_graph.GRAPH_MAX_BATCH``
+images with tracing off, dense or pruned, is replayed from one CUDA graph
+from the second call under the same key (``models.cnn_graph``): the same
+kernels and plans, one host call in place of the dispatches.
 """
 from __future__ import annotations
+
+import operator
 
 import numpy as np
 import torch
@@ -123,16 +127,27 @@ def _head(x: torch.Tensor, fc_w: torch.Tensor) -> torch.Tensor:
         return x.mean(dim=(1, 2)) @ fc_w.to(x.dtype)
 
 
-def _forward(apply, run, params, x: torch.Tensor, **call) -> torch.Tensor:
+def _forward(apply, run, params, x: torch.Tensor, keep=None,
+             **call) -> torch.Tensor:
     """``run(x)``, the forward of ``apply``, through ``cnn_graph.forward``:
     replayed from the net's CUDA graph where the call allows, else eager.
-    With tracing on it runs eagerly, under a ``cnn.forward`` span (``net``,
-    ``batch``): the root of every span of one forward."""
+    With ``keep`` (keep fractions) it is ``run(x, pruned)`` on the net's
+    pruned set of ``params`` (``_pruned``).  With tracing on it runs
+    eagerly, under a ``cnn.forward`` span (``net``, ``batch``): the root of
+    every span of one forward."""
     if not trace.enabled():
-        return cnn_graph.forward(apply, run, params, x, **call)
+        return _dispatch(apply, run, params, x, keep, call)
     net = apply.__name__.removesuffix("_apply")
     with trace.span("cnn.forward", net=net, batch=int(x.shape[0])):
+        return _dispatch(apply, run, params, x, keep, call)
+
+
+def _dispatch(apply, run, params, x, keep, call):
+    if keep is None:
         return cnn_graph.forward(apply, run, params, x, **call)
+    pruned = _pruned(apply, params, keep)
+    return cnn_graph.forward(apply, lambda x: run(x, pruned), params, x,
+                             weights=pruned, **call)
 
 
 # ------------------------------- ResNet-50 -----------------------------------
@@ -225,6 +240,83 @@ def resnet50_prune(params, keep_fractions=0.5):
     return pruned, masks
 
 
+class PrunedSet:
+    """The pruned tensors of one set of dense weights at one set of keep
+    fractions, and the ``SparsityTag`` of each pruned conv: what
+    ``resnet50_prune`` computes, kept while the dense weights stay as they
+    were.
+
+    The dense weights are held as ``cnn_graph.Entry`` holds them, by weak
+    reference and storage, so a set keeps no weight alive and a weight
+    replaced or freed never matches; and by version counter, since the
+    pruned tensors are copies: a weight written in place no longer matches
+    either.  ``blocks`` holds only tensors of the set's own (each pruned
+    block's c1, bn1, c2, bn2 and c3), never a dense weight."""
+
+    __slots__ = ("weights", "versions", "blocks", "tags")
+
+    def __init__(self, keep: tuple, tensors: list, params: dict, fractions):
+        self.weights = cnn_graph.Entry(keep, tensors)
+        self.versions = _versions(tensors)
+        pruned, _ = resnet50_prune(params, fractions)
+        self.blocks, self.tags = {}, {}
+        for bname, blk in pruned.items():
+            dense = params[bname]
+            if blk is dense:
+                continue
+            self.blocks[bname] = {k: v for k, v in blk.items()
+                                  if v is not dense[k]}
+            for c in ("c1", "c2", "c3"):
+                if blk[c].shape != dense[c].shape:
+                    *_, ic, k = dense[c].shape
+                    self.tags[bname, c] = SparsityTag(dense_ic=ic, dense_k=k)
+
+    def matches(self, keep: tuple, tensors: list) -> bool:
+        """Whether the dense weights ``tensors`` (``cnn_graph.
+        weight_tensors``) at ``keep`` (``_keep_key``) prune to this set."""
+        return (self.weights.matches(keep, tensors)
+                and _versions(tensors) == self.versions)
+
+
+_version = operator.attrgetter("_version")
+
+
+def _versions(tensors: list) -> list:
+    return list(map(_version, tensors))
+
+
+def _keep_key(keep_fractions) -> tuple:
+    """The keep fraction of every group, as ((group, fraction), ...)."""
+    return tuple((g, _group_keep_fraction(keep_fractions, g))
+                 for g in RESNET50_BLOCKS)
+
+
+def _pruned(apply, params: dict, keep_fractions) -> PrunedSet:
+    """The net's pruned set of ``params`` at ``keep_fractions``: the one it
+    holds (``apply.prune_entry``, counted in ``apply.prune_hits``) where it
+    matches, else a new one (``apply.prunes``).  A ``cnn.prune`` span
+    (``keep``, ``hit``) when tracing is on."""
+    if not trace.enabled():
+        return _lookup(apply, params, keep_fractions)[0]
+    with trace.span("cnn.prune",
+                    keep=dict(_keep_key(keep_fractions))) as sp:
+        pruned, sp.attrs["hit"] = _lookup(apply, params, keep_fractions)
+    return pruned
+
+
+def _lookup(apply, params: dict, keep_fractions) -> tuple[PrunedSet, bool]:
+    keep = _keep_key(keep_fractions)
+    tensors = cnn_graph.weight_tensors(params)
+    entry = apply.prune_entry
+    if entry is not None and entry.matches(keep, tensors):
+        apply.prune_hits += 1
+        return entry, True
+    apply.prune_entry = None            # the old copies go first
+    apply.prune_entry = PrunedSet(keep, tensors, params, keep_fractions)
+    apply.prunes += 1
+    return apply.prune_entry, False
+
+
 def resnet50_apply(params, x, *, impl: str = "auto", fused: bool = True,
                    sparse: bool = False, keep_fractions=None):
     """x: (B, H, W, 3) -> (B, num_classes).  All convs via carla_conv.
@@ -232,48 +324,38 @@ def resnet50_apply(params, x, *, impl: str = "auto", fused: bool = True,
     fused=True (default): BN + ReLU (+ the bottleneck residual add, fused
     into the last 1x1 conv of each block) ride the kernel flush epilogue.
 
-    sparse=True (or an explicit ``keep_fractions``, scalar or per-group
-    dict) runs the structured-sparse variant: ``params`` is pruned via
-    ``resnet50_prune`` and the pruned network runs through the same fused
-    dispatch path, with every pruned dispatch tagged by its dense twin
-    (``SparsityTag``) so traced spans carry keep-fraction / dense-twin MACs.
-    A dict that is *already* pruned runs as-is with ``sparse=False`` —
-    the forward is shape-polymorphic; the flags exist to prune and to tag.
+    sparse=True (keep fractions 0.5) or an explicit ``keep_fractions``
+    (scalar or per-group dict) runs the structured-sparse variant:
+    ``params`` is pruned via ``resnet50_prune`` and the pruned network runs
+    through the same fused dispatch path, with every pruned dispatch tagged
+    by its dense twin (``SparsityTag``) so traced spans carry keep-fraction
+    / dense-twin MACs.  The pruning is done once: the net keeps its last
+    ``PrunedSet`` and reuses it while ``params`` holds the same tensors,
+    unwritten since, at the same keep fractions (``prunes`` and
+    ``prune_hits`` count misses and hits).  A dict that is *already* pruned
+    runs as-is with ``sparse=False`` — the forward is shape-polymorphic;
+    the flags exist to prune and to tag.
 
-    A dense, fused call on the CUDA kernels of at most
+    A fused call on the CUDA kernels of at most
     ``cnn_graph.GRAPH_MAX_BATCH`` images, with tracing off, replays a CUDA
     graph of the forward from the second call under the same key (x's
-    shape and dtype, the weight tensors, the tuner's state); the counters
-    ``resnet50_apply.graph_captures``, ``.graph_replays`` and
-    ``.graph_eager`` (by reason) say which way each call went.  Replays
-    share the kernels' workspace with eager calls: order every call on one
-    stream (``models.cnn_graph``).
+    shape and dtype, the weight tensors or the pruned set, the tuner's
+    state); the counters ``resnet50_apply.graph_captures``,
+    ``.graph_replays`` and ``.graph_eager`` (by reason) say which way each
+    call went.  Replays share the kernels' workspace with eager calls: order
+    every call on one stream (``models.cnn_graph``).
     """
-    return _forward(resnet50_apply, lambda x: _resnet50(
-        params, x, impl=impl, fused=fused, sparse=sparse,
-        keep_fractions=keep_fractions), params, x, impl=impl, fused=fused,
-        sparse=sparse or keep_fractions is not None)
-
-
-def _resnet50(params, x, *, impl: str, fused: bool, sparse: bool,
-              keep_fractions):
     if sparse and keep_fractions is None:
         keep_fractions = 0.5
-    dense_dims = None
-    if keep_fractions is not None:
-        dense_dims = {f"{g}_b{b}": {c: tuple(params[f"{g}_b{b}"][c].shape)
-                                    for c in ("c1", "c2", "c3")}
-                      for g, nb in RESNET50_BLOCKS.items() for b in range(nb)}
-        params, _ = resnet50_prune(params, keep_fractions)
+    return _forward(resnet50_apply, lambda x, pruned=None: _resnet50(
+        params, x, impl=impl, fused=fused, pruned=pruned), params, x,
+        keep_fractions, impl=impl, fused=fused)
 
-    def tag(bname, cname, w):
-        if dense_dims is None:
-            return None
-        ds = dense_dims[bname][cname]
-        if ds == tuple(w.shape):
-            return None
-        return SparsityTag(dense_ic=ds[-2], dense_k=ds[-1])
 
+def _resnet50(params, x, *, impl: str, fused: bool,
+              pruned: PrunedSet | None):
+    blocks = pruned.blocks if pruned is not None else {}
+    tags = pruned.tags if pruned is not None else {}
     x = _conv_bn(x, params["conv1"], params["bn1"], fused=fused, relu=True,
                  stride=2, padding=3, impl=impl, name="conv1")
     x = _max_pool(x, 3, 2, same=True)       # 3x3/2 maxpool
@@ -281,6 +363,8 @@ def _resnet50(params, x, *, impl: str, fused: bool, sparse: bool,
         for b in range(nb):
             bname = f"{gname}_b{b}"
             blk = params[bname]
+            if bname in blocks:
+                blk = {**blk, **blocks[bname]}
             stride = 2 if (b == 0 and gname != "conv2") else 1
             sc = x
             if "proj" in blk:
@@ -288,14 +372,14 @@ def _resnet50(params, x, *, impl: str, fused: bool, sparse: bool,
                               stride=stride, impl=impl, name=f"{bname}_proj")
             h = _conv_bn(x, blk["c1"], blk["bn1"], fused=fused, relu=True,
                          stride=stride, impl=impl, name=f"{bname}_1x1a",
-                         sparsity=tag(bname, "c1", blk["c1"]))
+                         sparsity=tags.get((bname, "c1")))
             h = _conv_bn(h, blk["c2"], blk["bn2"], fused=fused, relu=True,
                          padding=1, impl=impl, name=f"{bname}_3x3",
-                         sparsity=tag(bname, "c2", blk["c2"]))
+                         sparsity=tags.get((bname, "c2")))
             # residual add fused into the block's last 1x1 conv
             x = _conv_bn(h, blk["c3"], blk["bn3"], fused=fused, relu=True,
                          residual=sc, impl=impl, name=f"{bname}_1x1b",
-                         sparsity=tag(bname, "c3", blk["c3"]))
+                         sparsity=tags.get((bname, "c3")))
     return _head(x, params["fc"]["w"])
 
 

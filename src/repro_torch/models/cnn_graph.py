@@ -14,7 +14,6 @@ option.  It runs eagerly, counting the reason in ``apply.graph_eager``:
   * ``impl``: the engine is not the CUDA kernels (``impl`` other than
     ``auto`` or ``cuda``);
   * ``unfused``: ``fused=False``;
-  * ``sparse``: the sparse forward, which prunes on the host every call;
   * ``tracing``: the spans time the eager dispatch, kernel by kernel;
   * ``batch``: more than ``GRAPH_MAX_BATCH`` images, where the device's
     time hides the host's and a graph would hold a large batch's
@@ -29,7 +28,12 @@ device and offset from a 16-byte boundary, ``impl`` and ``fused``, the
 tuner's state (on or off, and ``autotune.generation()``) and every weight
 tensor the forward reads: the same tensor object over the same storage as
 when the key was taken.  A weight written in place keeps its key (the graph
-reads it where it lies); a weight replaced does not.
+reads it where it lies); a weight replaced does not.  A pruned forward
+(``cnn.resnet50_apply`` with keep fractions) has the net's pruned set
+(``cnn.PrunedSet``) in its key in place of the weight tensors: the set's
+lookup, just before, matched every dense weight by object, storage and
+version counter, so the weights are walked once a call, and the pruned
+tensors the graph reads are the set's own copies.
 
 Each net keeps one entry (``apply.graph_entry``); a new key drops the old
 graph and its memory pool.  A captured entry holds the static input, the
@@ -57,13 +61,11 @@ from ..kernels import _build
 from ..observability import trace
 
 GRAPH_MAX_BATCH = 8            # images: above it a call runs eagerly
-EAGER_REASONS = ("cpu", "impl", "unfused", "sparse", "tracing", "batch",
-                 "new_key")
+EAGER_REASONS = ("cpu", "impl", "unfused", "tracing", "batch", "new_key")
 ALIGN = 16                     # bytes: the kernels' vector loads
 
 
-def eager_reason(x: torch.Tensor, *, impl: str, fused: bool,
-                 sparse: bool) -> str | None:
+def eager_reason(x: torch.Tensor, *, impl: str, fused: bool) -> str | None:
     """Why a call runs eagerly whatever its key (one of
     ``EAGER_REASONS``), or None where a graph may serve it."""
     if not x.is_cuda:
@@ -72,8 +74,6 @@ def eager_reason(x: torch.Tensor, *, impl: str, fused: bool,
         return "impl"
     if not fused:
         return "unfused"
-    if sparse:
-        return "sparse"
     if trace.enabled():
         return "tracing"
     if x.shape[0] > GRAPH_MAX_BATCH:
@@ -97,11 +97,15 @@ def _walk(tree: dict, out: list) -> None:
 
 
 def call_key(net: str, params: dict, x: torch.Tensor, impl: str,
-             fused: bool) -> tuple[tuple, list]:
-    """(the call's key but its weights, the weight tensors)."""
+             fused: bool, weights=None) -> tuple[tuple, list]:
+    """(the call's key but its weight tensors, the weight tensors); with
+    ``weights``, an object that stands for the weights (a pruned set),
+    that object is in the key and no tensor is."""
     head = (net, x.shape, x.stride(), x.dtype, x.device,
             x.data_ptr() % ALIGN, impl, fused, autotune.enabled(),
             autotune.generation())
+    if weights is not None:
+        return (*head, weights), []
     return head, weight_tensors(params)
 
 
@@ -162,23 +166,27 @@ class Graph:
 
 
 def reset(apply) -> None:
-    """Zero ``apply``'s counters and drop its net's graph."""
+    """Zero ``apply``'s counters and drop its net's graph and pruned set."""
     apply.graph_captures = 0
     apply.graph_replays = 0
     apply.graph_eager = Counter()
     apply.graph_entry = None
+    apply.prunes = 0
+    apply.prune_hits = 0
+    apply.prune_entry = None
 
 
 def forward(apply, run, params: dict, x: torch.Tensor, *, impl: str,
-            fused: bool, sparse: bool = False) -> torch.Tensor:
+            fused: bool, weights=None) -> torch.Tensor:
     """``run(x)``, the forward of ``apply`` (``cnn.resnet50_apply`` or
-    ``cnn.vgg16_apply``) on ``params``: eager, captured or replayed as the
-    module's docstring says, counted on ``apply``."""
-    reason = eager_reason(x, impl=impl, fused=fused, sparse=sparse)
+    ``cnn.vgg16_apply``) on ``params`` (or on the pruned set ``weights``):
+    eager, captured or replayed as the module's docstring says, counted on
+    ``apply``."""
+    reason = eager_reason(x, impl=impl, fused=fused)
     if reason is not None:
         apply.graph_eager[reason] += 1
         return run(x)
-    head, tensors = call_key(apply.__name__, params, x, impl, fused)
+    head, tensors = call_key(apply.__name__, params, x, impl, fused, weights)
     entry = apply.graph_entry
     if entry is None or not entry.matches(head, tensors):
         apply.graph_entry = None

@@ -2,14 +2,16 @@
 
 On the CPU: the rule that decides a call (each eager reason), the key
 (what changes it and what does not), the forward's control flow with a
-stand-in for the graph, the static input's alignment, and the batch limit
-against the benchmark's traffic.  On the card (``chip``, skipped without
-one), at the single-stream cells' size: replayed logits equal the eager
-logits bit for bit (ResNet-50 and VGG-16, batch 1, fp32 and bf16, inputs
-at and off a 16-byte boundary), answers stay put, a replaced weight is
-captured again, an eager call that regrows the shared workspace leaves the
-replay alone, tracing runs eagerly, and the profiler sees every kernel of
-a replay.
+stand-in for the graph, the pruned forward's set (pruned once, pruned
+again when a weight or the keep fractions change, holding no weight), the
+static input's alignment, and the batch limit against the benchmark's
+traffic.  On the card (``chip``, skipped without one), at the
+single-stream cells' size: replayed logits equal the eager logits bit for
+bit (ResNet-50 dense and pruned, and VGG-16, batch 1, fp32 and bf16,
+inputs at and off a 16-byte boundary), answers stay put, a replaced or
+written weight is captured again, an eager call that regrows the shared
+workspace leaves the replay alone, tracing runs eagerly, and the profiler
+sees every kernel of a replay.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cnn_graph.py
 """
@@ -43,7 +45,7 @@ def _fake_x(batch: int, is_cuda: bool = True):
     return types.SimpleNamespace(is_cuda=is_cuda, shape=(batch, 224, 224, 3))
 
 
-DENSE = dict(impl="auto", fused=True, sparse=False)
+DENSE = dict(impl="auto", fused=True)
 
 
 @pytest.mark.parametrize("change,reason", [
@@ -53,7 +55,7 @@ DENSE = dict(impl="auto", fused=True, sparse=False)
     ({"is_cuda": False}, "cpu"),
     ({"impl": "ref"}, "impl"),
     ({"fused": False}, "unfused"),
-    ({"sparse": True}, "sparse"),
+    ({"impl": "cuda", "fused": False}, "unfused"),
     ({"tracing": True}, "tracing"),
     ({"batch": cnn_graph.GRAPH_MAX_BATCH + 1}, "batch"),
     ({"batch": 64, "is_cuda": False}, "cpu"),
@@ -278,16 +280,124 @@ def test_a_replaced_weight_is_captured_again(graphs_on_cpu, small):
     assert all(torch.equal(o, want) for o in outs)
 
 
-def test_the_sparse_forward_runs_eagerly(graphs_on_cpu, small):
+PRUNED = {"sparse": {"sparse": True}, "keep 0.5": {"keep_fractions": 0.5},
+          "keep by group": {"keep_fractions": {"conv3": 0.5, "conv5": 0.25}}}
+
+
+@pytest.mark.parametrize("kw", list(PRUNED))
+def test_the_pruned_forward_prunes_once_then_replays(graphs_on_cpu, small,
+                                                     kw):
+    params, x = small
+    kw = PRUNED[kw]
+    apply = cnn.resnet50_apply
+    cnn_graph.reset(apply)
+    keep = kw.get("keep_fractions", 0.5)
+    pre = cnn.resnet50_prune(params, keep)[0]
+    want = apply(pre, x, impl="ref")                 # no pruned set: dense
+    assert (apply.prunes, apply.prune_hits) == (0, 0)
+    outs = [apply(params, x, **kw) for _ in range(6)]
+    assert all(torch.equal(o, want) for o in outs)
+    assert (apply.graph_eager["new_key"], apply.graph_captures,
+            apply.graph_replays) == (1, 1, 5)
+    assert (apply.prunes, apply.prune_hits) == (1, 5)
+    assert "sparse" not in cnn_graph.EAGER_REASONS
+    # the graph reads the set's copies, and the key holds the set
+    entry = apply.prune_entry
+    assert entry in apply.graph_entry.head
+    assert apply.graph_entry.refs == []
+    # the eager engine shares the set
+    assert torch.equal(apply(params, x, impl="ref", **kw), want)
+    assert (apply.prunes, apply.prune_hits) == (1, 6)
+    # a dense call of the same weights neither prunes nor reads the set
+    apply(params, x)
+    assert apply.prunes == 1 and apply.prune_entry is entry
+
+
+def _write_in_place(params, kw):
+    params["conv4_b2"]["c1"].mul_(-1)
+    return params, kw
+
+
+def _write_bn_in_place(params, kw):
+    params["conv2_b1"]["bn2"]["scale"].add_(1)
+    return params, kw
+
+
+def _replace_weight(params, kw):
+    new = _replace(params, ("conv5_b0", "c2"))
+    new["conv5_b0"]["c2"].mul_(-1)
+    return new, kw
+
+
+def _draw_again(params, kw):
+    return cnn.resnet50_init(torch.Generator().manual_seed(5),
+                             width=0.0625, device="cpu"), kw
+
+
+def _change_keep(params, kw):
+    return params, {"keep_fractions": {"conv2": 0.25, "conv4": 0.5}}
+
+
+@pytest.mark.parametrize("change", [_write_in_place, _write_bn_in_place,
+                                    _replace_weight, _draw_again,
+                                    _change_keep])
+def test_a_changed_weight_set_is_pruned_again(graphs_on_cpu, small, change):
     params, x = small
     apply = cnn.resnet50_apply
     cnn_graph.reset(apply)
-    for kw in ({"sparse": True}, {"keep_fractions": 0.5},
-               {"keep_fractions": {"conv3": 0.5}}):
+    kw = {"keep_fractions": 0.5}
+    for _ in range(3):
         apply(params, x, **kw)
-        apply(params, x, **kw)
-    assert apply.graph_eager == {"sparse": 6}
-    assert apply.graph_captures == 0 and apply.graph_entry is None
+    params, kw = change(params, kw)
+    outs = [apply(params, x, **kw) for _ in range(3)]
+    assert (apply.prunes, apply.prune_hits) == (2, 4)
+    assert (apply.graph_eager["new_key"], apply.graph_captures,
+            apply.graph_replays) == (2, 2, 4)
+    pre = cnn.resnet50_prune(params, kw["keep_fractions"])[0]
+    want = apply(pre, x, impl="ref")
+    assert all(torch.equal(o, want) for o in outs)
+
+
+def test_a_pruned_set_keeps_no_weight_alive():
+    params = cnn.resnet50_init(width=0.0625, device="cpu")
+    x = torch.randn(1, 32, 32, 3)
+    apply = cnn.resnet50_apply
+    cnn_graph.reset(apply)
+    apply(params, x, sparse=True)
+    entry = apply.prune_entry
+    dense = {id(t) for t in cnn_graph.weight_tensors(params)}
+    assert len(entry.weights.refs) == len(dense) == 160
+    assert len(entry.blocks) == 16 and len(entry.tags) == 48
+    assert not dense & {id(t) for t in cnn_graph.weight_tensors(entry.blocks)}
+    del params
+    gc.collect()
+    assert all(ref() is None for ref in entry.weights.refs)
+    cnn_graph.reset(apply)
+
+
+def test_a_traced_pruned_forward_runs_eagerly(graphs_on_cpu, small):
+    params, x = small
+    apply = cnn.resnet50_apply
+    cnn_graph.reset(apply)
+    for _ in range(3):
+        apply(params, x, sparse=True)
+    for hit in (True, False):
+        if not hit:
+            params["conv1"].mul_(1)                 # a write: prune again
+        with trace.capture() as tr:
+            apply(params, x, sparse=True)
+        (root,) = tr.spans
+        prune, *rest = root.children
+        assert (prune.name, prune.attrs["hit"]) == ("cnn.prune", hit)
+        assert prune.attrs["keep"] == dict.fromkeys(cnn.RESNET50_BLOCKS, 0.5)
+        convs = [s for s in root.walk() if s.name == "carla_conv"]
+        tagged = [s for s in convs if s.attrs.get("pruned")]
+        assert (len(convs), len(tagged)) == (53, 48)
+        assert all(0 < s.attrs["keep_fraction"] < 1 and
+                   s.attrs["dense_twin_macs"] > s.attrs["macs"]
+                   for s in tagged)
+    assert apply.graph_eager["tracing"] == 2 and apply.graph_replays == 2
+    assert (apply.prunes, apply.prune_hits) == (2, 3)
 
 
 def test_tuner_generation_counts_every_change():
@@ -347,10 +457,10 @@ def _card_inputs(dtype, n: int = 3):
     return [pool[i:i + 1] for i in range(n)], off
 
 
-def _eager(apply, params, x):
+def _eager(apply, params, x, **kw):
     """The eager forward: with tracing on no call replays."""
     with trace.capture():
-        return apply(params, x)
+        return apply(params, x, **kw)
 
 
 @pytest.mark.chip
@@ -455,21 +565,23 @@ def _profile(step, n: int):
 
 
 @pytest.mark.chip
-@pytest.mark.parametrize("net", ["resnet50", "vgg16"])
+@pytest.mark.parametrize("net", ["resnet50", "vgg16", "resnet50_sparse"])
 def test_the_profiler_sees_every_kernel_of_a_replay(cuda, net):
+    kw = {"keep_fractions": 0.5} if net.endswith("_sparse") else {}
+    net = net.removesuffix("_sparse")
     apply, params = APPLY[net], _card_net(net, torch.float32)
     (x, *_), _ = _card_inputs(torch.float32)
     host = torch.empty((1, 1000), pin_memory=True)
     cnn_graph.reset(apply)
     for _ in range(3):
-        apply(params, x)
+        apply(params, x, **kw)
     torch.cuda.synchronize()
 
     def replay():
-        host.copy_(apply(params, x), non_blocking=True)
+        host.copy_(apply(params, x, **kw), non_blocking=True)
 
     def eager():
-        host.copy_(_eager(apply, params, x), non_blocking=True)
+        host.copy_(_eager(apply, params, x, **kw), non_blocking=True)
 
     _profile(replay, 2)                  # the profiler's start-up
     n = 20
@@ -478,3 +590,40 @@ def test_the_profiler_sees_every_kernel_of_a_replay(cuda, net):
     assert apply.graph_replays >= n
     assert replay_ops == eager_ops + 2 == DEVICE_OPS[net]
     assert abs(replay_busy / eager_busy - 1) < 0.05
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pruned_replayed_logits_equal_eager_bits(cuda, dtype):
+    """The pruned forward prunes once, captures on its second call and
+    replays the bits of the eager forward of the pruned dict (the path
+    that pruned on every call)."""
+    apply, params = cnn.resnet50_apply, _card_net("resnet50", dtype)
+    aligned, off = _card_inputs(dtype)
+    pre = cnn.resnet50_prune(params, 0.5)[0]
+    cnn_graph.reset(apply)
+    answers = []
+    for xs in (aligned, [off] * 3):
+        want = [_eager(apply, pre, x) for x in xs]
+        answers += zip([apply(params, x, keep_fractions=0.5) for x in xs],
+                       want)
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, want) for got, want in answers)
+    assert (apply.graph_eager["new_key"], apply.graph_captures,
+            apply.graph_replays) == (2, 2, 4)
+    assert (apply.prunes, apply.prune_hits) == (1, 5)
+
+
+@pytest.mark.chip
+def test_a_pruned_weight_written_in_place_is_pruned_again_on_the_card(cuda):
+    apply, params = cnn.resnet50_apply, _card_net("resnet50", torch.float32)
+    (x, *_), _ = _card_inputs(torch.float32)
+    cnn_graph.reset(apply)
+    before = [apply(params, x, sparse=True) for _ in range(3)]
+    params["conv3_b2"]["c2"].mul_(0.5)
+    outs = [apply(params, x, sparse=True) for _ in range(3)]
+    want = _eager(apply, cnn.resnet50_prune(params, 0.5)[0], x)
+    torch.cuda.synchronize()
+    assert (apply.prunes, apply.graph_captures) == (2, 2)
+    assert all(torch.equal(o, want) for o in outs)
+    assert not torch.equal(want, before[-1])
