@@ -889,7 +889,9 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
 
     The counted call is the first under its key, so it runs eagerly
     (``models.cnn_graph``); the next two capture and replay the net's CUDA
-    graph, dense or pruned, and must give the counted call's bits.  A
+    graph, dense or pruned, and must give the counted call's bits.  The
+    captured graph must hold programmatic edges (the convs chained by
+    programmatic dependent launch); their count is reported.  A
     pruned forward prunes on its first call only.  The timed calls and the
     profile replay."""
     from repro_torch.models import cnn_graph
@@ -906,6 +908,7 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
              "replays": apply.graph_replays,
              "eager": dict(apply.graph_eager)}
     want_graph = {"captures": 1, "replays": 2, "eager": {"new_key": 1}}
+    edges = apply.graph_programmatic_edges
     ref = apply(params, x, impl="ref", **kw)
     torch.cuda.synchronize()
     err = (logits - ref).abs().max().item()
@@ -922,7 +925,8 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
            "finite": bool(torch.isfinite(logits).all()),
            "max_abs_err_vs_ref": err, "tol": tol, "max_abs_ref": scale,
            "launches": launches, "expected_launches": expected,
-           "graph": graph, "replay_bits_equal_eager": same_bits,
+           "graph": graph, "graph_programmatic_edges": edges,
+           "replay_bits_equal_eager": same_bits,
            "median_ms": statistics.median(times), "min_ms": min(times),
            **profile_busy(lambda: apply(params, x, **kw)),
            "prunes": apply.prunes,
@@ -932,6 +936,9 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
         raise SystemExit(f"{name}: pruned {rec['prunes']} times")
     if launches != expected:
         raise SystemExit(f"{name}: launches {launches} != {expected}")
+    if edges == 0:
+        raise SystemExit(f"{name}: the captured graph holds no programmatic "
+                         "edge: its convs run one after another")
     if graph != want_graph or not same_bits:
         raise SystemExit(f"{name}: graph counters {graph} (want "
                          f"{want_graph}), the next calls' bits equal the "

@@ -54,12 +54,38 @@
 //     identical bits.
 // * bf16 operands are copied as bf16 (half the bytes) and converted to fp32
 //   when a fragment is read; the sums are fp32.
+// * A launch is a programmatic dependent launch wherever that cannot crowd
+//   its blocks (pipe_launch_tile): at batch 1 a forward is a chain of short
+//   kernels, each paying a fixed cost before its first FMA (placing the
+//   grid, the tables, the ring's first weights from device memory) and
+//   after its last (the split combine, while most SMs are empty). Such a
+//   launch is placed as soon as every block of the kernel before it on the
+//   stream is past its main loop (griddepcontrol.launch_dependents), builds
+//   its tables, asks the L2 for the weights of its prologue's slots, and
+//   then waits (griddepcontrol.wait) until that kernel has completed and
+//   its memory is flushed. The rule: nothing before the wait reads memory
+//   that an earlier launch writes, and nothing before it writes memory that
+//   an earlier launch reads. Before it a block reads nothing from device
+//   memory at all: it writes its tables to its own shared memory, and an L2
+//   prefetch is a hint, not a load. The L2 is where every SM's accesses to
+//   device memory meet, so a line it fetches early holds whatever the
+//   kernel before writes to it later; the weights may therefore be any
+//   tensor, the previous launch's output too (kernels/matmul.py:matmul
+//   serves any (M, C) @ (C, K)). The copies into the ring, the residual,
+//   scale and bias, the output, and the split workspace and tickets, which
+//   every launch on the device shares, all follow the wait. Every block
+//   waits, so a launch completes only after its predecessor has, and the
+//   chain stays ordered. Launched without the attribute, or after a kernel
+//   that never triggers, the wait costs nothing and the kernel starts as
+//   any other.
 //
 // The flush applies scale -> bias -> residual -> ReLU on the fp32 sum and
 // converts to the output type once, at the store.
 #pragma once
 
 #include <algorithm>
+#include <atomic>
+#include <cstdint>
 #include <type_traits>
 
 #include "numeric.cuh"
@@ -89,6 +115,7 @@ __device__ __forceinline__ float flush(float y, const Epi& ep, const T* res,
 constexpr int PIPE_BK = 16;          // reduction indices a chunk
 constexpr int PIPE_STAGES = 3;       // slots in the shared-memory ring
 constexpr int PIPE_TABLE_MAX = 2048; // general path: indices of one split
+constexpr int PIPE_PREFETCH_SLOTS = PIPE_STAGES - 1;  // before the wait
 
 struct ConvShape {
   int B, H, W, C, K, FH, FW, S, P, OH, OW;
@@ -166,6 +193,29 @@ __device__ __forceinline__ void build_rows(const ConvShape& s, int m0,
     int64_t pix;
     pixel_of(s, m0 + i, pix, rows[i].ih0, rows[i].iw0);
     rows[i].pix = pix;
+  }
+}
+
+// Asks the L2 for every line of the weight rows [k0, k1) x [n0, n0 + BN) of
+// w, the row-major (R, K) matrix, spread over the block's threads. Each
+// address lies in a row's own bytes (a line's start at or after the
+// allocation's, which is 256-byte aligned), and nothing is read into the
+// block: the lines are only there sooner when the ring's copies ask.
+template <typename T, class P>
+__device__ __forceinline__ void prefetch_weights(const T* w, int K, int n0,
+                                                 int k0, int k1) {
+  constexpr uintptr_t LINE = 128;
+  // lines a row of BN elements can touch, from any alignment
+  constexpr int LINES = (P::BN * sizeof(T) + LINE - 1) / LINE + 1;
+  const int n1 = min(K, n0 + P::BN);
+  for (int i = threadIdx.x; i < (k1 - k0) * LINES; i += P::THREADS) {
+    const T* row = w + (int64_t)(k0 + i / LINES) * K;
+    const uintptr_t end = reinterpret_cast<uintptr_t>(row + n1);
+    const uintptr_t line =
+        (reinterpret_cast<uintptr_t>(row + n0) & ~(LINE - 1)) +
+        (i % LINES) * LINE;
+    if (n0 < n1 && line < end)
+      prefetch_l2(reinterpret_cast<const void*>(line));
   }
 }
 
@@ -382,6 +432,12 @@ pipe_conv_kernel(const T* __restrict__ x, const T* __restrict__ w, Epi ep,
   build_rows(s, m0, P::BM, rows);
   Loader ld(x, w, s, rows, n0, k_begin, k_end,
             reinterpret_cast<unsigned char*>(rows + P::BM));
+  // Before the wait (the file's header says why): the prologue's weights
+  // into the L2, a hint that reads nothing into the block.
+  prefetch_weights<T, P>(
+      w, s.K, n0, k_begin,
+      min(k_end, k_begin + PIPE_PREFETCH_SLOTS * P::G * P::BK));
+  grid_dependency_wait();
   __syncthreads();  // the row table, and the general path's index table
 
   // the ring: slot i (chunks i*G .. i*G + G-1) sits in ring slot i % STAGES
@@ -413,6 +469,9 @@ pipe_conv_kernel(const T* __restrict__ x, const T* __restrict__ w, Epi ep,
     }
   }
   cp_async_wait<0>();
+  // Every block past its main loop: the next launch on the stream may take
+  // the SMs this grid's blocks leave while the last ones combine and store.
+  grid_dependents_launch();
 
   // From here each group owns rows i of the 8x8 with i / (8 / G) == group:
   // it adds the groups' sums for them (in group order, through shared
@@ -527,6 +586,46 @@ size_t pipe_smem_bytes(int table_len) {
   return VEC ? fixed : fixed + (size_t)table_len * sizeof(int2);
 }
 
+// One kernel's SMs and occupancy on one device, at the dynamic shared
+// memory it was last asked for, packed in one word (0: not asked yet):
+// bits 0-15 the SMs, 16-31 the blocks an SM holds, 32-63 the bytes.
+constexpr int SM_ROOM_DEVICES = 16;
+using SmRoom = std::atomic<uint64_t>;
+
+// Whether a normal launch of cfg's grid fills every SM to the kernel's
+// occupancy: at most one block fits an SM, or the grid holds blocks enough
+// for each SM's room. Only then may the launch be placed early. An early
+// grid goes to the SMs its predecessor has left, each filled to its room;
+// one that would spread thinner over all of them crowds a few instead
+// (VGG-16's 28x28 layers at batch 1, 520 blocks of up to six an SM, ran
+// 35 % longer so on the H100). The SMs and the occupancy are asked of the
+// runtime once per device and shared memory size, and kept in `cache`.
+template <class Kernel>
+cudaError_t fills_every_sm(Kernel kernel, const cudaLaunchConfig_t& cfg,
+                           SmRoom* cache, bool& fills) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  SmRoom* slot = dev < SM_ROOM_DEVICES ? cache + dev : nullptr;
+  const uint64_t bytes = cfg.dynamicSmemBytes;
+  uint64_t word = slot ? slot->load(std::memory_order_relaxed) : 0;
+  if (word == 0 || word >> 32 != bytes) {
+    int sms = 0, room = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &room, kernel, (int)cfg.blockDim.x, cfg.dynamicSmemBytes);
+    if (err != cudaSuccess) return err;
+    word = bytes << 32 | (uint64_t)(room & 0xffff) << 16 | (sms & 0xffff);
+    if (slot) slot->store(word, std::memory_order_relaxed);
+  }
+  const int64_t sms = word & 0xffff, room = word >> 16 & 0xffff;
+  const int64_t blocks =
+      (int64_t)cfg.gridDim.x * cfg.gridDim.y * cfg.gridDim.z;
+  fills = room > 0 && (blocks + sms - 1) / sms >= room;
+  return cudaSuccess;
+}
+
 template <typename T, class P, bool VEC>
 int pipe_launch_tile(const void* x, const void* w, Epi ep, const void* res,
                      void* out, float* ws, int* tickets, const ConvShape& s,
@@ -539,13 +638,29 @@ int pipe_launch_tile(const void* x, const void* w, Epi ep, const void* res,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid(ceil_div(s.B * s.OH * s.OW, P::BM), ceil_div(s.K, P::BN),
-                  splits);
-  kernel<<<grid, P::THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), ep,
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ceil_div(s.B * s.OH * s.OW, P::BM), ceil_div(s.K, P::BN),
+                     splits);
+  cfg.blockDim = dim3(P::THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  // a programmatic dependent launch where it cannot crowd the grid (the
+  // file's header says why); under stream capture, a programmatic edge
+  static SmRoom room[SM_ROOM_DEVICES];
+  bool early = false;
+  const cudaError_t placed = fills_every_sm(kernel, cfg, room, early);
+  if (placed != cudaSuccess) return (int)placed;
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = early ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(w), ep,
       static_cast<const T*>(res), static_cast<T*>(out), ws, tickets, s,
       k_per_split);
-  return (int)cudaGetLastError();
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 // The block tiles, by the wrapper's tile code (kernels/_build.py:PIPE_TILES):

@@ -1,6 +1,7 @@
-// Inline PTX of the attention kernels: 16-byte asynchronous copies from
-// device memory to shared memory (cp.async), ldmatrix, and the bf16
-// m16n8k16 tensor-core product (mma.sync). All of them exist from sm_80 on.
+// Inline PTX of the kernels: 16-byte asynchronous copies from device memory
+// to shared memory (cp.async), ldmatrix, and the bf16 m16n8k16 tensor-core
+// product (mma.sync), and L2 prefetches, which exist from sm_80 on; and the
+// grid dependency controls of programmatic dependent launch (sm_90 on).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,6 +43,25 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Asks the L2 for the 128-byte line holding p. A hint: no memory operation
+// in the memory model's sense, so it reads nothing a thread can see.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// Waits until every grid this one depends on programmatically has completed
+// and its memory is visible (at once for a grid launched without such a
+// dependency).
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Lets the grid that depends on this one programmatically be placed once
+// every block of this grid has called it or exited.
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // Four 8x8 b16 matrices from shared memory, lane l giving the address of

@@ -23,16 +23,22 @@ option.  It runs eagerly, counting the reason in ``apply.graph_eager``:
 
 Otherwise the key repeats: the second call under it captures the forward
 (``apply.graph_captures``) and every such call replays it
-(``apply.graph_replays``).  The key is the net, x's shape, strides, dtype,
-device and offset from a 16-byte boundary, ``impl`` and ``fused``, the
-tuner's state (on or off, and ``autotune.generation()``) and every weight
-tensor the forward reads: the same tensor object over the same storage as
-when the key was taken.  A weight written in place keeps its key (the graph
-reads it where it lies); a weight replaced does not.  A pruned forward
-(``cnn.resnet50_apply`` with keep fractions) has the net's pruned set
-(``cnn.PrunedSet``) in its key in place of the weight tensors: the set's
-lookup, just before, matched every dense weight by object, storage and
-version counter, so the weights are walked once a call, and the pruned
+(``apply.graph_replays``).  At each capture
+``apply.graph_programmatic_edges`` takes the captured graph's count of
+programmatic dependency edges: the pipelined conv kernels launch as
+programmatic dependent launches wherever their grid fills every SM
+(``csrc/gemm_pipe.cuh``), which a capture records as such edges, so that a
+replay places those convs under their predecessors' tails (52 of ResNet-50's
+53 at batch 1).  0 means the capture dropped them.  The key is the net, x's
+shape, strides, dtype, device and offset from a 16-byte boundary, ``impl``
+and ``fused``, the tuner's state (on or off, and ``autotune.generation()``)
+and every weight tensor the forward reads: the same tensor object over the
+same storage as when the key was taken.  A weight written in place keeps its
+key (the graph reads it where it lies); a weight replaced does not.  A
+pruned forward (``cnn.resnet50_apply`` with keep fractions) has the net's
+pruned set (``cnn.PrunedSet``) in its key in place of the weight tensors:
+the set's lookup, just before, matched every dense weight by object, storage
+and version counter, so the weights are walked once a call, and the pruned
 tensors the graph reads are the set's own copies.
 
 Each net keeps one entry (``apply.graph_entry``); a new key drops the old
@@ -50,6 +56,7 @@ the pipelined kernels' calls always must (``kernels._build``).
 """
 from __future__ import annotations
 
+import ctypes
 import operator
 import weakref
 from collections import Counter
@@ -143,20 +150,52 @@ def _static_input(x: torch.Tensor) -> torch.Tensor:
     return buf[offset:offset + x.numel()].view(x.shape)
 
 
+class _EdgeData(ctypes.Structure):
+    """libcuda's ``CUgraphEdgeData``."""
+    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+
+PROGRAMMATIC = 1               # CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC
+
+
+def programmatic_edges(raw_graph: int) -> int:
+    """The dependency edges of programmatic type in a ``cudaGraph_t``
+    (``CUDAGraph.raw_cuda_graph()``), read with libcuda's
+    ``cuGraphGetEdges_v2`` (CUDA 12.3 on)."""
+    get = ctypes.CDLL("libcuda.so.1").cuGraphGetEdges_v2
+    get.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    _libcuda_check(get(raw_graph, None, None, None, ctypes.byref(n)))
+    nodes = ctypes.c_void_p * n.value
+    frm, to, data = nodes(), nodes(), (_EdgeData * n.value)()
+    _libcuda_check(get(raw_graph, frm, to, data, ctypes.byref(n)))
+    return sum(e.type == PROGRAMMATIC for e in data[:n.value])
+
+
+def _libcuda_check(err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetEdges_v2 failed with CUresult {err}")
+
+
 class Graph:
     """A forward captured on a side stream: its static input and output,
-    and the shared scratch its kernels write."""
+    the shared scratch its kernels write, and its count of programmatic
+    edges."""
 
     def __init__(self, run, x: torch.Tensor):
         dev = x.device
         self.x = _static_input(x)
         self.x.copy_(x)
         before = (_build._partials.get(dev), _build._tickets.get(dev))
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(self.graph):
             self.y = run(self.x)
         self.scratch = (*before, _build._partials.get(dev),
                         _build._tickets.get(dev))
+        self.programmatic_edges = programmatic_edges(
+            self.graph.raw_cuda_graph())
+        self.graph.instantiate()
 
     def replay(self, x: torch.Tensor) -> torch.Tensor:
         """The forward of x: a fresh tensor, on the current stream."""
@@ -168,6 +207,7 @@ class Graph:
 def reset(apply) -> None:
     """Zero ``apply``'s counters and drop its net's graph and pruned set."""
     apply.graph_captures = 0
+    apply.graph_programmatic_edges = 0
     apply.graph_replays = 0
     apply.graph_eager = Counter()
     apply.graph_entry = None
@@ -197,5 +237,6 @@ def forward(apply, run, params: dict, x: torch.Tensor, *, impl: str,
     if entry.graph is None:
         entry.graph = Graph(run, x)
         apply.graph_captures += 1
+        apply.graph_programmatic_edges = entry.graph.programmatic_edges
     apply.graph_replays += 1
     return entry.graph.replay(x)
