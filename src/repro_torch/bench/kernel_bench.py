@@ -132,10 +132,8 @@ class Kernels:
             return self.conv.conv2d(x, w, stride=call["stride"],
                                     padding=call["padding"], tiles=tiles,
                                     **ep)
-        wrapper = (self.wrappers["mm_weight_stationary"]
-                   if tiles.stationarity == "weight_stationary"
-                   else self.wrappers["mm_act_stationary"])
-        return wrapper(x, w, stride=call["stride"], tiles=tiles, **ep)
+        return self.mm.matmul(x, w, stride=call["stride"], tiles=tiles,
+                              **ep)
 
     def plan(self, call, x, w, ep) -> dict:
         """The launch plan the wrapper makes for these operands: tile,

@@ -28,17 +28,19 @@ space):
     :func:`stale_tables`.  A table whose header names another backend or
     device is skipped.
   * **Overhead contract**: ``enabled()`` is one module-attribute read; a
-    lookup is one or two dict hits.  Dispatch sites gate on ``enabled()``
-    first, so the disabled path (the default) costs nothing.
+    lookup is one or two dict hits, made by :func:`decide` alone, once a
+    dispatch, and only with tuning enabled (off by default).
   * **Generation**: ``generation()`` counts the changes of the live cache
     (a load of the tables, :func:`put`, :func:`reset`); a forward replayed
     from a CUDA graph (``models.cnn_graph``) keys on it, so a plan that a
     change of the cache would alter is never replayed.
 
 The search itself lives in ``launch/tune.py``; this module defines keys,
-candidate generation (ranked by the planner's latency model), the cache,
-and the ``tile_util`` padding-waste metric (logical FLOPs / FLOPs of the
-padded tiles, the analogue of the paper's PUF).
+the cache, the one decision of a dispatch (:func:`decide`: route,
+stationarity and tuning entry, which the launch, both spans and the
+candidates read), candidate generation (ranked by the planner's latency
+model), and the ``tile_util`` padding-waste metric (logical FLOPs / FLOPs
+of the padded tiles, the analogue of the paper's PUF).
 
 Sources, highest precedence first:
   1. runtime entries injected via :func:`put` (tests, notebooks);
@@ -56,11 +58,11 @@ import json
 import os
 import subprocess
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
 from ..kernels import _build
-from ..kernels.conv2d import out_hw
 from .modes import Stationarity, select_stationarity
 
 WS = Stationarity.WEIGHT_STATIONARY.value
@@ -355,20 +357,96 @@ def save_user_cache(entries: dict[str, Entry]) -> str:
 
 
 # ---------------------------------------------------------------------------
+# The decision: what one dispatch runs, made once
+# ---------------------------------------------------------------------------
+CONV2D, MM_AS, MM_WS = "conv2d", "mm_act_stationary", "mm_weight_stationary"
+GEMM_ROUTES = {Stationarity.ACTIVATION_STATIONARY: MM_AS,
+               Stationarity.WEIGHT_STATIONARY: MM_WS}
+
+
+class Decision(NamedTuple):
+    """What a pipelined dispatch runs: the route (a key of
+    ``_build.ROUTES``), a GEMM's stationarity (None on the conv kernel),
+    the tuning cache's hit, the tiles the launch takes (the hit's or the
+    caller's; None: the route's planner plans) and the implicit GEMM's
+    rows, columns and reduction."""
+
+    route: str
+    stationarity: Stationarity | None
+    entry: Entry | None
+    tiles: TileConfig | None
+    rows: int
+    cols: int
+    reduction: int
+
+
+def decide(x_shape, w_shape, stride: int = 1, padding: int = 0,
+           dtype: str = "float32", epilogue: str = "none", *,
+           stationarity: Stationarity | None = None,
+           tiles: TileConfig | None = None, cache: bool = True) -> Decision:
+    """The one decision of a conv or GEMM dispatch.
+
+    An (FH, FW, C, K) filter takes the conv kernel; a (C, K) one the 1x1
+    GEMM on x (M, C), or NHWC read at ``stride``.  With ``cache`` and
+    tuning enabled the cache is read, once: a hit's tiles replace
+    ``tiles``.  A GEMM's stationarity is ``stationarity`` where given, else
+    the tiles', else the controller's rule on the rows
+    (``modes.select_stationarity``)."""
+    m, n, r = _build.pipe_dims(x_shape, w_shape, stride, padding)
+    gemm = len(w_shape) == 2
+    entry = None
+    if cache and _enabled:
+        entry = (lookup_gemm(m, r, n, dtype, epilogue) if gemm else
+                 lookup_conv2d(x_shape, w_shape, stride, padding, dtype,
+                               epilogue))
+        if entry is not None:
+            tiles = entry.config
+    if not gemm:
+        return Decision(CONV2D, None, entry, tiles, m, n, r)
+    if stationarity is None:
+        stationarity = (Stationarity(tiles.stationarity)
+                        if tiles is not None and tiles.stationarity
+                        else select_stationarity(m))
+    return Decision(GEMM_ROUTES[stationarity], stationarity, entry, tiles,
+                    m, n, r)
+
+
+def launch_plan(d: Decision, x, w, residual=None,
+                n_sms: int | None = None) -> _build.GemmPlan:
+    """The plan the launch of ``d`` takes on these operands (on x's device,
+    or a card of ``n_sms`` SMs): ``d``'s tiles, else its route's planner's;
+    the vec16 path where the operands allow it."""
+    if n_sms is None and d.tiles is None:
+        n_sms = _build.sm_count(x.device)
+    return _build.route_plan(
+        d.route, d.rows, d.cols, d.reduction, n_sms,
+        _build.vec_path(x.shape[-1], d.cols, x, w, residual), d.tiles)
+
+
+def reference_plan(d: Decision, c: int,
+                   tiles: TileConfig | None = None) -> _build.GemmPlan:
+    """``d``'s plan on an H100 (``REFERENCE_SMS``), on the vec16 path where
+    the C input channels allow it: ``tiles``', else the route's planner's.
+    ``tile_util`` describes it where nothing launched."""
+    return _build.route_plan(d.route, d.rows, d.cols, d.reduction,
+                             _build.REFERENCE_SMS, c % _build.PIPE_BK == 0,
+                             tiles)
+
+
+# ---------------------------------------------------------------------------
 # Candidates: the plans the launch takes, ranked by the latency model
 # ---------------------------------------------------------------------------
 def conv2d_shape(x_shape, w_shape, stride: int = 1,
                  padding: int = 0) -> tuple[int, int, int, bool]:
     """(M, N, reduction, vec16 path allowed by C) of the implicit GEMM."""
-    b, h, w, c = x_shape
-    fh, fw, _, k = w_shape
-    oh, ow = out_hw(h, w, fh, fw, stride, padding)
-    return b * oh * ow, k, fh * fw * c, c % _build.PIPE_BK == 0
+    return (*_build.pipe_dims(x_shape, w_shape, stride, padding),
+            x_shape[-1] % _build.PIPE_BK == 0)
 
 
-def _ranked(m: int, n: int, reduction: int, vec: bool, codes,
+def _ranked(m: int, n: int, reduction: int, vec: bool,
             n_sms: int) -> list[_build.GemmPlan]:
-    return sorted(_build.pipe_plans(reduction, vec, codes),
+    return sorted(_build.pipe_plans(reduction, vec,
+                                    range(len(_build.PIPE_TILES))),
                   key=lambda p: _build.pipe_cycles(m, n, p, n_sms))
 
 
@@ -379,9 +457,9 @@ def conv2d_candidates(x_shape, w_shape, *, stride: int = 1, padding: int = 0,
     weigh, ranked by its modelled time, the first ``max_candidates``; the
     analytic plan is always the first."""
     m, n, r, vec = conv2d_shape(x_shape, w_shape, stride, padding)
-    analytic = _build.plan_gemm(m, n, r, n_sms, vec)
+    analytic = _build.route_plan(CONV2D, m, n, r, n_sms, vec)
     out = [TileConfig(analytic.tile, analytic.splits)]
-    for p in _ranked(m, n, r, vec, range(len(_build.PIPE_TILES)), n_sms):
+    for p in _ranked(m, n, r, vec, n_sms):
         cfg = TileConfig(p.tile, p.splits)
         if cfg not in out:
             out.append(cfg)
@@ -393,22 +471,22 @@ def gemm_candidates(m: int, c: int, k: int, *,
                     max_candidates: int = 8) -> list[TileConfig]:
     """Plans of the dual-stationarity GEMM, tiles AND the dataflow.
 
-    First the analytic plan (the controller's stationarity and its
-    planner's choice), then the other stationarity's planner choice, then
-    every other (tile, splits) either planner would weigh, ranked by the
-    modelled time and labelled with the analytic stationarity where its
-    planner may take the tile; the first ``max_candidates``.
+    First the analytic plan (the untuned decision's stationarity and its
+    route's plan), then the other stationarity's, then every other (tile,
+    splits) either planner would weigh, ranked by the modelled time and
+    labelled with the analytic stationarity where its planner may take the
+    tile; the first ``max_candidates``.
     """
     vec = c % _build.PIPE_BK == 0
-    st = select_stationarity(m).value
-    plans = {WS: _build.plan_weight_stationary(m, k, c, n_sms, vec),
-             AS: _build.plan_gemm(m, k, c, n_sms, vec)}
-    other = AS if st == WS else WS
-    out = [TileConfig(plans[st].tile, plans[st].splits, st),
-           TileConfig(plans[other].tile, plans[other].splits, other)]
+    st = decide((m, c), (c, k), cache=False).stationarity
+    other = next(s for s in GEMM_ROUTES if s != st)
+    out = []
+    for s in (st, other):
+        p = _build.route_plan(GEMM_ROUTES[s], m, k, c, n_sms, vec)
+        out.append(TileConfig(p.tile, p.splits, s.value))
     ws = _build.ws_codes(m)
-    for p in _ranked(m, k, c, vec, range(len(_build.PIPE_TILES)), n_sms):
-        label = st if (st == AS or p.tile in ws) else AS
+    for p in _ranked(m, k, c, vec, n_sms):
+        label = st.value if (st.value == AS or p.tile in ws) else AS
         if all((q.tile, q.splits) != (p.tile, p.splits) for q in out):
             out.append(TileConfig(p.tile, p.splits, label))
     return out[:max_candidates]
@@ -417,7 +495,9 @@ def gemm_candidates(m: int, c: int, k: int, *,
 # ---------------------------------------------------------------------------
 # tile_util — padding waste, the analogue of the paper's PUF
 # ---------------------------------------------------------------------------
-def _tile_util(m: int, n: int, r: int, plan: _build.GemmPlan) -> float:
+def tile_util(d: Decision, plan: _build.GemmPlan) -> float:
+    """Logical FLOPs / FLOPs of the padded tiles ``plan`` runs for ``d``."""
+    m, n, r = d.rows, d.cols, d.reduction
     if m * n * r == 0:
         return 1.0
     up = lambda v, t: -(-v // t) * t
@@ -427,30 +507,18 @@ def _tile_util(m: int, n: int, r: int, plan: _build.GemmPlan) -> float:
 
 def tile_util_conv2d(x_shape, w_shape, stride: int = 1, padding: int = 0,
                      tiles: TileConfig | None = None) -> float:
-    """Logical FLOPs / FLOPs of the padded tiles the conv kernel runs (on
-    an H100, the vec16 path where C allows it): the tuned tile, or the
-    analytic plan's."""
-    m, n, r, vec = conv2d_shape(x_shape, w_shape, stride, padding)
-    if m * n * r == 0:
-        return 1.0
-    plan = (_build.fixed_plan(tiles.tile, tiles.splits, r, vec)
-            if tiles is not None
-            else _build.plan_gemm(m, n, r, _build.REFERENCE_SMS, vec))
-    return _tile_util(m, n, r, plan)
+    """``tile_util`` of the conv kernel's plan on an H100 (the vec16 path
+    where C allows it): the tuned tile, or the analytic plan's."""
+    d = decide(x_shape, w_shape, stride, padding, tiles=tiles, cache=False)
+    return tile_util(d, reference_plan(d, x_shape[-1], tiles))
 
 
 def tile_util_gemm(m: int, c: int, k: int,
                    tiles: TileConfig | None = None,
                    stationarity: str | None = None) -> float:
-    """Logical FLOPs / FLOPs of the padded tiles of the GEMM under either
-    stationarity: the tuned tile, or the stationarity's analytic plan."""
-    if m * c * k == 0:
-        return 1.0
-    vec = c % _build.PIPE_BK == 0
-    if tiles is not None:
-        plan = _build.fixed_plan(tiles.tile, tiles.splits, c, vec)
-    else:
-        planner = (_build.plan_weight_stationary if stationarity == WS
-                   else _build.plan_gemm)
-        plan = planner(m, k, c, _build.REFERENCE_SMS, vec)
-    return _tile_util(m, k, c, plan)
+    """``tile_util`` of the GEMM's plan on an H100 under ``stationarity``
+    (else the decision's): the tuned tile, or the route's analytic plan."""
+    d = decide((m, c), (c, k), tiles=tiles, cache=False,
+               stationarity=Stationarity(stationarity) if stationarity
+               else None)
+    return tile_util(d, reference_plan(d, c, tiles))

@@ -23,7 +23,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -383,6 +383,64 @@ def vec_path(c: int, k: int, x, w, residual) -> bool:
     return (c % PIPE_BK == 0 and k * x.element_size() % 16 == 0
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
             and (residual is None or residual.data_ptr() % 16 == 0))
+
+
+class Route(NamedTuple):
+    lib: str       # the library of csrc/ that holds the entry point
+    entry: str     # its C entry point
+    planner: Callable[[int, int, int, int, bool], GemmPlan]
+
+
+# The pipelined launches by route (the ``route`` of their kernels.launch
+# spans): where each one's code is and which planner plans it.
+ROUTES = {
+    "conv2d": Route("conv2d", "carla_conv2d", plan_gemm),
+    "mm_act_stationary": Route("matmul", "carla_mm_act_stationary",
+                               plan_gemm),
+    "mm_weight_stationary": Route("matmul", "carla_mm_weight_stationary",
+                                  plan_weight_stationary),
+}
+
+
+def route_plan(route: str, m: int, n: int, reduction: int, n_sms: int,
+               vec: bool, tiles=None) -> GemmPlan:
+    """The plan of a launch on ``route``: the tile and split count of the
+    tuned ``tiles`` (a ``core.autotune.TileConfig``), checked as the C side
+    checks them, else the route's planner's."""
+    if tiles is not None:
+        return fixed_plan(tiles.tile, tiles.splits, reduction, vec)
+    return ROUTES[route].planner(m, n, reduction, n_sms, vec)
+
+
+def out_hw(h: int, w: int, fh: int, fw: int, stride: int,
+           padding: int) -> tuple[int, int]:
+    return ((h - fh + 2 * padding) // stride + 1,
+            (w - fw + 2 * padding) // stride + 1)
+
+
+def gemm_view(x_shape, stride: int = 1):
+    """(M, C, H, W, OH, OW, output's leading shape or None) of the GEMM
+    view of x: an (M, C) matrix, or NHWC pixels read at ``stride``."""
+    if len(x_shape) == 2:
+        if stride != 1:
+            raise ValueError("a stride needs an NHWC (B, H, W, C) input")
+        m, c = x_shape
+        return m, c, 1, 1, 1, 1, None
+    b, h, wd, c = x_shape
+    oh, ow = -(-h // stride), -(-wd // stride)
+    return b * oh * ow, c, h, wd, oh, ow, (b, oh, ow)
+
+
+def pipe_dims(x_shape, w_shape, stride: int = 1,
+              padding: int = 0) -> tuple[int, int, int]:
+    """(M, N, reduction) of a pipelined launch: the conv kernel's implicit
+    GEMM for an (FH, FW, C, K) filter, the 1x1 GEMM's for a (C, K) one."""
+    if len(w_shape) == 2:
+        return gemm_view(x_shape, stride)[0], w_shape[1], w_shape[0]
+    b, h, wd, c = x_shape
+    fh, fw, _, k = w_shape
+    oh, ow = out_hw(h, wd, fh, fw, stride, padding)
+    return b * oh * ow, k, fh * fw * c
 
 
 # Per device, scratch of the kernels that combine splits in the launch

@@ -15,11 +15,11 @@ reconfiguration:
 Both run the pipelined loop of ``csrc/gemm_pipe.cuh`` as a 1x1 conv, one
 launch a call: splits of C are combined in the same launch.
 
-``matmul`` picks the variant via ``core.modes.select_stationarity`` — the
-software twin of CARLA's controller — unless given a stationarity.  Every
-launch takes the planner's plan, or the tile and split count of a tuned
-entry (``tiles``, a ``core.autotune.TileConfig``): that plan is checked as
-the C side checks it and raises if the launch cannot take it.
+``matmul`` takes the route of ``core.autotune.decide`` (a given
+stationarity, else the tuned ``tiles``', else the rule on the rows); each
+wrapper names its own.  The launch takes the route's planner's plan or the
+tile and split count of ``tiles``, checked as the C side checks it: a plan
+the launch cannot take raises.  ``launch`` runs a plan made beforehand.
 
 ``x`` is either a plain ``(M, C)`` matrix or an NHWC ``(B, H, W, C)`` tensor
 read at ``stride``: then row m is pixel ``(b, oh*stride, ow*stride)`` and the
@@ -39,7 +39,8 @@ import ctypes
 
 import torch
 
-from ..core.modes import Stationarity, select_stationarity
+from ..core import autotune
+from ..core.modes import Stationarity
 from . import _build
 from .ref import conv1x1_ref, matmul_ref
 
@@ -47,18 +48,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_I] + [_P] * 8 + [_I] * 13 + [_P]
 _SIGNATURES = {"carla_mm_act_stationary": _ARGS,
                "carla_mm_weight_stationary": _ARGS}
-
-
-def _rows(x: torch.Tensor, stride: int):
-    """(M, C, H, W, OH, OW, output shape) of the GEMM view of x."""
-    if x.ndim == 2:
-        if stride != 1:
-            raise ValueError("a stride needs an NHWC (B, H, W, C) input")
-        m, c = x.shape
-        return m, c, 1, 1, 1, 1, None
-    b, h, wd, c = x.shape
-    oh, ow = -(-h // stride), -(-wd // stride)
-    return b * oh * ow, c, h, wd, oh, ow, (b, oh, ow)
 
 
 def matmul_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -74,26 +63,10 @@ def matmul_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     return y.to(x.dtype)
 
 
-def _check(fn: str, x, w, stride, scale, bias, residual):
-    """(M, C, K, H, W, OH, OW, code, scale, bias, empty output) of a launch."""
-    m, c, h, wd, oh, ow, lead = _rows(x, stride)
-    c2, k = w.shape
-    if c != c2:
-        raise ValueError(f"{fn}: x has {c} channels, w expects {c2}")
-    out_shape = (m, k) if lead is None else (*lead, k)
-    code, sc, bi = _build.launch_operands(fn, x, w, out_shape, scale, bias,
-                                          residual)
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    return m, c, k, h, wd, oh, ow, code, sc, bi, out
-
-
-def _plan(planner, x, w, stride, residual, n_sms, tiles) -> _build.GemmPlan:
-    m, c = _rows(x, stride)[:2]
-    k = w.shape[1]
-    vec = _build.vec_path(c, k, x, w, residual)
-    if tiles is not None:
-        return _build.fixed_plan(tiles.tile, tiles.splits, c, vec)
-    return planner(m, k, c, n_sms or _build.sm_count(x.device), vec)
+def _plan(st: Stationarity, x, w, stride, residual, n_sms, tiles):
+    d = autotune.decide(x.shape, w.shape, stride, stationarity=st,
+                        tiles=tiles, cache=False)
+    return autotune.launch_plan(d, x, w, residual, n_sms)
 
 
 def act_plan(x, w, *, stride: int = 1, residual=None,
@@ -101,7 +74,8 @@ def act_plan(x, w, *, stride: int = 1, residual=None,
     """Tile, split and gather path of the act-stationary launch for these
     operands (on x's device, or on a card of ``n_sms`` SMs; or the tuned
     ``tiles``)."""
-    return _plan(_build.plan_gemm, x, w, stride, residual, n_sms, tiles)
+    return _plan(Stationarity.ACTIVATION_STATIONARY, x, w, stride, residual,
+                 n_sms, tiles)
 
 
 def ws_plan(x, w, *, stride: int = 1, residual=None,
@@ -109,28 +83,35 @@ def ws_plan(x, w, *, stride: int = 1, residual=None,
     """Tile, split and gather path of the weight-stationary launch for these
     operands (on x's device, or on a card of ``n_sms`` SMs; or the tuned
     ``tiles``)."""
-    return _plan(_build.plan_weight_stationary, x, w, stride, residual,
+    return _plan(Stationarity.WEIGHT_STATIONARY, x, w, stride, residual,
                  n_sms, tiles)
 
 
-def _launch(wrapper, entry: str, planner, x, w, stride, scale, bias, relu,
-            residual, tiles) -> torch.Tensor:
-    """Check the operands, plan with ``planner`` (or take ``tiles``),
-    launch ``entry`` and count the launch on ``wrapper``."""
+def launch(route: str, x, w, plan: _build.GemmPlan, *, stride: int = 1,
+           scale=None, bias=None, relu: bool = False,
+           residual=None) -> torch.Tensor:
+    """Check the operands, launch ``route``'s entry point under ``plan``
+    and count the launch on the route's wrapper."""
+    wrapper = _WRAPPERS[route]
     fn = wrapper.__name__
-    m, c, k, h, wd, oh, ow, code, sc, bi, out = _check(
-        fn, x, w, stride, scale, bias, residual)
-    plan = _plan(planner, x, w, stride, residual, None, tiles)
+    m, c, h, wd, oh, ow, lead = _build.gemm_view(x.shape, stride)
+    c2, k = w.shape
+    if c != c2:
+        raise ValueError(f"{fn}: x has {c} channels, w expects {c2}")
+    out_shape = (m, k) if lead is None else (*lead, k)
+    code, sc, bi = _build.launch_operands(fn, x, w, out_shape, scale, bias,
+                                          residual)
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     ws, tickets = _build.pipe_workspace(x, plan, m, k)
-    lib = _build.load("matmul", _SIGNATURES)
+    r = _build.ROUTES[route]
+    lib = _build.load(r.lib, _SIGNATURES)
     with torch.cuda.device(x.device):
-        _build.launch(getattr(lib, entry), (
+        _build.launch(getattr(lib, r.entry), (
             code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
             _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
             _build.ptr(tickets), m, c, k, h, wd, stride, oh, ow, plan.tile,
             int(plan.vec), plan.splits, plan.per, int(relu),
-            torch.cuda.current_stream().cuda_stream), fn,
-            entry.removeprefix("carla_"))
+            torch.cuda.current_stream().cuda_stream), fn, route)
     wrapper.launches += 1
     return out
 
@@ -144,12 +125,9 @@ def matmul_act_stationary(x: torch.Tensor, w: torch.Tensor, *,
                           tiles=None) -> torch.Tensor:
     """(M, C) @ (C, K) with the fused flush; pipelined tiles, C looped
     inside each block."""
-    if x.device.type == "cpu":
-        return matmul_plain(x, w, stride=stride, scale=scale, bias=bias,
-                            relu=relu, residual=residual)
-    return _launch(matmul_act_stationary, "carla_mm_act_stationary",
-                   _build.plan_gemm, x, w, stride, scale, bias, relu,
-                   residual, tiles)
+    return matmul(x, w, stride=stride, scale=scale, bias=bias, relu=relu,
+                  residual=residual, tiles=tiles,
+                  stationarity=Stationarity.ACTIVATION_STATIONARY)
 
 
 def matmul_weight_stationary(x: torch.Tensor, w: torch.Tensor, *,
@@ -160,32 +138,32 @@ def matmul_weight_stationary(x: torch.Tensor, w: torch.Tensor, *,
                              residual: torch.Tensor | None = None,
                              tiles=None) -> torch.Tensor:
     """(M, C) @ (C, K) for small M: every weight element is read once."""
-    if x.device.type == "cpu":
-        return matmul_plain(x, w, stride=stride, scale=scale, bias=bias,
-                            relu=relu, residual=residual)
-    return _launch(matmul_weight_stationary, "carla_mm_weight_stationary",
-                   _build.plan_weight_stationary, x, w, stride, scale, bias,
-                   relu, residual, tiles)
+    return matmul(x, w, stride=stride, scale=scale, bias=bias, relu=relu,
+                  residual=residual, tiles=tiles,
+                  stationarity=Stationarity.WEIGHT_STATIONARY)
 
 
 matmul_act_stationary.launches = 0
 matmul_weight_stationary.launches = 0
+_WRAPPERS = {autotune.MM_AS: matmul_act_stationary,
+             autotune.MM_WS: matmul_weight_stationary}
 
 
 def gemm_rows(x: torch.Tensor, stride: int = 1) -> int:
     """M of the GEMM view: the rows of x, or its pixels read at stride."""
-    return _rows(x, stride)[0]
+    return _build.gemm_view(x.shape, stride)[0]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
            stationarity: Stationarity | None = None, tiles=None,
            **epilogue) -> torch.Tensor:
-    """CARLA-style reconfigurable GEMM: pick residency from the M extent
-    (unless given), launch with the planner's plan or the tuned ``tiles``."""
-    if stationarity is None:
-        stationarity = select_stationarity(gemm_rows(x, stride))
-    if stationarity == Stationarity.WEIGHT_STATIONARY:
-        return matmul_weight_stationary(x, w, stride=stride, tiles=tiles,
-                                        **epilogue)
-    return matmul_act_stationary(x, w, stride=stride, tiles=tiles,
-                                 **epilogue)
+    """CARLA-style reconfigurable GEMM on the route of ``autotune.decide``
+    (``stationarity``, else the tuned ``tiles``', else the rows'), under
+    its planner's plan or ``tiles``."""
+    if x.device.type == "cpu":
+        return matmul_plain(x, w, stride=stride, **epilogue)
+    d = autotune.decide(x.shape, w.shape, stride, stationarity=stationarity,
+                        tiles=tiles, cache=False)
+    return launch(d.route, x, w,
+                  autotune.launch_plan(d, x, w, epilogue.get("residual")),
+                  stride=stride, **epilogue)

@@ -7,14 +7,15 @@
   * ``"auto"`` — ``cuda`` for CUDA tensors, ``ref`` for CPU tensors.
 The engine that actually ran is recorded as the ``impl`` span attribute.
 
-Mode selection (which stationarity a GEMM uses) is orthogonal to ``impl``
-and follows ``core.modes`` — the software twin of CARLA's controller —
-unless the empirical tuning cache (``core.autotune``) holds a measured
-winner for the layer's shape key, in which case the cached tile, splits
-*and* stationarity are used instead.  The lookup is gated on
-``autotune.enabled()`` (one attribute read, so the disabled path costs
-nothing), is made only on the ``cuda`` engine (the plain versions have no
-plan), and is an O(1) dict hit.
+What a conv or GEMM runs is decided once, by ``core.autotune.decide``:
+the route, a GEMM's stationarity (an explicit one, then the tuning cache's
+measured choice, then ``core.modes``' rule on the rows) and the tuning
+entry, read once a dispatch when tuning is enabled.  ``carla_conv``
+decides in its ``carla.plan`` span and hands the decision to
+``_dispatch``; the entry points here decide themselves.  On the ``cuda``
+engine ``autotune.launch_plan`` makes the launch's plan, which the launch
+and both spans read; the plain versions have no plan, so on the ``ref``
+engine no tuned tile applies.
 
 ``conv1d_causal`` is Mamba2's short depthwise conv (no epilogue, no tiling
 ledger: its span carries the same attributes as ``repro``'s).  The attention
@@ -29,24 +30,25 @@ Every entry point is telemetry-instrumented: when the global tracer is
 enabled (``observability.trace``), the dispatch records a span timing the
 host from the call to its return (nothing waits for the device; the
 device's time is the device trace's), and, once the span has closed, its
-operand shapes, FLOPs, the bytes the operands and result touch, the fused
-epilogue and the HBM bytes it saved, the tuning ledger — ``tuned`` (did the
-cache hit), ``tile_config`` and ``tuning_source`` (what ran and why) — and
-``tile_util`` (logical FLOPs / FLOPs of the padded tiles the kernel runs).
-On the ``cuda`` engine the kernel's wrapper adds a ``kernels.launch`` child
-around the foreign call, so the span's self time is the preparation:
-resolving the engine, the tuning lookup, operand checks, the tile plan,
-workspace, output allocation and the device context.  When tracing is
-disabled (the default) the only cost is one attribute read per call.
+operand shapes, FLOPs and ``plan_attrs``: the bytes the operands and
+result touch, the fused epilogue and the HBM bytes it saved, the tuning
+ledger — ``tuned`` (did a tuned plan run), ``tile_config`` and
+``tuning_source`` — and ``tile_util`` (logical FLOPs / FLOPs of the padded
+tiles of the plan that launched).  On the ``cuda`` engine the kernel's
+wrapper adds a ``kernels.launch`` child around the foreign call, so the
+span's self time is the preparation: resolving the engine, the launch
+plan, operand checks, workspace, output allocation and the device context
+(and, on a direct call, the decision).  When tracing is disabled (the
+default) the only cost is one attribute read per call.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core import autotune
-from ..core.autotune import TileConfig
+from ..core.autotune import Decision
 from ..core.fuse import Epilogue
-from ..core.modes import Stationarity, select_stationarity
+from ..core.modes import Stationarity
 from ..observability import trace
 from . import conv1d as _conv1d_mod
 from . import conv2d as _conv2d_mod
@@ -76,131 +78,85 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def _epilogue_attrs(sp, ep: Epilogue, out: torch.Tensor) -> None:
-    """Record the fused-epilogue ledger on a kernel/dispatch span."""
-    sp.attrs["epilogue"] = ep.tag
-    if ep.n_fused_ops:
-        # Each fused element-wise pass would have read+written the full
-        # output feature map through HBM; the fused flush does neither.
-        sp.attrs["epilogue_hbm_saved"] = 2 * ep.n_fused_ops * _nbytes(out)
-
-
-def _lookup(kind: str, key_args, impl: str):
-    """Tuning-cache probe: O(1) dict hit, only on the cuda engine."""
-    if not autotune.enabled() or impl != "cuda":
-        return None
-    if kind == "conv2d":
-        return autotune.lookup_conv2d(*key_args)
-    return autotune.lookup_gemm(*key_args)
-
-
-def _tuning_attrs(sp, entry, tiles: TileConfig | None) -> None:
-    """Record what the tuning cache contributed to this dispatch."""
-    sp.attrs["tuned"] = entry is not None
-    sp.attrs["tile_config"] = tiles.short if tiles is not None else "default"
-    sp.attrs["tuning_source"] = entry.source if entry is not None else "default"
-
-
-def _conv2d(x, w, ep: Epilogue, stride, padding, impl, tiles):
-    kw = dict(stride=stride, padding=padding, scale=ep.scale, bias=ep.bias,
-              relu=ep.relu, residual=ep.residual)
-    if impl == "cuda":
-        return _conv2d_mod.conv2d(x, w, tiles=tiles, **kw)
-    return _conv2d_mod.conv2d_plain(x, w, **kw)
-
-
-def _conv2d_call(x, w, ep: Epilogue, stride, padding, impl):
-    """(output, engine, tuning entry, tiles) of one conv2d dispatch."""
-    impl = resolve(impl, x)
-    entry = _lookup("conv2d", (x.shape, w.shape, stride, padding,
-                               dtype_name(x), ep.tag), impl)
+def plan_attrs(d: Decision, x, w, out, ep: Epilogue, plan, entry,
+               untuned: str = "default") -> dict:
+    """The plan's attributes of a dispatch's span, the kernel span's and
+    ``carla_conv``'s: the bytes the operands and result touch (a strided
+    1x1 reads only its rows of x), the fused epilogue and the HBM bytes it
+    saved (each fused element-wise pass would have read and written the
+    output), the tuning ledger (``entry`` hit, else ``untuned``) and
+    ``tile_util`` of ``plan``, the launch's, or where nothing launched
+    ``autotune.reference_plan`` under ``entry``'s tiles."""
     tiles = entry.config if entry is not None else None
-    return _conv2d(x, w, ep, stride, padding, impl, tiles), impl, entry, tiles
+    x_elems = x.numel() if d.stationarity is None else d.rows * d.reduction
+    attrs = dict(
+        bytes_touched=(x_elems * x.element_size()
+                       + _nbytes(w, out, ep.scale, ep.bias, ep.residual)),
+        epilogue=ep.tag, tuned=entry is not None,
+        tile_config=tiles.short if tiles is not None else "default",
+        tuning_source=entry.source if entry is not None else untuned,
+        tile_util=autotune.tile_util(
+            d, plan or autotune.reference_plan(d, x.shape[-1], tiles)))
+    if ep.n_fused_ops:
+        attrs["epilogue_hbm_saved"] = 2 * ep.n_fused_ops * _nbytes(out)
+    return attrs
+
+
+def _run(d: Decision, x, w, ep: Epilogue, stride, padding, impl):
+    """(output, the plan that launched or None) of decision ``d``."""
+    kw = dict(scale=ep.scale, bias=ep.bias, relu=ep.relu, residual=ep.residual)
+    conv = d.route == autotune.CONV2D
+    if impl != "cuda":
+        if conv:
+            return _conv2d_mod.conv2d_plain(x, w, stride=stride,
+                                            padding=padding, **kw), None
+        return _mm.matmul_plain(x, w, stride=stride, **kw), None
+    plan = autotune.launch_plan(d, x, w, ep.residual)
+    if conv:
+        return _conv2d_mod.launch(x, w, plan, stride=stride, padding=padding,
+                                  **kw), plan
+    return _mm.launch(d.route, x, w, plan, stride=stride, **kw), plan
+
+
+def _dispatch(name: str, d: Decision, x, w, ep: Epilogue, impl: str,
+              stride: int = 1, padding: int = 0, geometry: dict | None = None):
+    """(output, launched plan or None) of decision ``d`` on the engine
+    ``impl`` resolves to, with a ``name`` span (``geometry`` among its
+    attributes) when tracing.  ``carla_conv`` hands its decision in
+    here."""
+    impl = resolve(impl, x)
+    if not trace.enabled():
+        return _run(d, x, w, ep, stride, padding, impl)
+    with trace.span(name) as sp:
+        out, plan = _run(d, x, w, ep, stride, padding, impl)
+    sp.attrs.update(
+        impl=impl, x_shape=list(x.shape), w_shape=list(w.shape),
+        dtype=dtype_name(x), flops=2 * d.rows * d.cols * d.reduction,
+        **(geometry or {}),
+        **plan_attrs(d, x, w, out, ep, plan,
+                     d.entry if impl == "cuda" else None))
+    if d.stationarity is not None:
+        sp.attrs["stationarity"] = d.stationarity.value
+    return out, plan
 
 
 def conv2d(x, w, *, stride: int = 1, padding: int = 0, impl: str = "auto",
            epilogue: Epilogue | None = None):
     """General NHWC conv; CARLA 3x3/7x7 serial-accumulation dataflow."""
     ep = epilogue or _NO_EPILOGUE
-    if not trace.enabled():
-        return _conv2d_call(x, w, ep, stride, padding, impl)[0]
-    with trace.span("kernels.conv2d") as sp:
-        out, impl, entry, tiles = _conv2d_call(x, w, ep, stride, padding,
-                                               impl)
-    fh, fw, _, k = w.shape
-    b, oh, ow, _ = out.shape
-    sp.attrs.update(
-        impl=impl, x_shape=list(x.shape), w_shape=list(w.shape),
-        stride=stride, padding=padding, dtype=dtype_name(x),
-        flops=2 * b * oh * ow * k * fh * fw * x.shape[-1],
-        bytes_touched=_nbytes(x, w, out, ep.scale, ep.bias, ep.residual),
-        tile_util=autotune.tile_util_conv2d(x.shape, w.shape, stride,
-                                            padding, tiles))
-    _tuning_attrs(sp, entry, tiles)
-    _epilogue_attrs(sp, ep, out)
-    return out
-
-
-def _gemm(x, w, ep: Epilogue, stride, st: Stationarity, impl, tiles):
-    """x: (M, C), or NHWC read at stride (a 1x1 conv)."""
-    kw = dict(scale=ep.scale, bias=ep.bias, relu=ep.relu, residual=ep.residual)
-    if impl == "cuda":
-        return _mm.matmul(x, w, stride=stride, stationarity=st, tiles=tiles,
-                          **kw)
-    return _mm.matmul_plain(x, w, stride=stride, **kw)
-
-
-def _gemm_stationarity(rows: int, tiles: TileConfig | None,
-                       stationarity: Stationarity | None = None
-                       ) -> Stationarity:
-    """The dataflow of a GEMM: an explicit ``stationarity``, then the
-    tuning cache's measured choice, then the controller's rule."""
-    if stationarity is not None:
-        return stationarity
-    if tiles is not None and tiles.stationarity:
-        return Stationarity(tiles.stationarity)
-    return select_stationarity(rows)
-
-
-def _gemm_call(x, w, ep: Epilogue, stride, impl, rows,
-               stationarity: Stationarity | None = None):
-    """(output, engine, tuning entry, tiles, stationarity) of one GEMM
-    dispatch of ``rows`` rows (x read at ``stride``)."""
-    impl = resolve(impl, x)
-    entry = _lookup("gemm", (rows, x.shape[-1], w.shape[-1], dtype_name(x),
-                             ep.tag), impl)
-    tiles = entry.config if entry is not None else None
-    st = _gemm_stationarity(rows, tiles, stationarity)
-    return _gemm(x, w, ep, stride, st, impl, tiles), impl, entry, tiles, st
-
-
-def _gemm_attrs(sp, x, w, out, ep: Epilogue, rows: int, impl, entry, tiles,
-                st: Stationarity) -> None:
-    c, k = x.shape[-1], w.shape[-1]
-    # A strided 1x1 reads only the subsampled view of the input — count
-    # those rows, not the full fmap.
-    sp.attrs.update(
-        impl=impl, x_shape=list(x.shape), w_shape=list(w.shape),
-        stationarity=st.value, dtype=dtype_name(x), flops=2 * rows * c * k,
-        bytes_touched=(rows * c * x.element_size()
-                       + _nbytes(w, out, ep.scale, ep.bias, ep.residual)),
-        tile_util=autotune.tile_util_gemm(rows, c, k, tiles, st.value))
-    _tuning_attrs(sp, entry, tiles)
-    _epilogue_attrs(sp, ep, out)
+    d = autotune.decide(x.shape, w.shape, stride, padding, dtype_name(x),
+                        ep.tag)
+    return _dispatch("kernels.conv2d", d, x, w, ep, impl, stride, padding,
+                     {"stride": stride, "padding": padding})[0]
 
 
 def conv1x1(x, w, *, stride: int = 1, impl: str = "auto",
             epilogue: Epilogue | None = None):
     """Pointwise conv via the dual-stationarity GEMM (paper §III.B/C)."""
     ep = epilogue or _NO_EPILOGUE
-    rows = _mm.gemm_rows(x, stride)      # x[:, ::s, ::s] row count
-    if not trace.enabled():
-        return _gemm_call(x, w, ep, stride, impl, rows)[0]
-    with trace.span("kernels.conv1x1") as sp:
-        out, *plan = _gemm_call(x, w, ep, stride, impl, rows)
-    sp.attrs["stride"] = stride
-    _gemm_attrs(sp, x, w, out, ep, rows, *plan)
-    return out
+    d = autotune.decide(x.shape, w.shape, stride, 0, dtype_name(x), ep.tag)
+    return _dispatch("kernels.conv1x1", d, x, w, ep, impl, stride, 0,
+                     {"stride": stride})[0]
 
 
 def gemm(x, w, *, impl: str = "auto",
@@ -208,12 +164,9 @@ def gemm(x, w, *, impl: str = "auto",
          epilogue: Epilogue | None = None):
     """(M, C) @ (C, K) with CARLA stationarity planning."""
     ep = epilogue or _NO_EPILOGUE
-    if not trace.enabled():
-        return _gemm_call(x, w, ep, 1, impl, x.shape[0], stationarity)[0]
-    with trace.span("kernels.gemm") as sp:
-        out, *plan = _gemm_call(x, w, ep, 1, impl, x.shape[0], stationarity)
-    _gemm_attrs(sp, x, w, out, ep, x.shape[0], *plan)
-    return out
+    d = autotune.decide(x.shape, w.shape, 1, 0, dtype_name(x), ep.tag,
+                        stationarity=stationarity)
+    return _dispatch("kernels.gemm", d, x, w, ep, impl)[0]
 
 
 def _conv1d(x, w, impl):

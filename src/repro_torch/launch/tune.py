@@ -129,9 +129,8 @@ def _operands(layer, gen, batch: int = 1):
     rn = lambda *s: torch.randn(s, device="cuda", generator=gen)
     if layer.FL == 1:
         x, w = rn(gemm_rows(layer, batch), layer.IC), rn(layer.IC, layer.K)
-        wrappers = {autotune.WS: _mm.matmul_weight_stationary,
-                    autotune.AS: _mm.matmul_act_stationary}
-        return ((lambda cfg: wrappers[cfg.stationarity](x, w, tiles=cfg)),
+        # the dispatch's decision: the candidate's stationarity's route
+        return ((lambda cfg: _mm.matmul(x, w, tiles=cfg)),
                 _mm.matmul_plain(x, w), layer.IC)
     x = rn(batch, layer.IL, layer.IL, layer.IC)
     w = rn(layer.FL, layer.FL, layer.IC, layer.K)

@@ -18,15 +18,18 @@ request's identifier: every span of a forward has it as ancestor)::
     cnn.forward                      models/cnn.py: resnet50_apply, vgg16_apply
       cnn.pool, cnn.head             the PyTorch ops the model runs itself
       carla_conv                     core/carla.py
-        carla.plan                   controller, cost model, tuning lookup
+        carla.plan                   the decision: route, stationarity,
+                                     the tuning lookup (core/autotune.py)
         kernels.conv2d | kernels.conv1x1 | kernels.gemm   (kernels/ops.py)
           kernels.load               _build.load, a library's first use
                                      (also kept in _build.loads untraced)
           kernels.launch             the foreign call and its error check
 
 A ``kernels.*`` span's self time (its duration less its children's) is the
-wrapper's preparation: operand checks, the tile plan, workspace, output
-allocation and the device context.
+preparation: the launch plan of the decision ``carla.plan`` made, operand
+checks, workspace, output allocation and the device context.  The paper's
+controller choice and analytic cost are worked out after ``carla_conv``
+closes, for its attributes.
 
 Design constraints:
 

@@ -32,7 +32,7 @@ from repro_torch.core.autotune import (
     gemm_key,
 )
 from repro_torch.core.fuse import Epilogue
-from repro_torch.core.modes import Dataflow
+from repro_torch.core.modes import Dataflow, Stationarity
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import conv2d as t_conv
 from repro_torch.kernels import matmul as t_mm
@@ -400,17 +400,32 @@ def test_tuned_conv2d_span(iso):
 
 
 def test_kernel_dispatch_looks_up_on_the_cuda_engine_only(iso, monkeypatch):
+    """The decision reads the cache on any engine; only the cuda engine's
+    launch takes the tuned plan: on the ref engine the kernel span reports
+    no tuning (no plan ran), under the decided stationarity."""
     autotune.enable()
     autotune.put(gemm_key(49, 64, 32, "float32"), TileConfig(1, 1, AS))
     x, w = _nhwc(6, 49, 64), _nhwc(7, 64, 32)
-    assert ops._lookup("gemm", (49, 64, 32, "float32", "none"),
-                       "ref") is None
-    hit = ops._lookup("gemm", (49, 64, 32, "float32", "relu"), "cuda")
-    assert hit.config == TileConfig(1, 1, AS)
-    # the tuned stationarity decides which wrapper the cuda engine calls
-    assert ops._gemm_stationarity(49, hit.config).value == AS
-    assert ops._gemm_stationarity(49, None).value == WS
-    assert torch.equal(ops.gemm(x, w), t_mm.matmul_plain(x, w))
+    assert autotune.decide(x.shape, w.shape, cache=False).entry is None
+    d = autotune.decide(x.shape, w.shape, epilogue="relu")
+    assert d.entry.config == d.tiles == TileConfig(1, 1, AS)
+    # the tuned stationarity decides which route the cuda engine takes;
+    # an explicit one outranks it, the rule (49 rows < 128) comes last
+    assert (d.route, d.stationarity.value) == (autotune.MM_AS, AS)
+    assert autotune.decide(x.shape, w.shape, cache=False).route == \
+        autotune.MM_WS
+    assert autotune.decide(
+        x.shape, w.shape, stationarity=Stationarity(WS)).route == \
+        autotune.MM_WS
+    assert autotune.launch_plan(d, x, w, n_sms=132) == \
+        _build.fixed_plan(1, 1, 64, True)
+    with trace.capture() as tr:
+        out = ops.gemm(x, w)
+    assert torch.equal(out, t_mm.matmul_plain(x, w))
+    a = tr.spans[0].attrs
+    assert (a["impl"], a["tuned"], a["tile_config"]) == ("ref", False,
+                                                         "default")
+    assert a["stationarity"] == AS
 
 
 # ------------------------------- the tuner ------------------------------------
