@@ -73,8 +73,8 @@ printing one JSON line:
              with csrc/conv2d.cu and csrc/matmul.cu in a temporary
              directory, in parallel with phase 2); the fp32 conv2d and
              weight-stationary checks at the main-path shapes, at the same
-             tolerance, must fail on every one, and the dropped split on a
-             weight-stationary case.
+             tolerance, must fail on every one, and a dropped split (the
+             L2's or a cluster's) on a weight-stationary case.
    flash_bf16_faults — the bf16 flash kernel shares no code with the fp32
              one that the zamba2 wiring check runs, so faults are planted
              in its source (``FLASH_BF16_FAULTS``: text edits of
@@ -534,6 +534,8 @@ CNN_FAULTS = {
     # the last block of a tile sums every split but the last
     "combine_drops_last_split": ("const int n_split = gridDim.z;",
                                  "const int n_split = gridDim.z - 1;"),
+    # in a cluster, each rank adds every peer's sums but the last one's
+    "cluster_drops_last_peer": ("if (z < cs) {", "if (z < cs - 1) {"),
     # general path: the index table sends the last input channel to a tap
     # outside the image, so it reads zeros instead of its value
     "table_drops_last_channel": ("(rr << 16) | tt);",
@@ -891,7 +893,10 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
     (``models.cnn_graph``); the next two capture and replay the net's CUDA
     graph, dense or pruned, and must give the counted call's bits.  The
     captured graph must hold programmatic edges (the convs chained by
-    programmatic dependent launch); their count is reported.  A
+    programmatic dependent launch); their count is reported, and beside it
+    the count of kernels launched in thread block clusters (split convs
+    whose partial sums meet in distributed shared memory), which must not
+    be 0 for ResNet-50.  A
     pruned forward prunes on its first call only.  The timed calls and the
     profile replay."""
     from repro_torch.models import cnn_graph
@@ -909,6 +914,7 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
              "eager": dict(apply.graph_eager)}
     want_graph = {"captures": 1, "replays": 2, "eager": {"new_key": 1}}
     edges = apply.graph_programmatic_edges
+    clustered = apply.graph_cluster_kernels
     ref = apply(params, x, impl="ref", **kw)
     torch.cuda.synchronize()
     err = (logits - ref).abs().max().item()
@@ -926,6 +932,7 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
            "max_abs_err_vs_ref": err, "tol": tol, "max_abs_ref": scale,
            "launches": launches, "expected_launches": expected,
            "graph": graph, "graph_programmatic_edges": edges,
+           "graph_cluster_kernels": clustered,
            "replay_bits_equal_eager": same_bits,
            "median_ms": statistics.median(times), "min_ms": min(times),
            **profile_busy(lambda: apply(params, x, **kw)),
@@ -939,6 +946,10 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
     if edges == 0:
         raise SystemExit(f"{name}: the captured graph holds no programmatic "
                          "edge: its convs run one after another")
+    if clustered == 0 and apply.__name__ == "resnet50_apply":
+        raise SystemExit(f"{name}: the captured graph holds no kernel "
+                         "launched in clusters: every split conv combines "
+                         "through the L2")
     if graph != want_graph or not same_bits:
         raise SystemExit(f"{name}: graph counters {graph} (want "
                          f"{want_graph}), the next calls' bits equal the "
@@ -1216,8 +1227,10 @@ def check_cnn_faults(kern, _build, libs: dict, calls: list, gen) -> dict:
     """Each CNN_FAULTS library pair through the conv2d and weight-stationary
     wrappers on their fp32 main-path shapes (the full epilogue), at the
     checks' tolerance: how many cases of each kernel fail and the worst
-    err / tol.  Raises unless every fault fails a case, and unless the
-    dropped split fails a weight-stationary case."""
+    err / tol.  Raises unless every fault fails a case, and unless a
+    dropped split fails a weight-stationary case: the last split through
+    the L2, or the last peer of a cluster, whichever combine the
+    weight-stationary launches take (csrc/gemm_pipe.cuh)."""
     out = {}
     for name in CNN_FAULTS:
         faulty = {"conv2d": load_fault(libs[name, "conv2d"],
@@ -1241,8 +1254,9 @@ def check_cnn_faults(kern, _build, libs: dict, calls: list, gen) -> dict:
                 "max_err_over_tol": max(c["err_over_tol"] for c in cs)}
     missed = [n for n, r in out.items()
               if not any(k["cases_failed"] for k in r.values())]
-    if missed or not out["combine_drops_last_split"][
-            "mm_weight_stationary"]["cases_failed"]:
+    if missed or not any(
+            out[f]["mm_weight_stationary"]["cases_failed"]
+            for f in ("combine_drops_last_split", "cluster_drops_last_peer")):
         raise SystemExit(f"the fp32 conv2d and weight-stationary checks miss "
                          f"planted faults {missed}: {out}")
     return out

@@ -46,12 +46,29 @@
 //     slot into their own 8x8 sums, which are added through shared memory
 //     in group order at the end (G = 4 on the 64x64 tile for small layers);
 //   - across blocks: split z of the grid reduces [z * k_per_split,
-//     (z+1) * k_per_split), writes its raw fp32 sums to its workspace
-//     slice, and the last block of each output tile to take a ticket
-//     (__threadfence, atomicAdd) sums the slices in split order and applies
-//     the flush, in the same launch. The counters belong to the wrapper:
-//     zero before the launch, reset by the last block, so repeats give
-//     identical bits.
+//     (z+1) * k_per_split), and a tile's S splits are added in the same
+//     launch, one of two ways, which the launch picks (cluster_size_for):
+//     . where S is at most CLUSTER_MAX, the device holds every cluster of
+//       S blocks of the grid at once (cudaOccupancyMaxActiveClusters) and
+//       the grid would not crowd its SMs, the grid is launched in clusters
+//       of a tile's S splits (cluster_combine). Each block writes its fp32
+//       sums to its own shared memory; after the cluster's barrier rank r
+//       adds rows [r*BM/S, (r+1)*BM/S) of every peer's through distributed
+//       shared memory, in split order from 0, and flushes them: S blocks
+//       share the flush, and no sum goes through the L2, no fence, no
+//       ticket. A second barrier keeps every block until its peers have
+//       read its shared memory.
+//     . otherwise every block writes its raw fp32 sums to its workspace
+//       slice, and the last block of each output tile to take a ticket
+//       (__threadfence, atomicAdd) sums the slices in split order and
+//       applies the flush. The counters belong to the wrapper: zero before
+//       the launch, reset by the last block, so repeats give identical
+//       bits.
+//     The two add in the same order and give the same bits. Clusters of
+//     fewer blocks than S, whose sums would still meet in the L2, ran
+//     longer than the tickets alone on the H100 (ResNet-50's 128-block
+//     grids of 8 splits in clusters of 2: 1.5-3 us a launch more), so a grid
+//     either holds each tile's splits in one cluster or takes the tickets.
 // * bf16 operands are copied as bf16 (half the bytes) and converted to fp32
 //   when a fragment is read; the sums are fp32.
 // * A launch is a programmatic dependent launch wherever that cannot crowd
@@ -116,6 +133,10 @@ constexpr int PIPE_BK = 16;          // reduction indices a chunk
 constexpr int PIPE_STAGES = 3;       // slots in the shared-memory ring
 constexpr int PIPE_TABLE_MAX = 2048; // general path: indices of one split
 constexpr int PIPE_PREFETCH_SLOTS = PIPE_STAGES - 1;  // before the wait
+// Blocks a cluster may hold: 8 portably, 16 on the H100 with
+// cudaFuncAttributeNonPortableClusterSizeAllowed.
+constexpr int CLUSTER_PORTABLE = 8;
+constexpr int CLUSTER_MAX = 16;
 
 struct ConvShape {
   int B, H, W, C, K, FH, FW, S, P, OH, OW;
@@ -219,12 +240,13 @@ __device__ __forceinline__ void prefetch_weights(const T* w, int K, int n0,
   }
 }
 
-// The ring's bytes: PIPE_STAGES slots, which with G > 1 also hold the
-// groups' fp32 sums at the end.
+// The ring's bytes: PIPE_STAGES slots, which at the end also hold the
+// groups' fp32 sums (G of them) and, in a cluster, the tile's (one), in
+// whatever type T the ring holds.
 template <class P, typename T>
 __host__ __device__ constexpr size_t pipe_ring_bytes() {
   const size_t ring = (size_t)PIPE_STAGES * P::SLOT * sizeof(T);
-  const size_t sums = P::G > 1 ? (size_t)P::G * P::BM * P::BN * 4 : 0;
+  const size_t sums = (size_t)P::G * P::BM * P::BN * sizeof(float);
   return ring > sums ? ring : sums;
 }
 
@@ -409,7 +431,66 @@ __device__ __forceinline__ void flush_store4(const float* v, T* out,
   }
 }
 
+// The split combine of a launch in clusters (the file's header): the
+// cluster's S blocks are the S splits of one output tile, and each thread
+// holds the rows of its 8x8 that its group owns (`acc`, after the groups'
+// sums). The tile's sums sit in shared memory as float4s, row
+// ty + i*ROWSTEP's columns h*BN/2 + tx*4.. at (i*2 + h)*TT + ty*TX + tx.
 template <typename T, class P, bool VEC>
+__device__ __forceinline__ void cluster_combine(const float (&acc)[8][8],
+                                                int group, int gt,
+                                                unsigned char* smem,
+                                                const Epi& ep, const T* res,
+                                                T* out, int M, int N, int m0,
+                                                int n0) {
+  constexpr int IPG = 8 / P::G;
+  constexpr int V4 = P::BN / 4;  // float4s in a row of the tile
+  float4* mine = reinterpret_cast<float4*>(smem);
+  __syncthreads();  // every group is done with the ring and the groups' sums
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (i / IPG != group) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mine[(i * 2 + h) * P::TT + gt] =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                      acc[i][4 * h + 3]);
+  }
+  cluster_arrive();
+  cluster_wait();  // every peer's sums are in its shared memory
+  // rank r owns the tile's rows [lo, hi): element e is the float4 of row
+  // lo + e / V4 at columns (e % V4) * 4..
+  const int cs = cluster_size(), rank = cluster_rank();
+  const int lo = rank * P::BM / cs, hi = (rank + 1) * P::BM / cs;
+  for (int e = threadIdx.x; e < (hi - lo) * V4; e += P::THREADS) {
+    const int row = lo + e / V4, q = e % V4;
+    const uint32_t addr = smem_addr(
+        mine + ((row / P::ROWSTEP) * 2 + q / (V4 / 2)) * P::TT +
+        (row % P::ROWSTEP) * P::TX + q % (V4 / 2));
+    // every peer's float4 in flight, then added in split order from 0:
+    // rank z is split z (the cluster runs along the grid's z)
+    float4 p[CLUSTER_MAX];
+#pragma unroll
+    for (int z = 0; z < CLUSTER_MAX; ++z)
+      if (z < cs) p[z] = ld_cluster4(map_to_rank(addr, z));
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int z = 0; z < CLUSTER_MAX; ++z)
+      if (z < cs) {
+        v[0] += p[z].x; v[1] += p[z].y; v[2] += p[z].z; v[3] += p[z].w;
+      }
+    if (m0 + row < M)
+      flush_store4<T, VEC>(v, out, res, ep, (int64_t)(m0 + row) * N,
+                           n0 + q * 4, N);
+  }
+  cluster_arrive();
+  cluster_wait();  // no block's shared memory goes while a peer reads it
+}
+
+// CLUSTER: the instance launched in clusters (pipe_launch_tile). Apart
+// from the other: compiled into one kernel, the cluster branch alone made
+// the unsplit 128x64 loop 1.7 % slower on the H100.
+template <typename T, class P, bool VEC, bool CLUSTER>
 __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS)
 pipe_conv_kernel(const T* __restrict__ x, const T* __restrict__ w, Epi ep,
                  const T* __restrict__ res, T* __restrict__ out,
@@ -506,6 +587,11 @@ pipe_conv_kernel(const T* __restrict__ x, const T* __restrict__ w, Epi ep,
     }
   }
 
+  if (CLUSTER) {
+    cluster_combine<T, P, VEC>(acc, group, gt, smem, ep, res, out, M, s.K,
+                               m0, n0);
+    return;
+  }
   if (gridDim.z > 1) {
     // this split's sums, coalesced, into its slice of the workspace
     const int tile = blockIdx.y * gridDim.x + blockIdx.x;
@@ -626,13 +712,85 @@ cudaError_t fills_every_sm(Kernel kernel, const cudaLaunchConfig_t& cfg,
   return cudaSuccess;
 }
 
+// The launch attribute of clusters of cs splits of a tile.
+inline cudaLaunchAttribute cluster_dim(int cs) {
+  cudaLaunchAttribute a;
+  a.id = cudaLaunchAttributeClusterDimension;
+  a.val.clusterDim.x = 1;
+  a.val.clusterDim.y = 1;
+  a.val.clusterDim.z = cs;
+  return a;
+}
+
+// The cluster size of cfg's grid (the file's header): its splits S, where
+// S is at most CLUSTER_MAX and the device holds every cluster of the grid
+// at once, or 1 (one split, more than CLUSTER_MAX, clusters that would not
+// all be resident). A grid that would crowd its SMs takes 1 too: more
+// blocks an SM, spread evenly, than one and than half the blocks an SM
+// holds (`rooms`, as fills_every_sm left them for this shared memory size;
+// none past its cache). Placed in clusters, such grids ran longer on the
+// H100 than their combine saved (VGG-16 at batch 1, whose split grids of
+// 392 and 520 blocks hold three and four an SM: 9 % longer a forward),
+// while ResNet-50's 56x56 3x3 (392 blocks of six an SM, in clusters of 2)
+// took 41.0 -> 34.9 us. How many clusters of S blocks the device holds is
+// asked of the runtime once per device, shared memory size and S, and kept
+// in `cache` (bits 0-31 the clusters + 1, 32-63 the bytes; 0: not asked
+// yet).
+// `kernel` is the instance launched in clusters; its attributes (the
+// shared memory, and clusters above 8) are set at every such launch: the
+// caches of a template function are one per process, shared by conv2d's
+// and matmul's libraries, whose copies of a kernel are alike but each its
+// own, so the library that asked is not always the one that launches.
+template <class Kernel>
+cudaError_t cluster_size_for(Kernel kernel, const cudaLaunchConfig_t& cfg,
+                             const SmRoom* rooms,
+                             SmRoom (*cache)[CLUSTER_MAX + 1], int& cs) {
+  cs = 1;
+  const int splits = (int)cfg.gridDim.z;
+  if (splits == 1 || splits > CLUSTER_MAX) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bytes = cfg.dynamicSmemBytes;
+  const int64_t blocks = (int64_t)cfg.gridDim.x * cfg.gridDim.y * splits;
+  const uint64_t room =
+      dev < SM_ROOM_DEVICES ? rooms[dev].load(std::memory_order_relaxed) : 0;
+  const int64_t sms = room & 0xffff, per_sm = room >> 16 & 0xffff;
+  if (room >> 32 != bytes || sms == 0 ||
+      blocks > sms * std::max<int64_t>(1, per_sm / 2))
+    return cudaSuccess;
+  if (bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && splits > CLUSTER_PORTABLE)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  SmRoom* slot = dev < SM_ROOM_DEVICES ? &cache[dev][splits] : nullptr;
+  uint64_t word = slot ? slot->load(std::memory_order_relaxed) : 0;
+  if (word == 0 || word >> 32 != bytes) {
+    cudaLaunchConfig_t q = cfg;
+    cudaLaunchAttribute dim = cluster_dim(splits);
+    q.attrs = &dim;
+    q.numAttrs = 1;
+    int held = 0;
+    err = cudaOccupancyMaxActiveClusters(&held, kernel, &q);
+    if (err != cudaSuccess) return err;
+    word = bytes << 32 | (uint64_t)(held + 1);
+    if (slot) slot->store(word, std::memory_order_relaxed);
+  }
+  if ((int64_t)(word & 0xffffffff) - 1 >= blocks / splits) cs = splits;
+  return cudaSuccess;
+}
+
 template <typename T, class P, bool VEC>
 int pipe_launch_tile(const void* x, const void* w, Epi ep, const void* res,
                      void* out, float* ws, int* tickets, const ConvShape& s,
                      int splits, int k_per_split, cudaStream_t stream) {
   const int R = s.FH * s.FW * s.C;
   const size_t bytes = pipe_smem_bytes<T, P, VEC>(std::min(k_per_split, R));
-  auto kernel = pipe_conv_kernel<T, P, VEC>;
+  auto kernel = pipe_conv_kernel<T, P, VEC, false>;
+  auto clustered = pipe_conv_kernel<T, P, VEC, true>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -645,20 +803,26 @@ int pipe_launch_tile(const void* x, const void* w, Epi ep, const void* res,
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   // a programmatic dependent launch where it cannot crowd the grid (the
-  // file's header says why); under stream capture, a programmatic edge
+  // file's header says why); under stream capture, a programmatic edge.
+  // Split grids in clusters where the device holds them all at once.
   static SmRoom room[SM_ROOM_DEVICES];
+  static SmRoom clusters[SM_ROOM_DEVICES][CLUSTER_MAX + 1];
   bool early = false;
-  const cudaError_t placed = fills_every_sm(kernel, cfg, room, early);
+  int cs = 1;
+  cudaError_t placed = fills_every_sm(kernel, cfg, room, early);
+  if (placed == cudaSuccess)
+    placed = cluster_size_for(clustered, cfg, room, clusters, cs);
   if (placed != cudaSuccess) return (int)placed;
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &pdl;
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attrs;
   cfg.numAttrs = early ? 1 : 0;
+  if (cs > 1) attrs[cfg.numAttrs++] = cluster_dim(cs);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(w), ep,
-      static_cast<const T*>(res), static_cast<T*>(out), ws, tickets, s,
-      k_per_split);
+      &cfg, cs > 1 ? clustered : kernel, static_cast<const T*>(x),
+      static_cast<const T*>(w), ep, static_cast<const T*>(res),
+      static_cast<T*>(out), ws, tickets, s, k_per_split);
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }

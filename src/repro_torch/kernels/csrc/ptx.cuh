@@ -1,7 +1,8 @@
 // Inline PTX of the kernels: 16-byte asynchronous copies from device memory
 // to shared memory (cp.async), ldmatrix, and the bf16 m16n8k16 tensor-core
 // product (mma.sync), and L2 prefetches, which exist from sm_80 on; and the
-// grid dependency controls of programmatic dependent launch (sm_90 on).
+// grid dependency controls of programmatic dependent launch and the thread
+// block cluster's barrier and distributed shared memory (sm_90 on).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,6 +63,52 @@ __device__ __forceinline__ void grid_dependency_wait() {
 // every block of this grid has called it or exited.
 __device__ __forceinline__ void grid_dependents_launch() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Blocks in this block's cluster (1 for a launch without clusters), and
+// this block's rank among them.
+__device__ __forceinline__ int cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return (int)n;
+}
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// The cluster's barrier in two halves. Every thread of every block of the
+// cluster arrives, releasing what it wrote before; a wait returns once all
+// have arrived, and acquires what they released. Between the two a thread
+// may do work that needs no peer.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address in the cluster's shared memory window of the same bytes in
+// block `rank`'s shared memory as the shared address `addr` (smem_addr) in
+// this block's.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes of a peer block's shared memory, at an address of the cluster's
+// window (map_to_rank).
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // Four 8x8 b16 matrices from shared memory, lane l giving the address of

@@ -342,8 +342,10 @@ def resnet50_apply(params, x, *, impl: str = "auto", fused: bool = True,
     shape and dtype, the weight tensors or the pruned set, the tuner's
     state); the counters ``resnet50_apply.graph_captures``,
     ``.graph_replays`` and ``.graph_eager`` (by reason) say which way each
-    call went, and ``.graph_programmatic_edges`` how many programmatic
-    edges the last capture holds.  Replays share the kernels' workspace with eager calls: order
+    call went, ``.graph_programmatic_edges`` how many programmatic
+    edges the last capture holds and ``.graph_cluster_kernels`` how many
+    of its kernels launch in thread block clusters.  Replays share the
+    kernels' workspace with eager calls: order
     every call on one stream (``models.cnn_graph``).
     """
     if sparse and keep_fractions is None:

@@ -29,7 +29,12 @@ programmatic dependency edges: the pipelined conv kernels launch as
 programmatic dependent launches wherever their grid fills every SM
 (``csrc/gemm_pipe.cuh``), which a capture records as such edges, so that a
 replay places those convs under their predecessors' tails (52 of ResNet-50's
-53 at batch 1).  0 means the capture dropped them.  The key is the net, x's
+53 at batch 1).  0 means the capture dropped them.  Likewise
+``apply.graph_cluster_kernels`` takes the captured graph's count of kernels
+launched in thread block clusters of more than one block: a split conv's
+grid whose clusters the device holds at once adds its splits through
+distributed shared memory (``csrc/gemm_pipe.cuh``), so the count says how
+often that combine runs in a replay.  The key is the net, x's
 shape, strides, dtype, device and offset from a 16-byte boundary, ``impl``
 and ``fused``, the tuner's state (on or off, and ``autotune.generation()``)
 and every weight tensor the forward reads: the same tensor object over the
@@ -173,15 +178,59 @@ def programmatic_edges(raw_graph: int) -> int:
     return sum(e.type == PROGRAMMATIC for e in data[:n.value])
 
 
-def _libcuda_check(err: int) -> None:
+def _libcuda_check(err: int, what: str = "cuGraphGetEdges_v2") -> None:
     if err != 0:
-        raise RuntimeError(f"cuGraphGetEdges_v2 failed with CUresult {err}")
+        raise RuntimeError(f"{what} failed with CUresult {err}")
+
+
+KERNEL_NODE = 0                # CU_GRAPH_NODE_TYPE_KERNEL
+CLUSTER_DIMENSION = 4          # CU_LAUNCH_ATTRIBUTE_CLUSTER_DIMENSION
+
+
+class _AttrValue(ctypes.Union):
+    """libcuda's ``CUlaunchAttributeValue`` (64 bytes); its cluster
+    dimension is three unsigned ints at the start."""
+    _fields_ = [("cluster_dim", ctypes.c_uint * 3),
+                ("pad", ctypes.c_char * 64)]
+
+
+def cluster_kernels(raw_graph: int) -> int:
+    """The kernel nodes of a ``cudaGraph_t`` launched in clusters of more
+    than one block, read with libcuda's ``cuGraphGetNodes``,
+    ``cuGraphNodeGetType`` and ``cuGraphKernelNodeGetAttribute``."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    get_nodes, get_type, get_attr = (lib.cuGraphGetNodes,
+                                     lib.cuGraphNodeGetType,
+                                     lib.cuGraphKernelNodeGetAttribute)
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_size_t)]
+    get_type.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    get_attr.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                         ctypes.POINTER(_AttrValue)]
+    n = ctypes.c_size_t(0)
+    _libcuda_check(get_nodes(raw_graph, None, ctypes.byref(n)),
+                   "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _libcuda_check(get_nodes(raw_graph, nodes, ctypes.byref(n)),
+                   "cuGraphGetNodes")
+    count = 0
+    for node in nodes[:n.value]:
+        kind, value = ctypes.c_int(-1), _AttrValue()
+        _libcuda_check(get_type(node, ctypes.byref(kind)),
+                       "cuGraphNodeGetType")
+        if kind.value != KERNEL_NODE:
+            continue
+        _libcuda_check(get_attr(node, CLUSTER_DIMENSION, ctypes.byref(value)),
+                       "cuGraphKernelNodeGetAttribute")
+        x, y, z = value.cluster_dim
+        count += x * y * z > 1
+    return count
 
 
 class Graph:
     """A forward captured on a side stream: its static input and output,
-    the shared scratch its kernels write, and its count of programmatic
-    edges."""
+    the shared scratch its kernels write, and its counts of programmatic
+    edges and of kernels launched in clusters."""
 
     def __init__(self, run, x: torch.Tensor):
         dev = x.device
@@ -195,6 +244,7 @@ class Graph:
                         _build._tickets.get(dev))
         self.programmatic_edges = programmatic_edges(
             self.graph.raw_cuda_graph())
+        self.cluster_kernels = cluster_kernels(self.graph.raw_cuda_graph())
         self.graph.instantiate()
 
     def replay(self, x: torch.Tensor) -> torch.Tensor:
@@ -208,6 +258,7 @@ def reset(apply) -> None:
     """Zero ``apply``'s counters and drop its net's graph and pruned set."""
     apply.graph_captures = 0
     apply.graph_programmatic_edges = 0
+    apply.graph_cluster_kernels = 0
     apply.graph_replays = 0
     apply.graph_eager = Counter()
     apply.graph_entry = None
@@ -238,5 +289,6 @@ def forward(apply, run, params: dict, x: torch.Tensor, *, impl: str,
         entry.graph = Graph(run, x)
         apply.graph_captures += 1
         apply.graph_programmatic_edges = entry.graph.programmatic_edges
+        apply.graph_cluster_kernels = entry.graph.cluster_kernels
     apply.graph_replays += 1
     return entry.graph.replay(x)

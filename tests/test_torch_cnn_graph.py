@@ -11,8 +11,9 @@ bit (ResNet-50 dense and pruned, and VGG-16, batch 1, fp32 and bf16,
 inputs at and off a 16-byte boundary), answers stay put, a replaced or
 written weight is captured again, an eager call that regrows the shared
 workspace leaves the replay alone, tracing runs eagerly, the profiler
-sees every kernel of a replay, and a captured forward holds the
-programmatic edges of its chained convs.
+sees every kernel of a replay, a captured forward holds the
+programmatic edges of its chained convs, and ResNet-50's holds split
+convs launched in thread block clusters.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cnn_graph.py
 """
@@ -202,14 +203,17 @@ def test_a_cpu_forward_never_captures(net):
 class _StandIn:
     """A CPU stand-in for ``cnn_graph.Graph``: "captures" by running once on
     its static input, "replays" by running again into its static output,
-    and reports ``edges`` programmatic edges."""
+    and reports ``edges`` programmatic edges and ``clusters`` kernels
+    launched in clusters."""
 
     made = 0
     edges = 0
+    clusters = 0
 
     def __init__(self, run, x):
         _StandIn.made += 1
         self.programmatic_edges = _StandIn.edges
+        self.cluster_kernels = _StandIn.clusters
         self.run = run
         self.x = cnn_graph._static_input(x)
         self.x.copy_(x)
@@ -233,6 +237,7 @@ def graphs_on_cpu(monkeypatch):
     monkeypatch.setattr(cnn_graph, "Graph", _StandIn)
     monkeypatch.setattr(_StandIn, "made", 0)
     monkeypatch.setattr(_StandIn, "edges", 0)
+    monkeypatch.setattr(_StandIn, "clusters", 0)
     yield
     for apply in APPLY.values():
         cnn_graph.reset(apply)
@@ -358,6 +363,104 @@ def test_programmatic_edges_raises_on_a_libcuda_error(monkeypatch):
     monkeypatch.setattr(cnn_graph.ctypes, "CDLL", lambda name: fake)
     with pytest.raises(RuntimeError, match="CUresult 801"):
         cnn_graph.programmatic_edges(0x1234)
+
+
+@pytest.mark.parametrize("net", ["resnet50", "vgg16"])
+def test_a_capture_takes_its_graphs_cluster_kernels(graphs_on_cpu, net):
+    """As the programmatic edges: each capture sets the count to its
+    graph's, eager calls and replays leave it, ``reset`` zeroes it."""
+    apply = APPLY[net]
+    params = INIT[net](torch.Generator().manual_seed(0), width=0.0625,
+                       device="cpu")
+    x = torch.randn(1, 32, 32, 3)
+    apply.graph_cluster_kernels = 7
+    cnn_graph.reset(apply)
+    assert apply.graph_cluster_kernels == 0
+    _StandIn.clusters = 43
+    apply(params, x)
+    assert apply.graph_cluster_kernels == 0             # eager: new key
+    for _ in range(3):
+        apply(params, x)
+    assert (apply.graph_captures, apply.graph_cluster_kernels) == (1, 43)
+    apply(params, x, impl="ref")
+    with trace.capture():
+        apply(params, x)
+    assert apply.graph_cluster_kernels == 43
+    _StandIn.clusters = 3
+    x2 = torch.randn(2, 32, 32, 3)                      # a new key
+    for _ in range(2):
+        apply(params, x2)
+    assert (apply.graph_captures, apply.graph_cluster_kernels) == (2, 3)
+    cnn_graph.reset(apply)
+    assert apply.graph_cluster_kernels == 0
+
+
+class _FakeGraphNodes:
+    """``libcuda``'s ``cuGraphGetNodes``, ``cuGraphNodeGetType`` and
+    ``cuGraphKernelNodeGetAttribute`` over a list of nodes, each a node
+    type and a cluster dimension, as C functions."""
+
+    NODES = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.POINTER(ctypes.c_size_t))
+    TYPE = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p,
+                            ctypes.POINTER(ctypes.c_int))
+    ATTR = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                            ctypes.POINTER(cnn_graph._AttrValue))
+
+    def __init__(self, nodes, err=0):
+        self.nodes, self.err, self.asked = nodes, err, []
+        self.cuGraphGetNodes = self.NODES(self._nodes)
+        self.cuGraphNodeGetType = self.TYPE(self._type)
+        self.cuGraphKernelNodeGetAttribute = self.ATTR(self._attr)
+
+    def _nodes(self, graph, out, n):
+        assert graph == 0x1234
+        if out is not None:
+            assert n[0] == len(self.nodes)
+            arr = ctypes.cast(out, ctypes.POINTER(ctypes.c_void_p))
+            for i in range(len(self.nodes)):
+                arr[i] = i + 1
+        n[0] = len(self.nodes)
+        return 0
+
+    def _type(self, node, kind):
+        kind[0] = self.nodes[node - 1][0]
+        return 0
+
+    def _attr(self, node, attr, value):
+        self.asked.append((node, attr))
+        if self.err:
+            return self.err
+        value[0].cluster_dim[:] = self.nodes[node - 1][1]
+        return 0
+
+
+KERNEL, MEMCPY = 0, 1
+
+
+@pytest.mark.parametrize("nodes,want", [
+    ([], 0),
+    ([(KERNEL, (0, 0, 0)), (KERNEL, (1, 1, 1))], 0),
+    ([(KERNEL, (1, 1, 8)), (MEMCPY, (0, 0, 0)), (KERNEL, (1, 1, 1)),
+      (KERNEL, (1, 1, 2)), (KERNEL, (2, 1, 1))], 3)])
+def test_cluster_kernels_counts_the_kernels_libcuda_reports(monkeypatch,
+                                                           nodes, want):
+    fake = _FakeGraphNodes(nodes)
+    monkeypatch.setattr(cnn_graph.ctypes, "CDLL", lambda name: fake)
+    assert ctypes.sizeof(cnn_graph._AttrValue) == 64
+    assert cnn_graph.cluster_kernels(0x1234) == want
+    # the attribute is asked of kernel nodes only, for the cluster dimension
+    assert fake.asked == [(i + 1, cnn_graph.CLUSTER_DIMENSION)
+                          for i, (t, _) in enumerate(nodes) if t == KERNEL]
+
+
+def test_cluster_kernels_raises_on_a_libcuda_error(monkeypatch):
+    fake = _FakeGraphNodes([(KERNEL, (1, 1, 2))], err=1)
+    monkeypatch.setattr(cnn_graph.ctypes, "CDLL", lambda name: fake)
+    with pytest.raises(RuntimeError,
+                       match="cuGraphKernelNodeGetAttribute failed with "
+                             "CUresult 1"):
+        cnn_graph.cluster_kernels(0x1234)
 
 
 def test_a_replaced_weight_is_captured_again(graphs_on_cpu, small):
@@ -718,6 +821,25 @@ def test_a_captured_forward_holds_programmatic_edges(cuda, case):
     assert LEAST_PROGRAMMATIC_EDGES[case] <= edges <= CONVS[net]
     cnn_graph.reset(apply)
     assert apply.graph_programmatic_edges == 0
+
+
+@pytest.mark.chip
+def test_a_captured_resnet50_holds_split_convs_in_clusters(cuda):
+    """At batch 1 43 of the 53 convs run split, each a single wave of one
+    block an SM: the device holds their clusters at once, so the capture
+    holds kernels launched in clusters; ``reset`` zeroes the count."""
+    apply, params = cnn.resnet50_apply, _card_net("resnet50", torch.float32)
+    (x, *_), _ = _card_inputs(torch.float32)
+    cnn_graph.reset(apply)
+    for _ in range(3):
+        apply(params, x)
+    torch.cuda.synchronize()
+    clustered = apply.graph_cluster_kernels
+    assert apply.graph_captures == 1
+    assert clustered == apply.graph_entry.graph.cluster_kernels
+    assert 0 < clustered <= CONVS["resnet50"]
+    cnn_graph.reset(apply)
+    assert apply.graph_cluster_kernels == 0
 
 
 @pytest.mark.chip
