@@ -960,6 +960,280 @@ def run_model(name, apply, params, x, counters, expected, **kw) -> dict:
     return rec
 
 
+# -------------------------------------------------- EfficientNetV2-S ------
+def efficientnet_calls(trace, apply, params, x) -> list[dict]:
+    """Every kernel call of one EfficientNetV2-S forward, in order, traced
+    on the plain engine: the pipelined convs and 1x1s with their epilogue
+    tags and stationarity, the depthwise convs, the SE gates and the gate
+    passes."""
+    with trace.capture() as tr:
+        apply(params, x, impl="ref")
+    calls = []
+    names = ("kernels.conv2d", "kernels.conv1x1", "kernels.dwconv",
+             "kernels.se_gate", "kernels.se_scale")
+    for sp in sorted((sp for n in names for sp in tr.find(n)),
+                     key=lambda sp: sp.start_s):
+        a = sp.attrs
+        if sp.name == "kernels.conv2d":
+            calls.append({"kernel": "conv2d", "x": tuple(a["x_shape"]),
+                          "w": tuple(a["w_shape"]), "stride": a["stride"],
+                          "padding": a["padding"], "epilogue": a["epilogue"]})
+        elif sp.name == "kernels.conv1x1":
+            calls.append({"kernel": "mm_weight_stationary"
+                          if a["stationarity"] == "weight_stationary"
+                          else "mm_act_stationary",
+                          "x": tuple(a["x_shape"]), "w": tuple(a["w_shape"]),
+                          "stride": a["stride"], "padding": 0,
+                          "epilogue": a["epilogue"]})
+        elif sp.name == "kernels.dwconv":
+            calls.append({"kernel": "dwconv", "x": tuple(a["x_shape"]),
+                          "w": tuple(a["w_shape"]), "stride": a["stride"],
+                          "epilogue": a["epilogue"]})
+        elif sp.name == "kernels.se_gate":
+            calls.append({"kernel": "se_gate", "x": tuple(a["sums_shape"]),
+                          "w": tuple(a["w1_shape"]), "npix": a["npix"]})
+        elif sp.name == "kernels.se_scale":
+            calls.append({"kernel": "se_scale", "x": tuple(a["x_shape"])})
+    return calls
+
+
+def efficientnet_operands(call: dict, dtype, gen) -> dict:
+    """Random operands of one call in ``dtype``, the epilogue its tag
+    names (scale, bias, SiLU, residual) and, for a depthwise conv, its tile
+    sums."""
+    rn = lambda *s: torch.randn(s, device=gen.device, generator=gen)
+    tag = call.get("epilogue", "")
+    if call["kernel"] == "se_gate":
+        b, tiles, c = call["x"]
+        r = call["w"][-1]
+        return {"sums": rn(b, tiles, c) * call["npix"] / tiles,
+                "w1": (rn(c, r) * c ** -0.5).to(dtype), "b1": 0.3 * rn(r),
+                "w2": (rn(r, c) * r ** -0.5).to(dtype), "b2": 0.3 * rn(c)}
+    x = rn(*call["x"]).to(dtype)
+    if call["kernel"] == "se_scale":
+        return {"x": x, "gate": torch.sigmoid(rn(call["x"][0],
+                                                 call["x"][-1]))}
+    k = call["w"][-1]
+    ops = {"x": x, "w": (rn(*call["w"]) * call["w"][0] ** -0.5).to(dtype),
+           "scale": 1.0 + 0.2 * rn(k) if "scale" in tag else None,
+           "bias": 0.3 * rn(k) if "bias" in tag else None,
+           "silu": "silu" in tag}
+    if call["kernel"] == "dwconv":
+        ops["sums"] = "sums" in tag
+        return ops
+    if "residual" in tag:
+        b, h, w, _ = call["x"]
+        s = call["stride"]
+        if call["kernel"] == "conv2d":
+            fh = call["w"][0]
+            pad = call["padding"]
+            oh, ow = (h + 2 * pad - fh) // s + 1, (w + 2 * pad - fh) // s + 1
+        else:
+            oh, ow = -(-h // s), -(-w // s)
+        ops["residual"] = rn(b, oh, ow, k).to(dtype)
+    return ops
+
+
+def dw_out_shape(call: dict) -> tuple:
+    b, h, w, c = call["x"]
+    k, s = call["w"][0], call["stride"]
+    pad = (k - 1) // 2
+    return (b, (h + 2 * pad - k) // s + 1, (w + 2 * pad - k) // s + 1, c)
+
+
+def efficientnet_run(call: dict, ops: dict, plain: bool):
+    """One call through its wrapper (``plain``: its plain version): the
+    output, and for a depthwise conv the tile sums beside it."""
+    from repro_torch.kernels import conv2d as conv_mod
+    from repro_torch.kernels import dwconv as dw_mod
+    from repro_torch.kernels import matmul as mm_mod
+    from repro_torch.kernels import se as se_mod
+    from repro_torch.core.modes import Stationarity
+    kind = call["kernel"]
+    if kind == "se_gate":
+        fn = se_mod.se_gate_plain if plain else se_mod.launch
+        return fn(ops["sums"], call["npix"], ops["w1"], ops["b1"],
+                  ops["w2"], ops["b2"]), None
+    if kind == "se_scale":
+        if plain:
+            return se_mod.se_scale_plain(ops["x"], ops["gate"]), None
+        return se_mod.scale_launch(ops["x"], ops["gate"],
+                                   torch.empty_like(ops["x"])), None
+    ep = {f: ops[f] for f in ("scale", "bias", "silu")}
+    if kind == "dwconv":
+        b, oh, ow, c = dw_out_shape(call)
+        sums = (torch.empty((b, dw_mod.sum_tiles(oh, ow), c),
+                            device=ops["x"].device) if ops["sums"] else None)
+        fn = dw_mod.dwconv_plain if plain else dw_mod.launch
+        return fn(ops["x"], ops["w"], stride=call["stride"], sums=sums,
+                  **ep), sums
+    ep["residual"] = ops.get("residual")
+    if kind == "conv2d":
+        fn = conv_mod.conv2d_plain if plain else conv_mod.conv2d
+        return fn(ops["x"], ops["w"], stride=call["stride"],
+                  padding=call["padding"], **ep), None
+    if plain:
+        return mm_mod.matmul_plain(ops["x"], ops["w"], stride=call["stride"],
+                                   **ep), None
+    st = (Stationarity.WEIGHT_STATIONARY if kind == "mm_weight_stationary"
+          else Stationarity.ACTIVATION_STATIONARY)
+    return mm_mod.matmul(ops["x"], ops["w"], stride=call["stride"],
+                         stationarity=st, **ep), None
+
+
+def efficientnet_reduction(call: dict) -> int:
+    kind = call["kernel"]
+    if kind == "conv2d":
+        return math.prod(call["w"][:3])
+    if kind == "dwconv":
+        return call["w"][0] * call["w"][1]
+    if kind == "se_gate":
+        return call["x"][1] + call["x"][2] + call["w"][-1]
+    if kind == "se_scale":
+        return 1
+    return call["w"][0]
+
+
+def efficientnet_bound_ms(call: dict, dtype, peaks: dict) -> tuple:
+    """(least ms, "operations" or "bytes") of one call: each operand read
+    and each result written once."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    kind, tag = call["kernel"], call.get("epilogue", "")
+    if kind == "se_gate":
+        b, tiles, c = call["x"]
+        r = call["w"][-1]
+        flops = b * (tiles * c + 4 * c * r)
+        nbytes = 4 * b * tiles * c + es * 2 * c * r + 4 * (r + c + b * c)
+    elif kind == "se_scale":
+        n = math.prod(call["x"])
+        flops, nbytes = n, 2 * es * n + 4 * call["x"][0] * call["x"][-1]
+    elif kind == "dwconv":
+        b, oh, ow, c = dw_out_shape(call)
+        k = call["w"][0]
+        flops = 2 * b * oh * ow * c * k * k
+        nbytes = es * (math.prod(call["x"]) + k * k * c + b * oh * ow * c)
+        if "sums" in tag:
+            from repro_torch.kernels import dwconv as dw_mod
+            nbytes += 4 * b * dw_mod.sum_tiles(oh, ow) * c
+    else:
+        b, h, w, c = call["x"]
+        k = call["w"][-1]
+        s = call["stride"]
+        if kind == "conv2d":
+            fh, pad = call["w"][0], call["padding"]
+            oh, ow = (h + 2 * pad - fh) // s + 1, (w + 2 * pad - fh) // s + 1
+            x_el = math.prod(call["x"])
+        else:
+            oh, ow = -(-h // s), -(-w // s)
+            x_el = b * oh * ow * c
+        m_k = b * oh * ow * k
+        flops = 2 * m_k * efficientnet_reduction(call)
+        nbytes = es * (x_el + math.prod(call["w"]) + m_k
+                       + m_k * ("residual" in tag))
+        nbytes += 4 * k * (("scale" in tag) + ("bias" in tag))
+    peak = peaks["bf16" if dtype == torch.bfloat16 else "fp32"]
+    t_ops, t_bytes = flops / peak, nbytes / peaks["bw"]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_efficientnet(chk: Checker, calls: list[dict], peaks: dict, flush,
+                       gen) -> dict:
+    """Each distinct call of the 384 x 384 batch-1 forward through its
+    wrapper against its plain version, fp32 and bf16, the stated
+    tolerance (phase checks'); the depthwise conv's tile sums at the fp32
+    tolerance of a sum of k*k x 16 terms; the gate pass to the bit.  A
+    call must also repeat to the bit.  Then the fp32 device time of every
+    call of the forward (cold L2) beside its plain version's and its
+    bound, summed by kernel."""
+    from repro_torch.kernels import dwconv as dw_mod
+    unique = {}
+    for c in calls:
+        unique.setdefault(json.dumps(c, sort_keys=True), c)
+    for c in unique.values():
+        for dtype in (torch.float32, torch.bfloat16):
+            ops = efficientnet_operands(c, dtype, gen)
+            got, sums = efficientnet_run(c, ops, plain=False)
+            want, want_sums = efficientnet_run(c, ops, plain=True)
+            again, _ = efficientnet_run(c, ops, plain=False)
+            case = {**{f: c[f] for f in ("x", "w", "stride", "epilogue")
+                       if f in c}, "dtype": str(dtype)[6:]}
+            chk.add(c["kernel"], case, got, want, efficientnet_reduction(c))
+            rec = chk.cases[-1]
+            same = torch.equal(got, again)
+            if c["kernel"] == "se_scale":
+                same = same and torch.equal(got, want)
+            rec.update(repeat_identical=same, ok=rec["ok"] and same)
+            if sums is not None:
+                chk.add("dwconv sums", case, sums, want_sums,
+                        efficientnet_reduction(c) * dw_mod.TILE_PIX)
+    torch.cuda.synchronize()
+    by_kernel = {}
+    for c in calls:
+        ops = efficientnet_operands(c, torch.float32, gen)
+        bound, by = efficientnet_bound_ms(c, torch.float32, peaks)
+        row = by_kernel.setdefault(c["kernel"], {
+            "calls": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+            "bound_by": {"operations": 0.0, "bytes": 0.0}})
+        row["calls"] += 1
+        row["ms"] += cold_time_ms(lambda: efficientnet_run(c, ops, False),
+                                  flush)
+        row["plain_ms"] += cold_time_ms(
+            lambda: efficientnet_run(c, ops, True), flush)
+        row["bound_ms"] += bound
+        row["bound_by"][by] += bound
+    for kname, row in by_kernel.items():
+        cs = [c for c in chk.cases if c["kernel"] == kname]
+        row.update(cases=len(cs), failed=sum(not c["ok"] for c in cs),
+                   max_abs_err=max(c["max_abs_err"] for c in cs
+                                   if c["dtype"] == "float32"),
+                   max_err_over_tol=max(c["err_over_tol"] for c in cs),
+                   bound_by=max(row["bound_by"], key=row["bound_by"].get))
+    return by_kernel
+
+
+def run_efficientnet(trace, counters: dict, no_lm: dict, peaks: dict, flush,
+                     gen) -> tuple[dict, dict]:
+    """EfficientNetV2-S at 384 x 384, batch 1: every distinct kernel call
+    of its forward checked and timed (``check_efficientnet``), then the
+    forward through ``run_model``, whose counted call must launch each
+    kernel as often as the traced plain forward dispatched it: the
+    depthwise convs, SE gates and gate passes among them."""
+    from repro_torch.kernels import dwconv as dw_mod
+    from repro_torch.kernels import se as se_mod
+    from repro_torch.models import efficientnet
+    apply = efficientnet.efficientnetv2_s_apply
+    cpu = torch.Generator().manual_seed(SEED + 2)
+    params = efficientnet.efficientnetv2_s_init(
+        torch.Generator().manual_seed(SEED + 2))
+    randomize_bn(params, cpu)
+    for key, blk in params.items():
+        if "se" in blk:
+            for b in ("b1", "b2"):
+                n = blk["se"][b].shape[0]
+                blk["se"][b] = (0.3 * torch.randn(n, generator=cpu)).cuda()
+    x = torch.randn((1, 384, 384, 3), generator=cpu).cuda()
+    calls = efficientnet_calls(trace, apply, params, x)
+    chk = Checker()
+    t0 = time.perf_counter()
+    by_kernel = check_efficientnet(chk, calls, peaks, flush, gen)
+    emit({"phase": "efficientnet_checks", "calls": len(calls),
+          "cases": len(chk.cases), "seconds": time.perf_counter() - t0,
+          **by_kernel})
+    if chk.failures():
+        dump({"efficientnet_checks": chk.cases})
+        raise SystemExit(f"efficientnetv2_s: {len(chk.failures())} kernel "
+                         f"checks failed, first: {chk.failures()[:1]}")
+    expected = {**{k: 0 for k in counters}, **no_lm,
+                "dwconv": 0, "se_gate": 0, "se_scale": 0}
+    for c in calls:
+        expected[c["kernel"]] += 1
+    counted = {**counters, "dwconv": dw_mod.dwconv,
+               "se_gate": se_mod.se_gate, "se_scale": se_mod.se_scale}
+    rec = run_model("efficientnetv2_s", apply, params, x, counted, expected)
+    return rec, by_kernel
+
+
 # --------------------------------------------------------- LM kernels ------
 # ------------------------------------------------------ shard splits ------
 def shard_split_cases() -> list[dict]:
@@ -3394,6 +3668,8 @@ def main() -> int:
                            {"conv2d": 13, "mm_act_stationary": 0,
                             "mm_weight_stationary": 0, **no_lm}),
     }
+    models["efficientnetv2_s"], eff_kernels = run_efficientnet(
+        trace, counters, no_lm, peaks, flush, dgen)
     emit({"phase": "host", **host_profile(lambda: cnn.resnet50_apply(r50, x))})
     bench = run_bench(HERE / BASELINE)
     tuned = run_tune(kern, calls, paths, x, counters, dgen)
@@ -3552,6 +3828,19 @@ def main() -> int:
                if kname == "decode_attention" else {}),
             **({"yardsticks": wide["conv1d_variants"]}
                if kname == "conv1d_causal" else {})})
+    eff = models["efficientnetv2_s"]["launches"]
+    for kname, src in (("dwconv", "src/repro_torch/kernels/csrc/dwconv.cu"),
+                       ("se_gate", "src/repro_torch/kernels/csrc/se.cu"),
+                       ("se_scale", "src/repro_torch/kernels/csrc/se.cu")):
+        r = eff_kernels[kname]
+        line.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": "no TPU kernel", "launches": eff[kname],
+            "launches_by_path": {"efficientnetv2_s": eff[kname]},
+            **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by")},
+            "shapes": "the EfficientNetV2-S forward's calls (batch 1, "
+                      "384 x 384), fp32, summed"})
     emit({"kernels": line})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -360,6 +360,7 @@ def save_user_cache(entries: dict[str, Entry]) -> str:
 # The decision: what one dispatch runs, made once
 # ---------------------------------------------------------------------------
 CONV2D, MM_AS, MM_WS = "conv2d", "mm_act_stationary", "mm_weight_stationary"
+DWCONV = "dwconv"
 GEMM_ROUTES = {Stationarity.ACTIVATION_STATIONARY: MM_AS,
                Stationarity.WEIGHT_STATIONARY: MM_WS}
 
@@ -380,18 +381,32 @@ class Decision(NamedTuple):
     reduction: int
 
 
+def is_depthwise(x_shape, w_shape) -> bool:
+    """Whether a (k, k, 1, C) filter on x of C > 1 channels is depthwise:
+    one filter a channel (with C = 1 the two readings are one conv)."""
+    return (len(w_shape) == 4 and w_shape[2] == 1 and w_shape[3] > 1
+            and x_shape[-1] == w_shape[3])
+
+
 def decide(x_shape, w_shape, stride: int = 1, padding: int = 0,
            dtype: str = "float32", epilogue: str = "none", *,
            stationarity: Stationarity | None = None,
            tiles: TileConfig | None = None, cache: bool = True) -> Decision:
     """The one decision of a conv or GEMM dispatch.
 
-    An (FH, FW, C, K) filter takes the conv kernel; a (C, K) one the 1x1
-    GEMM on x (M, C), or NHWC read at ``stride``.  With ``cache`` and
-    tuning enabled the cache is read, once: a hit's tiles replace
-    ``tiles``.  A GEMM's stationarity is ``stationarity`` where given, else
-    the tiles', else the controller's rule on the rows
-    (``modes.select_stationarity``)."""
+    A depthwise (k, k, 1, C) filter (``is_depthwise``) takes the depthwise
+    kernel, which has no plan to tune: its rows are the output pixels, its
+    columns the channels, its reduction the k*k taps.  Any other (FH, FW,
+    C, K) filter takes the conv kernel; a (C, K) one the 1x1 GEMM on x
+    (M, C), or NHWC read at ``stride``.  With ``cache`` and tuning enabled
+    the cache is read, once: a hit's tiles replace ``tiles``.  A GEMM's
+    stationarity is ``stationarity`` where given, else the tiles', else the
+    controller's rule on the rows (``modes.select_stationarity``)."""
+    if is_depthwise(x_shape, w_shape):
+        b, h, wd, c = x_shape
+        k = w_shape[0]
+        oh, ow = _build.out_hw(h, wd, k, k, stride, padding)
+        return Decision(DWCONV, None, None, None, b * oh * ow, c, k * k)
     m, n, r = _build.pipe_dims(x_shape, w_shape, stride, padding)
     gemm = len(w_shape) == 2
     entry = None
@@ -427,7 +442,10 @@ def reference_plan(d: Decision, c: int,
                    tiles: TileConfig | None = None) -> _build.GemmPlan:
     """``d``'s plan on an H100 (``REFERENCE_SMS``), on the vec16 path where
     the C input channels allow it: ``tiles``', else the route's planner's.
-    ``tile_util`` describes it where nothing launched."""
+    ``tile_util`` describes it where nothing launched; None on a route with
+    no GEMM plan (the depthwise conv)."""
+    if _build.ROUTES[d.route].planner is None:
+        return None
     return _build.route_plan(d.route, d.rows, d.cols, d.reduction,
                              _build.REFERENCE_SMS, c % _build.PIPE_BK == 0,
                              tiles)
@@ -495,10 +513,11 @@ def gemm_candidates(m: int, c: int, k: int, *,
 # ---------------------------------------------------------------------------
 # tile_util — padding waste, the analogue of the paper's PUF
 # ---------------------------------------------------------------------------
-def tile_util(d: Decision, plan: _build.GemmPlan) -> float:
-    """Logical FLOPs / FLOPs of the padded tiles ``plan`` runs for ``d``."""
+def tile_util(d: Decision, plan: _build.GemmPlan | None) -> float:
+    """Logical FLOPs / FLOPs of the padded tiles ``plan`` runs for ``d``
+    (1.0 for a route with no GEMM plan)."""
     m, n, r = d.rows, d.cols, d.reduction
-    if m * n * r == 0:
+    if m * n * r == 0 or plan is None:
         return 1.0
     up = lambda v, t: -(-v // t) * t
     return (m * n * r) / (up(m, plan.bm) * up(n, plan.bn)

@@ -14,6 +14,12 @@ Passing ``epilogue=Epilogue(scale, bias, relu, residual)`` fuses folded-BN,
 the shortcut add, and the activation into the kernel's flush (see
 ``core.fuse``): the output feature map is written to device memory once
 instead of round-tripping once per element-wise op.
+
+A depthwise filter, ``(k, k, 1, C)`` on an x of C channels, runs on a
+route of its own (``kernels.dwconv``).  The paper's four dataflows have no
+depthwise case and its ASIC model no cost for one, so such a plan names its
+dataflow ``depthwise`` and carries no analytic cost (``None``), rather than
+a wrong one.
 """
 from __future__ import annotations
 
@@ -42,13 +48,25 @@ class ConvPlan:
     layer: ConvLayer
     decision: Decision = field(compare=False)
 
+    @property
+    def depthwise(self) -> bool:
+        return self.decision.route == autotune.DWCONV
+
     @cached_property
     def dataflow(self) -> Dataflow:
-        """The analytic controller rule's choice (``select_dataflow``)."""
+        """The analytic controller rule's choice (``select_dataflow``);
+        ``DEPTHWISE`` for a depthwise conv, which the rule has no case
+        for."""
+        if self.depthwise:
+            return Dataflow.DEPTHWISE
         return modes.select_dataflow(self.layer)
 
     @cached_property
-    def cost(self) -> cost_model.LayerCost:
+    def cost(self) -> cost_model.LayerCost | None:
+        """The ASIC model's cost; None for a depthwise conv, which it
+        cannot cost."""
+        if self.depthwise:
+            return None
         return cost_model.layer_cost(self.layer)
 
     @property
@@ -106,6 +124,9 @@ def plan_conv(x_shape: tuple[int, ...], w_shape: tuple[int, ...],
 
 def _dispatch(x, w, d: Decision, stride: int, padding: int, impl: str,
               ep: Epilogue):
+    if d.route == autotune.DWCONV:
+        return ops._dispatch("kernels.dwconv", d, x, w, ep, impl, stride,
+                             padding, {"stride": stride, "padding": padding})
     if d.route == autotune.CONV2D:
         # 3x3 serial accumulation and 7x7 row decomposition share the
         # implicit-GEMM conv kernel, which has no 3-tap register limit (the
@@ -124,9 +145,11 @@ def carla_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                sparsity: SparsityTag | None = None) -> torch.Tensor:
     """Reconfigurable convolution: dispatches on the decision of its plan.
 
-    x: (B, H, W, C); w: (FH, FW, C, K) (use (1, 1, C, K) or (C, K) for 1x1).
-    epilogue: optional fused flush (folded-BN scale/bias, residual add, ReLU)
-    applied on the fp32 accumulator before the single store.
+    x: (B, H, W, C); w: (FH, FW, C, K) (use (1, 1, C, K) or (C, K) for 1x1;
+    (k, k, 1, C) for a depthwise conv, k odd, padding (k - 1) // 2).
+    epilogue: optional fused flush (folded-BN scale/bias, residual add, ReLU
+    or SiLU) applied on the fp32 accumulator before the single store; the
+    depthwise conv's tile sums.
     sparsity: for a structured-pruned layer, the dense twin's channel counts
     (``core.sparsity.SparsityTag``) — the span then records ``keep_fraction``
     and ``dense_twin_macs`` so pruned-vs-dense is measurable per layer.
@@ -173,12 +196,22 @@ def _ledger(x, w, out, plan: ConvPlan, launched, ep: Epilogue, stride: int,
         layer=plan.layer.name, dataflow=plan.dataflow.value,
         x_shape=list(x.shape), w_shape=list(w.shape),
         stride=stride, padding=padding, batch=int(x.shape[0]),
-        macs=cost.macs, dense_macs=plan.layer.dense_macs,
-        analytic_cycles=cost.cycles,
-        analytic_time_ms=cost.time_s * 1e3,
-        analytic_dram_bytes=cost.dram_bytes,
-        analytic_puf=cost.puf,
         effective_dataflow=plan.effective_dataflow.value)
+    if cost is None:
+        # a depthwise conv: its multiply-adds from the decision (pads
+        # included), no analytic side
+        d = plan.decision
+        macs = d.rows // max(1, int(x.shape[0])) * d.cols * d.reduction
+        attrs.update(macs=macs, dense_macs=macs, analytic_cycles=None,
+                     analytic_time_ms=None, analytic_dram_bytes=None,
+                     analytic_puf=None)
+    else:
+        attrs.update(
+            macs=cost.macs, dense_macs=plan.layer.dense_macs,
+            analytic_cycles=cost.cycles,
+            analytic_time_ms=cost.time_s * 1e3,
+            analytic_dram_bytes=cost.dram_bytes,
+            analytic_puf=cost.puf)
     if sparsity is not None:
         attrs.update(
             pruned=True,

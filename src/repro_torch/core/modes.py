@@ -28,6 +28,11 @@ class Dataflow(enum.Enum):
     CONV1X1_FEATURE_STATIONARY = "1x1_feature_stationary"  # §III.B  weights stream
     CONV1X1_WEIGHT_STATIONARY = "1x1_weight_stationary"    # §III.C  features stream
     CONV7X7_ROW_DECOMPOSED = "7x7_row_decomposition"       # §III.D  21 row pieces
+    # Not one of the paper's: a depthwise conv (one filter a channel, as
+    # EfficientNet's MBConv blocks run it).  The paper's controller and its
+    # ASIC cost model have no depthwise case, so ``select_dataflow`` never
+    # returns it and such a layer carries no analytic cost.
+    DEPTHWISE = "depthwise"
 
 
 @dataclass(frozen=True)

@@ -388,17 +388,23 @@ def vec_path(c: int, k: int, x, w, residual) -> bool:
 class Route(NamedTuple):
     lib: str       # the library of csrc/ that holds the entry point
     entry: str     # its C entry point
-    planner: Callable[[int, int, int, int, bool], GemmPlan]
+    # its planner; None for a kernel that takes no GEMM plan
+    planner: Callable[[int, int, int, int, bool], GemmPlan] | None
 
 
-# The pipelined launches by route (the ``route`` of their kernels.launch
-# spans): where each one's code is and which planner plans it.
+# The CNN launches by route (the ``route`` of their kernels.launch spans):
+# where each one's code is and which planner plans a pipelined one.  The
+# depthwise conv, the squeeze-and-excitation gate and its pass take no GEMM
+# plan.
 ROUTES = {
     "conv2d": Route("conv2d", "carla_conv2d", plan_gemm),
     "mm_act_stationary": Route("matmul", "carla_mm_act_stationary",
                                plan_gemm),
     "mm_weight_stationary": Route("matmul", "carla_mm_weight_stationary",
                                   plan_weight_stationary),
+    "dwconv": Route("dwconv", "carla_dwconv", None),
+    "se": Route("se", "carla_se_gate", None),
+    "se_scale": Route("se", "carla_se_scale", None),
 }
 
 

@@ -43,23 +43,24 @@ def launch_plan(x, w, *, stride: int = 1, padding: int = 0, residual=None,
 
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                  padding: int = 0, scale=None, bias=None, relu: bool = False,
-                 residual=None) -> torch.Tensor:
+                 residual=None, silu: bool = False) -> torch.Tensor:
     """The kernel's function in plain PyTorch (fp32 accumulation, x's dtype)."""
     return conv2d_ref(x, w, stride, padding, scale=scale, bias=bias,
-                      relu=relu, residual=residual).to(x.dtype)
+                      relu=relu, residual=residual, silu=silu).to(x.dtype)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
            padding: int = 0, scale: torch.Tensor | None = None,
            bias: torch.Tensor | None = None, relu: bool = False,
-           residual: torch.Tensor | None = None, tiles=None) -> torch.Tensor:
+           residual: torch.Tensor | None = None, tiles=None,
+           silu: bool = False) -> torch.Tensor:
     """x: (B, H, W, C), w: (FH, FW, C, K) -> (B, OH, OW, K) in x's dtype.
 
     scale/bias ((K,)), residual ((B, OH, OW, K), contiguous, x's dtype) and
-    relu are fused into the flush; ``tiles`` names a tuned plan.
+    relu or silu are fused into the flush; ``tiles`` names a tuned plan.
     """
     kw = dict(stride=stride, padding=padding, scale=scale, bias=bias,
-              relu=relu, residual=residual)
+              relu=relu, residual=residual, silu=silu)
     if x.device.type == "cpu":
         return conv2d_plain(x, w, **kw)
     return launch(x, w, launch_plan(x, w, stride=stride, padding=padding,
@@ -68,8 +69,11 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 
 def launch(x, w, plan: _build.GemmPlan, *, stride: int = 1, padding: int = 0,
            scale=None, bias=None, relu: bool = False,
-           residual=None) -> torch.Tensor:
-    """Check the operands and launch the kernel under ``plan``."""
+           residual=None, silu: bool = False) -> torch.Tensor:
+    """Check the operands and launch the kernel under ``plan`` (``silu``:
+    the kernel's SiLU instance, the activation before the residual)."""
+    if relu and silu:
+        raise ValueError("conv2d: ReLU or SiLU, not both")
     b, h, wd, cin = x.shape
     fh, fw, cin2, k = w.shape
     if cin != cin2:
@@ -88,8 +92,8 @@ def launch(x, w, plan: _build.GemmPlan, *, stride: int = 1, padding: int = 0,
             _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
             _build.ptr(tickets), b, h, wd, cin, k, fh, fw, stride, padding,
             oh, ow, plan.tile, int(plan.vec), plan.splits, plan.per,
-            int(relu), torch.cuda.current_stream().cuda_stream), "conv2d",
-            "conv2d")
+            2 if silu else int(relu),
+            torch.cuda.current_stream().cuda_stream), "conv2d", "conv2d")
     conv2d.launches += 1
     return out
 

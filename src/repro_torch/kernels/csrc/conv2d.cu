@@ -35,7 +35,9 @@
 #include "gemm_pipe.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. scale/bias are fp32 (K,) or null;
-// res is the output's shape and type, or null. tile: block tile code
+// res is the output's shape and type, or null. relu: the activation, 0
+// none, 1 ReLU after the residual, 2 SiLU before it (gemm_pipe.cuh's
+// PIPE_SILU instance). tile: block tile code
 // (0 = 128x64, 1 = 64x64, 2 = 64x64 in four groups); vec: 1 for the vec16
 // path (C a multiple of 16, K * sizeof(T) a multiple of 16, x, w, res and
 // out 16-byte aligned), 0 for the general path (k_per_split or R at most

@@ -98,6 +98,13 @@
 //
 // The flush applies scale -> bias -> residual -> ReLU on the fp32 sum and
 // converts to the output type once, at the store.
+//
+// One more instance of the kernel, PIPE_SILU, compiled apart so that the
+// plain one (MODE PIPE_PLAIN) stays the code it was (a branch compiled into
+// one kernel cost the unsplit loop 1.7 %, as the cluster branch did): its
+// flush applies scale -> bias -> SiLU (y * sigmoid(y)) -> residual, the
+// order of EfficientNet's blocks, whose shortcut is added after the
+// activation (ep.relu == EPI_ACT_SILU asks for it).
 #pragma once
 
 #include <algorithm>
@@ -110,20 +117,34 @@
 
 namespace carla {
 
-// Per-output-channel fp32 scale/bias (either may be null) and the ReLU flag.
+// Per-output-channel fp32 scale/bias (either may be null) and the
+// activation (0 none, 1 ReLU, EPI_ACT_SILU SiLU).
 struct Epi {
   const float* scale;
   const float* bias;
   int relu;
 };
 
+// The kernel's instances (the file's header).
+constexpr int PIPE_PLAIN = 0, PIPE_SILU = 1;
+constexpr int EPI_ACT_SILU = 2;  // Epi::relu asking for the SiLU instance
+
+__device__ __forceinline__ float silu(float y) {
+  return y / (1.f + expf(-y));
+}
+
 // The fused flush on one fp32 value of output element idx = m*N + n; `res`
 // is the residual (same shape and type as the output) or null.
-template <typename T>
+template <typename T, int MODE>
 __device__ __forceinline__ float flush(float y, const Epi& ep, const T* res,
                                        int64_t idx, int n) {
   if (ep.scale) y *= ep.scale[n];
   if (ep.bias) y += ep.bias[n];
+  if (MODE == PIPE_SILU) {
+    y = silu(y);
+    if (res) y += to_f32(res[idx]);
+    return y;
+  }
   if (res) y += to_f32(res[idx]);
   if (ep.relu) y = fmaxf(y, 0.f);
   return y;
@@ -157,6 +178,21 @@ struct Pipe {
   static constexpr int STAGE = BM * BK + BK * BN;  // elements of one chunk
   static constexpr int SLOT = G * STAGE;           // elements of a slot
   static_assert(THREADS % BK == 0 && BN % 8 == 0, "tile shape");
+};
+
+// A tile that launches one of the kernel's other instances (the file's
+// header); a plain Pipe launches the plain one, its symbol as it was.
+template <class P, int MODE_>
+struct Moded : P {
+  static constexpr int MODE = MODE_;
+};
+template <class P, class = void>
+struct ModeOf {
+  static constexpr int value = PIPE_PLAIN;
+};
+template <class P>
+struct ModeOf<P, std::void_t<decltype(P::MODE)>> {
+  static constexpr int value = P::MODE;
 };
 
 // Four consecutive T at p (16-byte aligned for fp32, 8 for bf16) as fp32.
@@ -405,7 +441,7 @@ __device__ __forceinline__ void chunk_fma(const T* As, const T* Bs, int tx,
 // Four outputs of one row, columns n..n+3, through the flush. VEC: N is a
 // multiple of 4 and the row start aligned, so the four are stored (and the
 // residual read) as one vector.
-template <typename T, bool VEC>
+template <typename T, bool VEC, int MODE>
 __device__ __forceinline__ void flush_store4(const float* v, T* out,
                                              const T* res, const Epi& ep,
                                              int64_t row, int n, int N) {
@@ -418,8 +454,13 @@ __device__ __forceinline__ void flush_store4(const float* v, T* out,
       y[e] = v[e];
       if (ep.scale) y[e] *= ep.scale[n + e];
       if (ep.bias) y[e] += ep.bias[n + e];
-      if (res) y[e] += rv[e];
-      if (ep.relu) y[e] = fmaxf(y[e], 0.f);
+      if (MODE == PIPE_SILU) {
+        y[e] = silu(y[e]);
+        if (res) y[e] += rv[e];
+      } else {
+        if (res) y[e] += rv[e];
+        if (ep.relu) y[e] = fmaxf(y[e], 0.f);
+      }
     }
     store4(out + row + n, y);
   } else {
@@ -427,7 +468,7 @@ __device__ __forceinline__ void flush_store4(const float* v, T* out,
     for (int e = 0; e < 4; ++e)
       if (n + e < N)
         out[row + n + e] =
-            from_f32<T>(flush(v[e], ep, res, row + n + e, n + e));
+            from_f32<T>(flush<T, MODE>(v[e], ep, res, row + n + e, n + e));
   }
 }
 
@@ -480,8 +521,8 @@ __device__ __forceinline__ void cluster_combine(const float (&acc)[8][8],
         v[0] += p[z].x; v[1] += p[z].y; v[2] += p[z].z; v[3] += p[z].w;
       }
     if (m0 + row < M)
-      flush_store4<T, VEC>(v, out, res, ep, (int64_t)(m0 + row) * N,
-                           n0 + q * 4, N);
+      flush_store4<T, VEC, ModeOf<P>::value>(
+          v, out, res, ep, (int64_t)(m0 + row) * N, n0 + q * 4, N);
   }
   cluster_arrive();
   cluster_wait();  // no block's shared memory goes while a peer reads it
@@ -489,7 +530,8 @@ __device__ __forceinline__ void cluster_combine(const float (&acc)[8][8],
 
 // CLUSTER: the instance launched in clusters (pipe_launch_tile). Apart
 // from the other: compiled into one kernel, the cluster branch alone made
-// the unsplit 128x64 loop 1.7 % slower on the H100.
+// the unsplit 128x64 loop 1.7 % slower on the H100. P's mode (ModeOf):
+// the file's header (PIPE_PLAIN, PIPE_SILU).
 template <typename T, class P, bool VEC, bool CLUSTER>
 __global__ void __launch_bounds__(P::THREADS, P::MIN_BLOCKS)
 pipe_conv_kernel(const T* __restrict__ x, const T* __restrict__ w, Epi ep,
@@ -498,6 +540,7 @@ pipe_conv_kernel(const T* __restrict__ x, const T* __restrict__ w, Epi ep,
                  ConvShape s, int k_per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last;
+  constexpr int MODE = ModeOf<P>::value;
   T* ring = reinterpret_cast<T*>(smem);
   const int tid = threadIdx.x, group = tid / P::TT, gt = tid % P::TT;
   const int tx = gt % P::TX, ty = gt / P::TX;
@@ -659,8 +702,8 @@ pipe_conv_kernel(const T* __restrict__ x, const T* __restrict__ w, Epi ep,
     const int64_t row = (int64_t)m * s.K;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      flush_store4<T, VEC>(&acc[i][4 * h], out, res, ep, row,
-                           n0 + h * (P::BN / 2) + tx * 4, s.K);
+      flush_store4<T, VEC, MODE>(&acc[i][4 * h], out, res, ep, row,
+                                 n0 + h * (P::BN / 2) + tx * 4, s.K);
   }
 }
 
@@ -783,10 +826,12 @@ cudaError_t cluster_size_for(Kernel kernel, const cudaLaunchConfig_t& cfg,
   return cudaSuccess;
 }
 
-template <typename T, class P, bool VEC>
+template <typename T, class Tile, bool VEC, int MODE>
 int pipe_launch_tile(const void* x, const void* w, Epi ep, const void* res,
                      void* out, float* ws, int* tickets, const ConvShape& s,
                      int splits, int k_per_split, cudaStream_t stream) {
+  using P = typename std::conditional<MODE == PIPE_PLAIN, Tile,
+                                      Moded<Tile, MODE>>::type;
   const int R = s.FH * s.FW * s.C;
   const size_t bytes = pipe_smem_bytes<T, P, VEC>(std::min(k_per_split, R));
   auto kernel = pipe_conv_kernel<T, P, VEC, false>;
@@ -836,17 +881,17 @@ using PipeM = Pipe<128, 64, 1>;
 using PipeS = Pipe<64, 64, 1>;
 using PipeG = Pipe<64, 64, 4>;
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, int MODE>
 int pipe_launch_vec(int tile, const void* x, const void* w, Epi ep,
                     const void* res, void* out, float* ws, int* tickets,
                     const ConvShape& s, int splits, int k_per_split,
                     cudaStream_t st) {
   switch (tile) {
-    case 0: return pipe_launch_tile<T, PipeM, VEC>(
+    case 0: return pipe_launch_tile<T, PipeM, VEC, MODE>(
         x, w, ep, res, out, ws, tickets, s, splits, k_per_split, st);
-    case 1: return pipe_launch_tile<T, PipeS, VEC>(
+    case 1: return pipe_launch_tile<T, PipeS, VEC, MODE>(
         x, w, ep, res, out, ws, tickets, s, splits, k_per_split, st);
-    case 2: return pipe_launch_tile<T, PipeG, VEC>(
+    case 2: return pipe_launch_tile<T, PipeG, VEC, MODE>(
         x, w, ep, res, out, ws, tickets, s, splits, k_per_split, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -856,8 +901,24 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// The instance the activation asks for: SiLU, else the plain one.
+template <typename T, bool VEC>
+int pipe_launch_mode(int tile, const void* x, const void* w, Epi ep,
+                     const void* res, void* out, float* ws, int* tickets,
+                     const ConvShape& s, int splits, int k_per_split,
+                     cudaStream_t st) {
+  if (ep.relu == EPI_ACT_SILU)
+    return pipe_launch_vec<T, VEC, PIPE_SILU>(tile, x, w, ep, res, out, ws,
+                                              tickets, s, splits,
+                                              k_per_split, st);
+  return pipe_launch_vec<T, VEC, PIPE_PLAIN>(tile, x, w, ep, res, out, ws,
+                                             tickets, s, splits, k_per_split,
+                                             st);
+}
+
 // Checks the plan against the operands (a path they do not allow, a split
-// that does not cover R = FH*FW*C exactly once) and launches.
+// that does not cover R = FH*FW*C exactly once, an activation it does not
+// have) and launches.
 template <typename T>
 int pipe_launch(int tile, int vec, const void* x, const void* w, Epi ep,
                 const void* res, void* out, float* ws, int* tickets,
@@ -870,17 +931,19 @@ int pipe_launch(int tile, int vec, const void* x, const void* w, Epi ep,
       (splits > 1 && ((int64_t)(splits - 1) * k_per_split >= R ||
                       ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
+  if (ep.relu < 0 || ep.relu > EPI_ACT_SILU)
+    return (int)cudaErrorInvalidValue;
   if (vec) {
     if (s.C % PIPE_BK != 0 || (s.K * sizeof(T)) % 16 != 0 || !aligned16(x) ||
         !aligned16(w) || !aligned16(out) || (res && !aligned16(res)))
       return (int)cudaErrorInvalidValue;
-    return pipe_launch_vec<T, true>(tile, x, w, ep, res, out, ws, tickets, s,
-                                    splits, k_per_split, st);
+    return pipe_launch_mode<T, true>(tile, x, w, ep, res, out, ws, tickets,
+                                     s, splits, k_per_split, st);
   }
   if (std::min(k_per_split, R) > PIPE_TABLE_MAX)
     return (int)cudaErrorInvalidValue;
-  return pipe_launch_vec<T, false>(tile, x, w, ep, res, out, ws, tickets, s,
-                                   splits, k_per_split, st);
+  return pipe_launch_mode<T, false>(tile, x, w, ep, res, out, ws, tickets,
+                                    s, splits, k_per_split, st);
 }
 
 }  // namespace carla

@@ -66,9 +66,10 @@ int mm_launch(int dtype, const void* x, const void* w, const void* scale,
 // Arguments of both. dtype: 0 = float32, 1 = bfloat16. x is NHWC
 // (B, H, W, C) read at stride S into M = B*OH*OW rows (a plain (M, C)
 // matrix is H = W = OH = OW = S = 1), w is (C, K), out and res (or null)
-// are (M, K) in x's type, scale/bias are fp32 (K,) or null. tile and vec as
-// carla_conv2d (csrc/conv2d.cu). Split z reduces channels [z * k_per_split,
-// (z + 1) * k_per_split); with splits > 1, ws holds splits * tiles * BM*BN
+// are (M, K) in x's type, scale/bias are fp32 (K,) or null. tile, vec and
+// relu as carla_conv2d (csrc/conv2d.cu). Split z reduces channels
+// [z * k_per_split, (z + 1) * k_per_split); with splits > 1, ws holds
+// splits * tiles * BM*BN
 // fp32 values and tickets one int32 counter per output tile, 0 before the
 // call and 0 again after it. Returns cudaGetLastError()
 // (cudaErrorInvalidValue for a plan the operands do not allow).

@@ -52,14 +52,14 @@ _SIGNATURES = {"carla_mm_act_stationary": _ARGS,
 
 def matmul_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                  scale=None, bias=None, relu: bool = False,
-                 residual=None) -> torch.Tensor:
+                 residual=None, silu: bool = False) -> torch.Tensor:
     """The kernels' function in plain PyTorch (fp32 accumulation, x's dtype)."""
     if x.ndim == 2:
         y = matmul_ref(x, w, scale=scale, bias=bias, relu=relu,
-                       residual=residual)
+                       residual=residual, silu=silu)
     else:
         y = conv1x1_ref(x, w, stride, scale=scale, bias=bias, relu=relu,
-                        residual=residual)
+                        residual=residual, silu=silu)
     return y.to(x.dtype)
 
 
@@ -89,9 +89,10 @@ def ws_plan(x, w, *, stride: int = 1, residual=None,
 
 def launch(route: str, x, w, plan: _build.GemmPlan, *, stride: int = 1,
            scale=None, bias=None, relu: bool = False,
-           residual=None) -> torch.Tensor:
+           residual=None, silu: bool = False) -> torch.Tensor:
     """Check the operands, launch ``route``'s entry point under ``plan``
-    and count the launch on the route's wrapper."""
+    and count the launch on the route's wrapper.  ``silu`` takes the
+    kernel's SiLU instance."""
     wrapper = _WRAPPERS[route]
     fn = wrapper.__name__
     m, c, h, wd, oh, ow, lead = _build.gemm_view(x.shape, stride)
@@ -101,6 +102,8 @@ def launch(route: str, x, w, plan: _build.GemmPlan, *, stride: int = 1,
     out_shape = (m, k) if lead is None else (*lead, k)
     code, sc, bi = _build.launch_operands(fn, x, w, out_shape, scale, bias,
                                           residual)
+    if relu and silu:
+        raise ValueError(f"{fn}: ReLU or SiLU, not both")
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     ws, tickets = _build.pipe_workspace(x, plan, m, k)
     r = _build.ROUTES[route]
@@ -110,7 +113,7 @@ def launch(route: str, x, w, plan: _build.GemmPlan, *, stride: int = 1,
             code, x.data_ptr(), w.data_ptr(), _build.ptr(sc), _build.ptr(bi),
             _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
             _build.ptr(tickets), m, c, k, h, wd, stride, oh, ow, plan.tile,
-            int(plan.vec), plan.splits, plan.per, int(relu),
+            int(plan.vec), plan.splits, plan.per, 2 if silu else int(relu),
             torch.cuda.current_stream().cuda_stream), fn, route)
     wrapper.launches += 1
     return out

@@ -17,6 +17,13 @@ engine ``autotune.launch_plan`` makes the launch's plan, which the launch
 and both spans read; the plain versions have no plan, so on the ``ref``
 engine no tuned tile applies.
 
+``carla_conv`` hands a depthwise conv (a ``(k, k, 1, C)`` filter) to the
+depthwise kernel (``kernels.dwconv``, route ``dwconv``, a
+``kernels.dwconv`` span), which has no plan to tune.  ``se_gate`` is the
+squeeze-and-excitation gate of an MBConv block (``kernels.se``), from the
+tile sums its depthwise conv wrote, and ``se_scale`` the pass that applies
+it to the block's depthwise map.
+
 ``conv1d_causal`` is Mamba2's short depthwise conv (no epilogue, no tiling
 ledger: its span carries the same attributes as ``repro``'s).  The attention
 kernels have no dispatch here, as in ``repro``: the models call their
@@ -52,7 +59,9 @@ from ..core.modes import Stationarity
 from ..observability import trace
 from . import conv1d as _conv1d_mod
 from . import conv2d as _conv2d_mod
+from . import dwconv as _dw
 from . import matmul as _mm
+from . import se as _se
 
 _NO_EPILOGUE = Epilogue()
 IMPLS = ("auto", "cuda", "ref")
@@ -91,7 +100,8 @@ def plan_attrs(d: Decision, x, w, out, ep: Epilogue, plan, entry,
     x_elems = x.numel() if d.stationarity is None else d.rows * d.reduction
     attrs = dict(
         bytes_touched=(x_elems * x.element_size()
-                       + _nbytes(w, out, ep.scale, ep.bias, ep.residual)),
+                       + _nbytes(w, out, ep.scale, ep.bias, ep.residual,
+                                 ep.sums)),
         epilogue=ep.tag, tuned=entry is not None,
         tile_config=tiles.short if tiles is not None else "default",
         tuning_source=entry.source if entry is not None else untuned,
@@ -102,9 +112,26 @@ def plan_attrs(d: Decision, x, w, out, ep: Epilogue, plan, entry,
     return attrs
 
 
+def _check_epilogue(d: Decision, w, ep: Epilogue, padding: int) -> None:
+    """Raise for what the decision's kernel does not take: tile sums on any
+    but the depthwise conv, a residual on it, or another padding than its
+    (k - 1) // 2."""
+    dw = d.route == autotune.DWCONV
+    if ep.sums is not None and not dw:
+        raise ValueError("tile sums come from the depthwise conv")
+    if dw and (ep.residual is not None or padding != (w.shape[0] - 1) // 2):
+        raise ValueError("the depthwise conv takes no residual and pads "
+                         f"(k - 1) // 2, got padding {padding}")
+
+
 def _run(d: Decision, x, w, ep: Epilogue, stride, padding, impl):
     """(output, the plan that launched or None) of decision ``d``."""
-    kw = dict(scale=ep.scale, bias=ep.bias, relu=ep.relu, residual=ep.residual)
+    _check_epilogue(d, w, ep, padding)
+    kw = dict(scale=ep.scale, bias=ep.bias, relu=ep.relu, silu=ep.silu)
+    if d.route == autotune.DWCONV:
+        fn = _dw.launch if impl == "cuda" else _dw.dwconv_plain
+        return fn(x, w, stride=stride, sums=ep.sums, **kw), None
+    kw["residual"] = ep.residual
     conv = d.route == autotune.CONV2D
     if impl != "cuda":
         if conv:
@@ -167,6 +194,39 @@ def gemm(x, w, *, impl: str = "auto",
     d = autotune.decide(x.shape, w.shape, 1, 0, dtype_name(x), ep.tag,
                         stationarity=stationarity)
     return _dispatch("kernels.gemm", d, x, w, ep, impl)[0]
+
+
+def se_gate(sums, npix: int, w1, b1, w2, b2, *, impl: str = "auto"):
+    """The squeeze-and-excitation gate (B, C) fp32 of a block from the tile
+    sums (B, tiles, C) its depthwise conv wrote over ``npix`` pixels; a
+    ``kernels.se_gate`` span when tracing."""
+    impl = resolve(impl, sums)
+    fn = _se.launch if impl == "cuda" else _se.se_gate_plain
+    if not trace.enabled():
+        return fn(sums, npix, w1, b1, w2, b2)
+    with trace.span("kernels.se_gate") as sp:
+        out = fn(sums, npix, w1, b1, w2, b2)
+    c, r = w1.shape
+    sp.attrs.update(impl=impl, sums_shape=list(sums.shape), npix=npix,
+                    w1_shape=list(w1.shape), dtype=dtype_name(w1),
+                    flops=int(sums.numel() + 4 * sums.shape[0] * c * r),
+                    bytes_touched=_nbytes(sums, w1, b1, w2, b2, out))
+    return out
+
+
+def se_scale(x, gate, *, impl: str = "auto"):
+    """The squeeze-and-excitation gate (B, C) fp32 applied to the map x
+    (B, H, W, C) in a pass of its own (in place on the ``cuda`` engine); a
+    ``kernels.se_scale`` span when tracing."""
+    impl = resolve(impl, x)
+    fn = _se.scale_launch if impl == "cuda" else _se.se_scale_plain
+    if not trace.enabled():
+        return fn(x, gate)
+    with trace.span("kernels.se_scale") as sp:
+        out = fn(x, gate)
+    sp.attrs.update(impl=impl, x_shape=list(x.shape), dtype=dtype_name(x),
+                    flops=int(x.numel()), bytes_touched=_nbytes(x, gate, out))
+    return out
 
 
 def _conv1d(x, w, impl):

@@ -31,16 +31,19 @@ def _exact_fp32(t: torch.Tensor):
 
 
 def epilogue_ref(y: torch.Tensor, scale=None, bias=None, relu: bool = False,
-                 residual=None) -> torch.Tensor:
+                 residual=None, silu: bool = False) -> torch.Tensor:
     """The epilogue the fused kernels apply at flush, in fp32, unfused.
 
     Order matches the kernels (and the ResNet bottleneck):
-    scale/bias -> residual add -> ReLU.
+    scale/bias -> residual add -> ReLU; with ``silu`` (EfficientNet's
+    blocks) scale/bias -> SiLU -> residual add.
     """
     if scale is not None:
         y = y * scale.float()
     if bias is not None:
         y = y + bias.float()
+    if silu:
+        y = F.silu(y)
     if residual is not None:
         y = y + residual.float()
     if relu:
@@ -50,33 +53,74 @@ def epilogue_ref(y: torch.Tensor, scale=None, bias=None, relu: bool = False,
 
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                padding: int = 0, *, scale=None, bias=None, relu: bool = False,
-               residual=None) -> torch.Tensor:
+               residual=None, silu: bool = False) -> torch.Tensor:
     """x: (B, H, W, C), w: (FH, FW, C, K) -> (B, OH, OW, K). fp32 accumulate."""
     with _exact_fp32(x):
         y = F.conv2d(x.float().permute(0, 3, 1, 2),
                      w.float().permute(3, 2, 0, 1),
                      stride=stride, padding=padding)
     y = y.permute(0, 2, 3, 1).contiguous()
-    return epilogue_ref(y, scale, bias, relu, residual)
+    return epilogue_ref(y, scale, bias, relu, residual, silu)
 
 
 def conv1x1_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
                 scale=None, bias=None, relu: bool = False,
-                residual=None) -> torch.Tensor:
+                residual=None, silu: bool = False) -> torch.Tensor:
     """x: (B, H, W, C), w: (C, K); pointwise conv == GEMM over channels."""
     if stride != 1:
         x = x[:, ::stride, ::stride, :]
     b, h, wd, c = x.shape
     y = matmul_ref(x.reshape(b * h * wd, c), w).reshape(b, h, wd, -1)
-    return epilogue_ref(y, scale, bias, relu, residual)
+    return epilogue_ref(y, scale, bias, relu, residual, silu)
 
 
 def matmul_ref(x: torch.Tensor, w: torch.Tensor, *, scale=None, bias=None,
-               relu: bool = False, residual=None) -> torch.Tensor:
+               relu: bool = False, residual=None,
+               silu: bool = False) -> torch.Tensor:
     """x: (M, C), w: (C, K) -> (M, K) with fp32 accumulation."""
     with _exact_fp32(x):
         y = torch.matmul(x.float(), w.float())
-    return epilogue_ref(y, scale, bias, relu, residual)
+    return epilogue_ref(y, scale, bias, relu, residual, silu)
+
+
+def dwconv_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1, *,
+               scale=None, bias=None, relu: bool = False,
+               silu: bool = False) -> torch.Tensor:
+    """Depthwise: x (B, H, W, C), w (k, k, 1, C), k odd, padding
+    (k - 1) // 2 -> (B, OH, OW, C) in fp32, with the epilogue."""
+    k, c = w.shape[0], w.shape[-1]
+    with _exact_fp32(x):
+        y = F.conv2d(x.float().permute(0, 3, 1, 2),
+                     w.float().permute(3, 2, 0, 1), stride=stride,
+                     padding=(k - 1) // 2, groups=c)
+    y = y.permute(0, 2, 3, 1).contiguous()
+    return epilogue_ref(y, scale, bias, relu, None, silu)
+
+
+def tile_sums_ref(y: torch.Tensor, tile_pix: int) -> torch.Tensor:
+    """(B, OH, OW, C) -> fp32 (B, tiles, C): each run of ``tile_pix`` pixels
+    (row-major, the last one short) summed by channel."""
+    b, oh, ow, c = y.shape
+    tiles = -(-oh * ow // tile_pix)
+    flat = y.float().reshape(b, oh * ow, c)
+    flat = F.pad(flat, (0, 0, 0, tiles * tile_pix - oh * ow))
+    return flat.reshape(b, tiles, tile_pix, c).sum(2)
+
+
+def se_gate_ref(sums: torch.Tensor, npix: int, w1, b1, w2,
+                b2) -> torch.Tensor:
+    """The squeeze-and-excitation gate from the tiles' sums (B, tiles, C):
+    sigmoid(SiLU(mean @ w1 + b1) @ w2 + b2), fp32 (B, C)."""
+    mean = sums.float().sum(1) / npix
+    with _exact_fp32(sums):
+        h = F.silu(mean @ w1.float() + b1.float())
+        return torch.sigmoid(h @ w2.float() + b2.float())
+
+
+def se_scale_ref(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, C) times the gate (B, C) by image and channel, one
+    fp32 product rounded to x's type."""
+    return (x.float() * gate.float()[:, None, None, :]).to(x.dtype)
 
 
 NEG_INF = -2.3819763e38   # bf16-safe large negative, as in the Pallas kernels

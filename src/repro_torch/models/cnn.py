@@ -72,19 +72,24 @@ def _bn(params, x):
 
 def _conv_bn(x, w, bn, *, fused: bool, relu: bool = False,
              residual=None, stride: int = 1, padding: int = 0,
-             impl: str = "auto", name: str = "conv", sparsity=None):
+             impl: str = "auto", name: str = "conv", sparsity=None,
+             silu: bool = False, sums=None):
     """conv + folded-BN (+residual) (+ReLU), fused into the kernel flush or
-    as the unfused op-by-op sequence (the parity/bytes baseline)."""
+    as the unfused op-by-op sequence (the parity/bytes baseline).  With
+    ``silu`` the activation is SiLU, before the residual; ``sums`` takes a
+    depthwise conv's tile sums (fused only)."""
     if fused:
         ep = Epilogue(scale=None if bn is None else bn["scale"],
                       bias=None if bn is None else bn["bias"],
-                      relu=relu, residual=residual)
+                      relu=relu, residual=residual, silu=silu, sums=sums)
         return carla_conv(x, w, stride=stride, padding=padding, impl=impl,
                           epilogue=ep, name=name, sparsity=sparsity)
     y = carla_conv(x, w, stride=stride, padding=padding, impl=impl,
                    name=name, sparsity=sparsity)
     if bn is not None:
         y = _bn(bn, y)
+    if silu:
+        y = F.silu(y)
     if residual is not None:
         y = y + residual
     return torch.relu(y) if relu else y
@@ -118,13 +123,20 @@ def _max_pool_ops(x: torch.Tensor, window: int, stride: int,
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def _head(x: torch.Tensor, fc_w: torch.Tensor) -> torch.Tensor:
-    """Global mean then the classifier product, left to plain PyTorch; a
-    ``cnn.head`` span when tracing is on."""
+def _head(x: torch.Tensor, fc_w: torch.Tensor,
+          fc_b: torch.Tensor | None = None) -> torch.Tensor:
+    """Global mean then the classifier product (and its bias, where the net
+    has one), left to plain PyTorch; a ``cnn.head`` span when tracing is
+    on."""
     if not trace.enabled():
-        return x.mean(dim=(1, 2)) @ fc_w.to(x.dtype)
+        return _head_ops(x, fc_w, fc_b)
     with trace.span("cnn.head"):
-        return x.mean(dim=(1, 2)) @ fc_w.to(x.dtype)
+        return _head_ops(x, fc_w, fc_b)
+
+
+def _head_ops(x, fc_w, fc_b):
+    y = x.mean(dim=(1, 2)) @ fc_w.to(x.dtype)
+    return y if fc_b is None else y + fc_b.to(y.dtype)
 
 
 def _forward(apply, run, params, x: torch.Tensor, keep=None,

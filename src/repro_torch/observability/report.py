@@ -36,11 +36,12 @@ CARLA_SPAN = "carla_conv"
 class ReconRow:
     layer: str
     dataflow: str
-    # analytic (per inference, batch-1, from LayerCost)
-    analytic_cycles: int
-    analytic_ms: float
-    analytic_dram_mb: float
-    analytic_puf: float
+    # analytic (per inference, batch-1, from LayerCost); None for a layer
+    # the ASIC model cannot cost (a depthwise conv)
+    analytic_cycles: int | None
+    analytic_ms: float | None
+    analytic_dram_mb: float | None
+    analytic_puf: float | None
     # measured (per dispatch, whatever batch the span ran)
     batch: int
     measured_ms: float
@@ -66,7 +67,7 @@ class ReconRow:
     @property
     def speed_ratio(self) -> float:
         """Measured wall time over analytic ASIC time, batch-normalized."""
-        if self.analytic_ms <= 0:
+        if not self.analytic_ms or self.analytic_ms <= 0:
             return float("inf")
         return (self.measured_ms / max(1, self.batch)) / self.analytic_ms
 
@@ -93,12 +94,14 @@ def reconcile(spans: list[Span],
     out = []
     for s, batch, gflops in rows:
         a = s.attrs
+        costed = a["analytic_cycles"] is not None
         out.append(ReconRow(
             layer=a["layer"],
             dataflow=a["dataflow"],
-            analytic_cycles=int(a["analytic_cycles"]),
+            analytic_cycles=int(a["analytic_cycles"]) if costed else None,
             analytic_ms=a["analytic_time_ms"],
-            analytic_dram_mb=a["analytic_dram_bytes"] / 1e6,
+            analytic_dram_mb=(a["analytic_dram_bytes"] / 1e6 if costed
+                              else None),
             analytic_puf=a["analytic_puf"],
             batch=batch,
             measured_ms=s.duration_s * 1e3,
@@ -120,20 +123,23 @@ def reconcile(spans: list[Span],
 
 
 def totals(rows: list[ReconRow]) -> dict:
-    """Network-level sums (the Table II bottom line)."""
+    """Network-level sums (the Table II bottom line); the analytic sums
+    and ``speed_ratio`` over the layers the ASIC model costs."""
     if not rows:
         return {}
-    an_ms = sum(r.analytic_ms for r in rows)
+    costed = [r for r in rows if r.analytic_ms is not None]
+    an_ms = sum(r.analytic_ms for r in costed)
     me_ms = sum(r.measured_ms / max(1, r.batch) for r in rows)
     twin_macs = sum(r.dense_twin_macs for r in rows)
     return {
         "layers": len(rows),
         "analytic_ms": an_ms,
-        "analytic_dram_mb": sum(r.analytic_dram_mb for r in rows),
+        "analytic_dram_mb": sum(r.analytic_dram_mb for r in costed),
         "measured_ms_per_image": me_ms,
         "measured_bytes_mb": sum(r.measured_bytes_mb for r in rows),
         "fused_saved_mb": sum(r.fused_saved_mb for r in rows),
-        "speed_ratio": me_ms / an_ms if an_ms else float("inf"),
+        "speed_ratio": (sum(r.measured_ms / max(1, r.batch) for r in costed)
+                        / an_ms if an_ms else float("inf")),
         "pruned_layers": sum(1 for r in rows if r.pruned),
         # kept MAC fraction over the whole net vs the dense twins (1.0 dense)
         "mac_keep_fraction": (sum(r.macs for r in rows) / twin_macs
@@ -148,8 +154,9 @@ def format_table(rows: list[ReconRow]) -> str:
                "epilogue", "savedMB", "tile%", "tiles", "keep%"]
     cells = [[
         r.layer, r.dataflow.replace("_", "-"),
-        f"{r.analytic_cycles:,}", f"{r.analytic_ms:7.3f}",
-        f"{r.analytic_dram_mb:6.2f}", f"{r.analytic_puf * 100:5.1f}",
+        *((f"{r.analytic_cycles:,}", f"{r.analytic_ms:7.3f}",
+           f"{r.analytic_dram_mb:6.2f}", f"{r.analytic_puf * 100:5.1f}")
+          if r.analytic_cycles is not None else ("-",) * 4),
         str(r.batch), f"{r.measured_ms:8.2f}", f"{r.measured_bytes_mb:6.2f}",
         f"{r.achieved_gflops:7.2f}", f"{r.measured_util * 100:5.1f}",
         f"{r.speed_ratio:6.2f}", r.epilogue, f"{r.fused_saved_mb:6.2f}",

@@ -30,7 +30,9 @@ from repro_torch.core.autotune import AS, WS
 from repro_torch.core.fuse import Epilogue
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import conv2d as t_conv
+from repro_torch.kernels import dwconv as t_dw
 from repro_torch.kernels import matmul as t_mm
+from repro_torch.kernels import se as t_se
 
 EPILOGUES = [(), ("scale",), ("bias",), ("residual",), ("relu",),
              ("scale", "bias", "relu"), ("scale", "bias", "residual", "relu")]
@@ -171,7 +173,9 @@ def _c_signatures(source: str) -> dict:
 
 
 @pytest.mark.parametrize("module,source", [(t_conv, "conv2d.cu"),
-                                           (t_mm, "matmul.cu")])
+                                           (t_mm, "matmul.cu"),
+                                           (t_dw, "dwconv.cu"),
+                                           (t_se, "se.cu")])
 def test_ctypes_signatures_match_the_c_entry_points(module, source):
     """ctypes must declare every pointer (and the stream) as c_void_p."""
     import ctypes
@@ -188,8 +192,8 @@ def test_build_hash_covers_every_source():
             "ptx.cuh"} <= names
     assert "tile_gemm.cuh" not in names
     assert [p.name for p in _build.sources()] == [
-        "conv1d.cu", "conv2d.cu", "decode_attention.cu", "flash_attention.cu",
-        "matmul.cu"]
+        "conv1d.cu", "conv2d.cu", "decode_attention.cu", "dwconv.cu",
+        "flash_attention.cu", "matmul.cu", "se.cu"]
     assert len(_build.source_hash()) == 16
     gitignore = (Path(__file__).parents[1] / ".gitignore").read_text()
     assert "src/repro_torch/kernels/_build/" in gitignore.split()
