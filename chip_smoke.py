@@ -1192,13 +1192,29 @@ def check_efficientnet(chk: Checker, calls: list[dict], peaks: dict, flush,
     return by_kernel
 
 
+class StagedGates:
+    """``se_gate.staged_launches`` read and reset as ``run_model`` reads and
+    resets a wrapper's ``launches``."""
+
+    @property
+    def launches(self) -> int:
+        from repro_torch.kernels import se as se_mod
+        return se_mod.se_gate.staged_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from repro_torch.kernels import se as se_mod
+        se_mod.se_gate.staged_launches = n
+
+
 def run_efficientnet(trace, counters: dict, no_lm: dict, peaks: dict, flush,
                      gen) -> tuple[dict, dict]:
     """EfficientNetV2-S at 384 x 384, batch 1: every distinct kernel call
     of its forward checked and timed (``check_efficientnet``), then the
     forward through ``run_model``, whose counted call must launch each
     kernel as often as the traced plain forward dispatched it: the
-    depthwise convs, SE gates and gate passes among them."""
+    depthwise convs, SE gates and gate passes among them, every gate in its
+    staged instance."""
     from repro_torch.kernels import dwconv as dw_mod
     from repro_torch.kernels import se as se_mod
     from repro_torch.models import efficientnet
@@ -1228,8 +1244,11 @@ def run_efficientnet(trace, counters: dict, no_lm: dict, peaks: dict, flush,
                 "dwconv": 0, "se_gate": 0, "se_scale": 0}
     for c in calls:
         expected[c["kernel"]] += 1
+    # every gate of the net holds its weights' slices in shared memory
+    expected["se_gate_staged"] = expected["se_gate"]
     counted = {**counters, "dwconv": dw_mod.dwconv,
-               "se_gate": se_mod.se_gate, "se_scale": se_mod.se_scale}
+               "se_gate": se_mod.se_gate, "se_scale": se_mod.se_scale,
+               "se_gate_staged": StagedGates()}
     rec = run_model("efficientnetv2_s", apply, params, x, counted, expected)
     return rec, by_kernel
 
@@ -3837,6 +3856,8 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": src,
             "replaces": "no TPU kernel", "launches": eff[kname],
             "launches_by_path": {"efficientnetv2_s": eff[kname]},
+            **({"staged_launches": eff["se_gate_staged"]}
+               if kname == "se_gate" else {}),
             **{f: r[f] for f in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by")},
             "shapes": "the EfficientNetV2-S forward's calls (batch 1, "

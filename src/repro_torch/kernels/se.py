@@ -5,10 +5,16 @@ wrapper.
 that the block's depthwise conv wrote beside its map of ``npix`` pixels
 (``kernels.dwconv``), ``gate = sigmoid(SiLU(mean @ w1 + b1) @ w2 + b2)``,
 fp32 ``(B, C)``, with ``mean = sums.sum(1) / npix``, ``w1`` (C, R), ``w2``
-(R, C) in the weights' dtype and fp32 biases.  One launch a block (a
-cluster of blocks an image); every sum in a fixed order.  The source's
-header note says why the kernel exists, what bounds it and how its design
-answers that.
+(R, C) in the weights' dtype and fp32 biases.  One launch a block, a
+cluster of ``CLUSTER`` blocks an image, each owning a slice of the
+channels; every sum in a fixed order (the first fc's as partial sums of
+each slice, added in the slices' order).  The source's header note says
+why the kernel exists, what bounds it and how its design answers that.
+``stages`` chooses its instance from C, R and the dtype: the staged one,
+whose blocks hold their slices of ``w1`` and ``w2`` in shared memory, copied
+there while the depthwise conv before it runs, wherever they fit the
+card's opt-in limit (every gate of EfficientNetV2-S); otherwise the same
+algorithm reads the weights from memory.
 
 ``se_scale`` applies the gate to the map in a pass of its own (the same
 source), ``x[b, p, c] * gate[b, c]`` rounded to x's type, in place by
@@ -17,11 +23,13 @@ default; the block's projection then reads the gated map.
 ``se_gate_plain`` and ``se_scale_plain`` are the plain PyTorch versions of
 the same functions.  A tensor on the CPU takes them; a CUDA tensor launches
 the kernels or raises.  ``se_gate.launches`` and ``se_scale.launches``
-count launches.  Forward only.
+count launches, ``se_gate.staged_launches`` the gate's launches of the
+staged instance.  Forward only.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,8 +37,42 @@ from . import _build
 from .ref import se_gate_ref, se_scale_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"carla_se_gate": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+_SIGNATURES = {"carla_se_gate": [_I] + [_P] * 6 + [_I] * 6 + [_P],
+               "carla_se_smem_limit": [_I, _P],
                "carla_se_scale": [_I] + [_P] * 3 + [_I] * 3 + [_P]}
+CLUSTER = 8      # se.cu's SE_CLUSTER: blocks an image
+THREADS = 512    # se.cu's SE_THREADS: threads a block
+
+
+def smem_bytes(c: int, r: int, element_size: int, staged: bool) -> int:
+    """A gate block's dynamic shared memory in bytes, as ``se.cu``'s
+    ``se_smem`` counts it: fp32 slices of the mean and b2, h's partials, h,
+    b1 and the threads' parts, an mbarrier, and, staged, the block's rows of
+    w1 and columns of w2 in the weights' dtype."""
+    cc = -(-c // CLUSTER)
+    a16 = lambda n: -(-n // 16) * 16
+    head = a16(4 * (2 * cc + 3 * r + THREADS)) + 16
+    return head + 2 * a16(cc * r * element_size) if staged else head
+
+
+def stages(c: int, r: int, dtype: torch.dtype, limit: int) -> bool:
+    """Whether a gate of ``c`` channels and width ``r`` with weights in
+    ``dtype`` runs the staged instance: a block's slices of both weights
+    fit ``limit`` bytes of shared memory (the card's opt-in limit a
+    block) beside the rest."""
+    return smem_bytes(c, r, dtype.itemsize, True) <= limit
+
+
+@functools.cache
+def smem_limit(device_index: int) -> int:
+    """The opt-in limit of shared memory a block on a CUDA device, in
+    bytes."""
+    lib = _build.load(_build.ROUTES["se"].lib, _SIGNATURES)
+    out = ctypes.c_int()
+    _build.check(lib.carla_se_smem_limit(device_index,
+                                         ctypes.addressof(out)),
+                 "se_gate: shared memory limit")
+    return out.value
 
 
 def se_gate_plain(sums: torch.Tensor, npix: int, w1, b1, w2,
@@ -79,18 +121,21 @@ def launch(sums, npix: int, w1, b1, w2, b2) -> torch.Tensor:
               for v in (b1, b2))
     route = _build.ROUTES["se"]
     lib = _build.load(route.lib, _SIGNATURES)
+    staged = stages(c, r, w1.dtype, smem_limit(sums.device.index))
     gate = torch.empty((b, c), dtype=torch.float32, device=sums.device)
     with torch.cuda.device(sums.device):
         _build.launch(getattr(lib, route.entry), (
             _build.DTYPE_CODES[w1.dtype], sums.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gate.data_ptr(), b,
-            tiles, npix, c, r, torch.cuda.current_stream().cuda_stream),
-            "se_gate", "se")
+            tiles, npix, c, r, int(staged),
+            torch.cuda.current_stream().cuda_stream), "se_gate", "se")
     se_gate.launches += 1
+    se_gate.staged_launches += staged
     return gate
 
 
 se_gate.launches = 0
+se_gate.staged_launches = 0
 
 
 def se_scale_plain(x: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:

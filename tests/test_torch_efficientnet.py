@@ -4,17 +4,20 @@ On the CPU: the port's plain path (``impl="ref"``) against the benchmark's
 plain reference (``portbench/reference/efficientnet_v2.py``) on seeded
 weights at width 0.25 and 64 x 64; the depthwise conv's plain path against
 ``F.conv2d(groups=C)``; the squeeze-and-excitation gate and its pass
-against their formulas; the SiLU epilogue's tag and order; which convs take
-a residual.
+against their formulas, the gate kernel's order of summation in plain
+PyTorch against the plain version, and which gates run its staged
+instance; the SiLU epilogue's tag and order; which convs take a residual.
 
 On the card (``chip``, skipped without one): the depthwise kernel at every
 depthwise shape of the net, the SE kernel and its gate pass, and
 ``gemm_pipe.cuh``'s SiLU instance against their plain versions, fp32 and
-bf16; a graph replay equal in bits to the eager forward.
+bf16; every gate of an eager forward staged; a graph replay equal in bits
+to the eager forward.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_efficientnet.py
 """
 import json
+import re
 from pathlib import Path
 
 import pytest
@@ -37,6 +40,7 @@ from repro_torch.observability import trace
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG = json.loads((ROOT / "portbench" / "configs" /
                      "efficientnetv2_s.json").read_text())
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def small_config(width: float = 0.25, size: int = 64) -> dict:
@@ -161,6 +165,63 @@ def test_se_gate_matches_its_formula():
         t_se.se_gate(sums, 35, w1, b1, w2.t(), b2)
 
 
+# (C, R) of every SE gate of the net, and a gate whose slices are uneven
+SE_GATES = sorted({(b[3], b[7]) for b in eff.blocks() if b[1] == "mbconv"})
+H100_SMEM_OPTIN = 232448     # bytes of shared memory a block may opt in to
+
+
+def test_the_gate_constants_are_the_kernels():
+    text = (ROOT / "src" / "repro_torch" / "kernels" / "csrc" /
+            "se.cu").read_text()
+    got = {k: int(v) for k, v in re.findall(
+        r"constexpr int (SE_CLUSTER|SE_THREADS) = (\d+);", text)}
+    assert got == {"SE_CLUSTER": t_se.CLUSTER, "SE_THREADS": t_se.THREADS}
+    assert SE_GATES == [(256, 16), (512, 32), (768, 32), (960, 40),
+                        (1536, 64)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_every_gate_of_the_net_is_staged(dtype):
+    dt = DTYPES[dtype]
+    assert all(t_se.stages(c, r, dt, H100_SMEM_OPTIN) for c, r in SE_GATES)
+    # C 1536, R 64 in fp32: a block's slices are 2 x 192 x 64 x 4 bytes
+    assert t_se.smem_bytes(1536, 64, 4, True) == \
+        t_se.smem_bytes(1536, 64, 4, False) + 2 * 192 * 64 * 4
+    assert t_se.smem_bytes(1536, 64, 4, True) > 48 * 1024
+    # a wide gate's slices do not fit: the same algorithm from memory
+    assert not t_se.stages(3840, 160, torch.float32, H100_SMEM_OPTIN)
+    assert not t_se.stages(3840, 160, torch.bfloat16, H100_SMEM_OPTIN)
+    assert t_se.smem_bytes(3840, 160, 4, False) <= 48 * 1024
+
+
+def _gate_by_slices(sums, npix, w1, b1, w2, b2):
+    """The kernel's order of summation: each block's slice of channels
+    gives a partial pre-activation of h, and the partials are added in the
+    blocks' order, then b1."""
+    c = sums.shape[-1]
+    cc = -(-c // t_se.CLUSTER)
+    mean = sums.sum(1) / npix
+    pre = torch.zeros((sums.shape[0], w1.shape[1]))
+    for r in range(t_se.CLUSTER):
+        sl = slice(min(c, r * cc), min(c, (r + 1) * cc))
+        pre = pre + mean[:, sl] @ w1[sl]
+    return torch.sigmoid(F.silu(pre + b1) @ w2 + b2)
+
+
+@pytest.mark.parametrize("c,r", SE_GATES + [(20, 3)])
+def test_the_gates_order_of_summation_is_the_plain_versions(c, r):
+    gen = torch.Generator().manual_seed(c + r)
+    tiles = t_dw.sum_tiles(12, 12)
+    sums = torch.randn((2, tiles, c), generator=gen) * 4
+    w1 = torch.randn((c, r), generator=gen) / c ** .5
+    w2 = torch.randn((r, c), generator=gen) / r ** .5
+    b1 = torch.rand(r, generator=gen) - 0.5
+    b2 = torch.rand(c, generator=gen) - 0.5
+    got = _gate_by_slices(sums, 144, w1, b1, w2, b2)
+    want = t_se.se_gate_plain(sums, 144, w1, b1, w2, b2)
+    assert (got - want).abs().max().item() <= 1e-6
+
+
 def test_se_pass_scales_the_map_by_image_and_channel():
     gen = torch.Generator().manual_seed(5)
     d = torch.randn((2, 3, 4, 8), generator=gen)
@@ -247,7 +308,6 @@ def _no_tf32():
 DW_SHAPES = sorted({(h, c, s) for h, c, s in (
     (48, 256, 2), (24, 512, 1), (24, 768, 1), (24, 960, 1), (24, 960, 2),
     (12, 1536, 1))})
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def test_the_card_shapes_are_the_nets():
@@ -313,7 +373,7 @@ def test_dwconv_kernel_other_filters_and_the_scalar_path(cuda, k, c):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("b,c,r,pix", [(1, 256, 16, 576), (1, 960, 40, 144),
                                        (1, 1536, 64, 144), (3, 768, 32, 576),
-                                       (2, 20, 3, 35)])
+                                       (2, 20, 3, 35), (1, 3840, 160, 144)])
 def test_se_kernel_matches_its_plain_version(cuda, b, c, r, pix, dtype):
     _no_tf32()
     dt = DTYPES[dtype]
@@ -324,12 +384,15 @@ def test_se_kernel_matches_its_plain_version(cuda, b, c, r, pix, dtype):
     w2 = (torch.randn((r, c), generator=gen, device=cuda) / r ** .5).to(dt)
     b1 = torch.rand(r, generator=gen, device=cuda) - 0.5
     b2 = torch.rand(c, generator=gen, device=cuda) - 0.5
+    staged = t_se.se_gate.staged_launches
     got = t_se.se_gate(sums, pix, w1, b1, w2, b2)
     again = t_se.se_gate(sums, pix, w1, b1, w2, b2)
     want = t_se.se_gate_plain(sums, pix, w1, b1, w2, b2)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and torch.equal(got, again)
     assert (got - want).abs().max().item() <= 1e-5
+    # the wide gate reads its weights from memory, every other stages them
+    assert t_se.se_gate.staged_launches - staged == (0 if c == 3840 else 2)
 
 
 # (output map, channels) of every SE gate pass of the net at 384, beside
@@ -415,6 +478,20 @@ def _card_params(dtype, seed=0):
         params = harness._tree(lambda t: t.bfloat16() if t.dim() > 1 else t,
                                params)
     return params, gen
+
+
+@pytest.mark.chip
+def test_every_gate_of_an_eager_forward_runs_staged(cuda):
+    params, gen = _card_params(torch.float32)
+    x = torch.randn((1, 384, 384, 3), generator=gen, device=cuda)
+    apply = eff.efficientnetv2_s_apply
+    cnn_graph.reset(apply)
+    before = (t_se.se_gate.launches, t_se.se_gate.staged_launches)
+    apply(params, x)
+    torch.cuda.synchronize()
+    assert apply.graph_eager["new_key"] == 1
+    assert (t_se.se_gate.launches - before[0],
+            t_se.se_gate.staged_launches - before[1]) == (30, 30)
 
 
 @pytest.mark.chip
